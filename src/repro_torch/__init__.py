@@ -1,0 +1,13 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
+
+The package mirrors ``repro``'s module paths so each port sits beside its
+reference counterpart.  It imports ``torch`` and numpy only: never ``jax``
+and never ``repro`` (``import repro`` pulls in jax), so the framework-free
+numpy modules it needs are kept here as copies.  Kernels are written by hand
+for ``sm_90a`` under ``csrc/`` and built on first use; nothing is built or
+loaded when a module is imported.
+
+Ported so far (the GCN serving slice): graph, reorder, block-ELL builder,
+LRU cache, telemetry, the compact block-ELL SpMM kernel, the forward
+execution plans, GCN, the serving engine and ``launch.serve``.
+"""

@@ -1,0 +1,111 @@
+"""Synthetic Cora-shaped graphs (numpy copy of ``repro/graph/datasets.py``).
+
+The generator draws from one numpy ``default_rng(seed)`` stream, so its
+output is byte-equal to the reference's for the same spec (the tests assert
+it).  Community (SBM-style) structure on a power-law degree profile, node ids
+shuffled at the end so reordering is not handed its answer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+
+from .structure import Graph
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetSpec:
+    name: str
+    num_nodes: int
+    num_edges: int
+    feat_dim: int
+    num_classes: int
+    community: float = 0.8  # fraction of edges kept intra-community
+    num_communities: Optional[int] = None
+    seed: int = 0
+
+
+def _power_law_degrees(n: int, m: int, rng: np.random.Generator,
+                       alpha: float = 2.1) -> np.ndarray:
+    """Draw a degree sequence with a power-law tail summing to ~m."""
+    raw = rng.pareto(alpha - 1.0, size=n) + 1.0
+    deg = np.maximum(1, np.round(raw * (m / raw.sum()))).astype(np.int64)
+    diff = m - int(deg.sum())
+    if diff > 0:
+        idx = rng.integers(0, n, size=diff)
+        np.add.at(deg, idx, 1)
+    elif diff < 0:
+        order = np.argsort(-deg)
+        for i in order:
+            take = min(deg[i] - 1, -diff)
+            deg[i] -= take
+            diff += take
+            if diff >= 0:
+                break
+    return deg
+
+
+def synthesize(spec: DatasetSpec) -> Graph:
+    """Community (SBM-ish) + power-law graph with features and labels."""
+    rng = np.random.default_rng(spec.seed)
+    n, m = spec.num_nodes, spec.num_edges
+    k = spec.num_communities or max(2, int(np.sqrt(n / 4)))
+    comm = rng.integers(0, k, size=n)
+    comm_members: Dict[int, np.ndarray] = {c: np.flatnonzero(comm == c)
+                                           for c in range(k)}
+    deg = _power_law_degrees(n, m, rng)
+    base_src = np.repeat(np.arange(n, dtype=np.int64), deg)[:m]
+
+    def sample_edges(src: np.ndarray) -> tuple:
+        dst = rng.integers(0, n, size=src.shape[0])
+        intra = rng.random(src.shape[0]) < spec.community
+        for c in range(k):
+            members = comm_members[c]
+            if members.size == 0:
+                continue
+            sel = np.flatnonzero(intra & (comm[src] == c))
+            if sel.size:
+                dst[sel] = rng.choice(members, size=sel.size)
+        loops = src == dst
+        dst[loops] = (dst[loops] + 1 + rng.integers(0, n - 1, loops.sum())) % n
+        return src, dst
+
+    # simple-graph assembly: dedup + top-up rounds
+    src, dst = sample_edges(base_src)
+    keys = src * n + dst
+    _, first = np.unique(keys, return_index=True)
+    src, dst = src[np.sort(first)], dst[np.sort(first)]
+    for _ in range(6):
+        deficit = m - src.shape[0]
+        if deficit <= 0:
+            break
+        extra_owner = rng.choice(base_src, size=int(deficit * 1.5))
+        es, ed = sample_edges(extra_owner)
+        src = np.concatenate([src, es])
+        dst = np.concatenate([dst, ed])
+        keys = src * n + dst
+        _, first = np.unique(keys, return_index=True)
+        src, dst = src[np.sort(first)], dst[np.sort(first)]
+    src, dst = src[:m], dst[:m]
+
+    feat = rng.standard_normal((n, spec.feat_dim)).astype(np.float32)
+    labels = comm % spec.num_classes
+    centers = rng.standard_normal((spec.num_classes, spec.feat_dim)
+                                  ).astype(np.float32)
+    feat += 0.5 * centers[labels]
+    train_mask = rng.random(n) < 0.7
+
+    shuffle = rng.permutation(n)
+    g = Graph(src=src.astype(np.int32), dst=dst.astype(np.int32), num_nodes=n,
+              node_feat=feat, labels=labels.astype(np.int32),
+              train_mask=train_mask)
+    g = g.permute(shuffle)
+    g.validate()
+    return g
+
+
+def cora_like(seed: int = 0) -> Graph:
+    """Cora-shaped graph: 2708 nodes, 10556 edges, 1433 feats, 7 classes."""
+    return synthesize(DatasetSpec("cora", 2708, 10556, 1433, 7, seed=seed))

@@ -1,0 +1,51 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each computes the same function as its CUDA kernel.  The kernel wrappers
+run them for tensors on the CPU (where the CPU tests reach them) and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def spmm_blockell_compact_ref(row_offsets: torch.Tensor, cols: torch.Tensor,
+                              blocks: torch.Tensor, x: torch.Tensor,
+                              s_in: torch.Tensor, s_out: torch.Tensor,
+                              x_diag: Optional[torch.Tensor] = None,
+                              s_in_diag: Optional[torch.Tensor] = None, *,
+                              bm: int, bk: int, add_diag: bool
+                              ) -> torch.Tensor:
+    """``s_out ⊙ (Σ_slots A_tile (s_in ⊙ x_tile) [+ s_in_diag ⊙ x_diag])``.
+
+    row_offsets: (R + 1,) slot offsets per destination block; cols:
+    (n_active,) source block per slot; blocks: (n_active, bm, bk) uint8 or
+    float32 tiles; x: (n_src, d); s_in: (n_src,); s_out: (n_dst,);
+    x_diag: (n_dst, d) and s_in_diag: (n_dst,) default to x and s_in.
+    Returns (n_dst, d).  Rows of destination blocks with no slot, which the
+    kernel leaves unwritten, come out as zeros here.
+    """
+    R = row_offsets.numel() - 1
+    n_src, d = x.shape
+    n_dst = s_out.shape[0]
+    C = -(-n_src // bk)
+    xs = x * s_in[:, None]
+    xb = F.pad(xs, (0, 0, 0, C * bk - n_src)).reshape(C, bk, d)
+    counts = torch.diff(row_offsets.long())
+    rows = torch.repeat_interleave(torch.arange(R, device=x.device), counts)
+    prod = torch.einsum("abk,akd->abd", blocks.to(torch.float32),
+                        xb[cols.long()])
+    acc = torch.zeros(R, bm, d, dtype=x.dtype, device=x.device)
+    acc.index_add_(0, rows, prod)
+    acc = acc.reshape(R * bm, d)
+    if add_diag:
+        xd = x if x_diag is None else x_diag
+        sd = s_in if s_in_diag is None else s_in_diag
+        self_term = xd[:n_dst] * sd[:n_dst, None]
+        acc = acc + F.pad(self_term, (0, 0, 0, R * bm - n_dst))
+    y = acc[:n_dst] * s_out[:, None]
+    written = torch.repeat_interleave(counts > 0, bm)[:n_dst]
+    return torch.where(written[:, None], y, torch.zeros_like(y))

@@ -1,0 +1,84 @@
+"""Import hygiene of the port: importing every ``repro_torch`` module, and
+``chip_smoke.py``, pulls in neither ``jax`` nor the reference package, nor
+``triton``, and builds or loads no CUDA library.  Checked in a fresh
+interpreter so nothing the test process imported leaks in."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                     "repro_torch."))
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.kernels import _build
+print(json.dumps({
+    "modules": names,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "repro": sorted(m for m in sys.modules
+                    if m == "repro" or m.startswith("repro.")),
+    "triton": "triton" in sys.modules,
+    "libs_loaded": sorted(_build._LIBS),
+}))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(ROOT)],
+                          capture_output=True, text=True, env=env,
+                          cwd=str(ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {"repro_torch.convert", "repro_torch.device",
+                "repro_torch.core.blocksparse", "repro_torch.core.reorder",
+                "repro_torch.core.cache_model", "repro_torch.exec.plan",
+                "repro_torch.graph.datasets", "repro_torch.graph.sampler",
+                "repro_torch.graph.structure", "repro_torch.kernels._build",
+                "repro_torch.kernels.ref",
+                "repro_torch.kernels.spmm_blockell",
+                "repro_torch.launch.serve", "repro_torch.models.gcn",
+                "repro_torch.nn.layers", "repro_torch.obs.registry",
+                "repro_torch.obs.trace", "repro_torch.serve.batcher",
+                "repro_torch.serve.cache", "repro_torch.serve.engine",
+                "repro_torch.serve.registry"}
+    assert expected <= set(out["modules"])
+    assert out["jax"] == []
+    assert out["repro"] == []
+    assert out["triton"] is False
+    assert out["libs_loaded"] == []
+
+
+def test_kernel_source_ships_beside_the_package():
+    from repro_torch.kernels import _build
+    src = _build.CSRC / "spmm_blockell_compact.cu"
+    assert src.is_file()
+    text = src.read_text()
+    assert "repro/kernels/spmm_blockell.py::spmm_blockell_compact" in text
+    assert 'extern "C" int spmm_blockell_compact(' in text
+    # the build lands in the repository's ignored build/ directory
+    assert _build.build_dir() == ROOT / "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert _build.library_path("spmm_blockell_compact").parent == \
+        _build.build_dir()
+
+
+def test_installed_copy_refuses_to_build_outside_a_checkout(tmp_path,
+                                                           monkeypatch):
+    from repro_torch.kernels import _build
+    site = tmp_path / "lib" / "python3" / "site-packages" / "repro_torch"
+    monkeypatch.setattr(_build, "_PKG", site)
+    with pytest.raises(RuntimeError, match="checkout"):
+        _build.build_dir()
+    with pytest.raises(RuntimeError, match="checkout"):
+        _build.build("spmm_blockell_compact")

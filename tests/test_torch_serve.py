@@ -1,0 +1,208 @@
+"""The serving slice end to end: the port's GNNSession and engine against
+the reference's, with the reference's weights carried over by
+``params_from_jax``.
+
+On a small graph the offline layer values agree to 1e-5 and the same
+Zipfian trace served through both engines gives embeddings within 1e-5 and
+identical batching and cache statistics.  At full width (Cora, GCN dims
+[1433, 64, 16]) the values agree to 1e-4: sums of 1433 terms in another
+order, the serving oracle's own bar.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import minhash_reorder as ref_minhash
+from repro.graph import DatasetSpec as RefSpec, synthesize as ref_synthesize
+from repro.serve import (EmbeddingCache as RefCache,
+                         MicroBatcher as RefBatcher,
+                         Request as RefRequest,
+                         ServeEngine as RefEngine,
+                         ServeSLO as RefSLO,
+                         make_session as ref_make_session,
+                         zipfian_trace as ref_zipfian_trace)
+from repro_torch.convert import params_from_jax
+from repro_torch.core import minhash_reorder
+from repro_torch.graph import cora_like
+from repro_torch.kernels import spmm_blockell as sk
+from repro_torch.launch import serve as launch_serve
+from repro_torch.serve import (EmbeddingCache, MicroBatcher, Request,
+                               ServeEngine, ServeSLO, make_session,
+                               zipfian_trace)
+
+from _torch_parity import assert_bytes_equal, to_port
+
+SMALL = dict(hidden=16, out_dim=8, seed=0)
+
+
+@pytest.fixture(scope="module")
+def small():
+    g = ref_synthesize(RefSpec("t", 400, 2500, 32, 4, community=0.9,
+                               num_communities=6, seed=4))
+    ref = ref_make_session("gcn", g, **SMALL)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                             device="cpu")
+    return g, ref, params
+
+
+def _port_session(small, **kw):
+    g, _, params = small
+    return make_session("gcn", to_port(g), device="cpu", params=params,
+                        **SMALL, **kw)
+
+
+@pytest.mark.parametrize("executor", ["fused", "segment"])
+def test_layer_values_match_reference(small, executor):
+    _, ref, _ = small
+    sess = _port_session(small, executor=executor)
+    assert sess.layer_dims == ref.layer_dims == [32, 16, 8]
+    for l in range(sess.num_layers + 1):
+        np.testing.assert_allclose(sess.layer_values(l), ref.layer_values(l),
+                                   atol=1e-5, rtol=1e-5, err_msg=f"layer {l}")
+
+
+def _serve(engine_cls, cache_cls, batcher_cls, sess, order, trace,
+           slo=None):
+    cache = cache_cls(sess.layer_dims, capacity_bytes=60_000, order=order,
+                      line_size=16)
+    eng = engine_cls(sess, cache, batcher_cls(max_batch=8, max_wait=1e-3),
+                     oracle_check=True, keep_records=True, slo=slo)
+    outs = []
+    serve_batch = eng.process_batch
+    eng.process_batch = lambda mb: outs.append(serve_batch(mb)) or outs[-1]
+    eng.warm(order)
+    return eng.serve(trace), outs, eng
+
+
+@pytest.mark.parametrize("expander", ["full", "fanout"])
+def test_engine_serves_the_same_answers_as_reference(small, expander):
+    g, ref, _ = small
+    if expander != "full":
+        ref = ref_make_session("gcn", g, expander=expander, **SMALL)
+    sess = _port_session(small, expander=expander)
+    order = minhash_reorder(sess.g)
+    assert_bytes_equal(order, ref_minhash(g), "order")
+    trace = zipfian_trace(g.num_nodes, 120, a=1.2, seed=1)
+    ref_trace = ref_zipfian_trace(g.num_nodes, 120, a=1.2, seed=1)
+    assert [(r.node_id, r.t_arrival) for r in trace] == \
+           [(r.node_id, r.t_arrival) for r in ref_trace]
+    rep, outs, _ = _serve(ServeEngine, EmbeddingCache, MicroBatcher, sess,
+                          order, trace)
+    ref_rep, ref_outs, _ = _serve(RefEngine, RefCache, RefBatcher, ref,
+                                  order, ref_trace)
+    assert rep.num_requests == ref_rep.num_requests == 120
+    assert rep.num_batches == ref_rep.num_batches == len(outs)
+    for got, want in zip(outs, ref_outs):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert rep.hit_rate == ref_rep.hit_rate
+    assert rep.cache.per_layer == ref_rep.cache.per_layer
+    assert rep.cache.bytes_missed == ref_rep.cache.bytes_missed
+    np.testing.assert_allclose(rep.max_oracle_err, ref_rep.max_oracle_err,
+                               atol=1e-5)
+    if expander == "full":           # exact serving: answers equal the oracle
+        assert rep.max_oracle_err < 1e-5
+
+
+def test_slo_mode_sheds_and_degrades_like_reference(small):
+    """Overload plus malformed ids: the modeled-clock admission decisions are
+    a pure function of the trace, so both engines decide identically."""
+    g, ref, _ = small
+    sess = _port_session(small)
+    order = minhash_reorder(sess.g)
+
+    def trace(request_cls, zipf):
+        reqs = zipf(g.num_nodes, 150, a=1.1, rate=40_000.0, seed=3)
+        t = reqs[-1].t_arrival
+        return reqs + [request_cls(150, -1, t + 1e-4),
+                       request_cls(151, g.num_nodes, t + 2e-4)]
+
+    slo = ServeSLO(deadline_s=4e-3, max_queue=6)
+    ref_slo = RefSLO(deadline_s=4e-3, max_queue=6)
+    rep, _, eng = _serve(ServeEngine, EmbeddingCache, MicroBatcher, sess,
+                         order, trace(Request, zipfian_trace), slo)
+    ref_rep, _, ref_eng = _serve(RefEngine, RefCache, RefBatcher, ref, order,
+                                 trace(RefRequest, ref_zipfian_trace),
+                                 ref_slo)
+    assert rep.num_rejected == ref_rep.num_rejected == 2
+    assert rep.num_shed + rep.num_degraded > 0
+    assert (rep.num_shed, rep.num_degraded, rep.num_batches) == \
+           (ref_rep.num_shed, ref_rep.num_degraded, ref_rep.num_batches)
+    key = lambda r: (r.req_id, r.outcome, r.stale)
+    assert sorted(map(key, eng.records)) == sorted(map(key, ref_eng.records))
+    assert rep.p99_ms == pytest.approx(ref_rep.p99_ms)
+
+
+def test_full_width_cora_matches_reference():
+    from repro.graph import cora_like as ref_cora_like
+    ref = ref_make_session("gcn", ref_cora_like(seed=0), seed=0)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                             device="cpu")
+    sess = make_session("gcn", cora_like(seed=0), seed=0, device="cpu",
+                        params=params)
+    assert sess.layer_dims == [1433, 64, 16]
+    assert [lp.order for lp in sess._layer_plans] == ["update_first"] * 2
+    assert sess._layer_plans[1].gplan is sess._layer_plans[0].gplan
+    for l in (1, 2):
+        got = sess.layer_values(l)
+        assert got.shape == (2708, sess.layer_dims[l])
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref.layer_values(l), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"layer {l}")
+
+
+def test_seeded_init_is_reproducible():
+    g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
+    a = make_session("gcn", g, hidden=8, out_dim=4, seed=5, device="cpu")
+    b = make_session("gcn", g, hidden=8, out_dim=4, seed=5, device="cpu")
+    for pa, pb in zip(a.params["layers"], b.params["layers"]):
+        assert torch.equal(pa["w"], pb["w"]) and torch.equal(pa["b"], pb["b"])
+    np.testing.assert_array_equal(a.layer_values(2), b.layer_values(2))
+
+
+def test_unported_sessions_and_devices_raise():
+    g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
+    for model in ("sage_gin", "wide_deep"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            make_session(model, g, device="cpu")
+    with pytest.raises(ValueError, match="unknown serve model"):
+        make_session("gat", g, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_session("gcn", g, device="cuda")
+
+
+def test_model_constructors_default_to_the_card():
+    """``gcn_init``, ``make_graph_inputs`` and ``linear_init`` run on cuda
+    unless asked for the CPU, as every other entry point does."""
+    from repro_torch.models.gcn import gcn_init, make_graph_inputs
+    from repro_torch.nn.layers import linear_init
+
+    g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
+    gen = lambda: torch.Generator().manual_seed(0)
+    calls = [lambda **kw: gcn_init(gen(), [8, 4, 2], **kw),
+             lambda **kw: make_graph_inputs(g, **kw),
+             lambda **kw: linear_init(gen(), 8, 4, **kw)]
+    for call in calls:
+        cpu = call(device="cpu")
+        leaves = (cpu["layers"][0].values() if "layers" in cpu
+                  else cpu.values())
+        assert all(t.device.type == "cpu" for t in leaves)
+        if torch.cuda.is_available():
+            out = call()
+            leaves = (out["layers"][0].values() if "layers" in out
+                      else out.values())
+            assert all(t.device.type == "cuda" for t in leaves)
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+
+
+def test_launcher_serves_cora_on_cpu(capsys):
+    before = sk.spmm_blockell_compact.launches
+    rep = launch_serve.main(["--graph", "cora", "--model", "gcn",
+                             "--requests", "60", "--device", "cpu"])
+    assert rep.num_requests == 60 and rep.max_oracle_err < 1e-4
+    assert sk.spmm_blockell_compact.launches == before   # plain path on CPU
+    out = capsys.readouterr().out
+    assert "oracle check" in out and "OK" in out
