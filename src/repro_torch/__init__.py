@@ -7,7 +7,9 @@ numpy modules it needs are kept here as copies.  Kernels are written by hand
 for ``sm_90a`` under ``csrc/`` and built on first use; nothing is built or
 loaded when a module is imported.
 
-Ported so far (the GCN serving slice): graph, reorder, block-ELL builder,
-LRU cache, telemetry, the compact block-ELL SpMM kernel, the forward
-execution plans, GCN, the serving engine and ``launch.serve``.
+Ported so far: graph, reorder, block-ELL builder, LRU cache, telemetry,
+the two compact block-ELL kernels (the SpMM and the one-launch layer), the
+execution plans with their backwards, GCN, GIN, the serving engine and
+``launch.serve``, and full-graph training (``train``, ``configs``,
+``launch.train``).
 """

@@ -1,0 +1,51 @@
+"""Architecture registry — port of the GNN part of ``repro/configs/base.py``.
+
+Every arch is an ``ArchSpec`` whose ``bundle()`` builds the family's
+bundle.  Only ``gcn-cora`` is ported; asking for another arch of the
+reference raises ``NotImplementedError`` naming the ROADMAP item."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+REGISTRY: Dict[str, "ArchSpec"] = {}
+
+# the archs of repro.configs.registry that the port has no config for yet
+NOT_PORTED = ("granite-8b", "minitron-8b", "mistral-large-123b",
+              "granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "pna",
+              "gat-cora", "nequip", "wide-deep")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                    # "lm" | "gnn" | "recsys"
+    shapes: Tuple[str, ...]
+    build: Callable[[], Any]       # returns the family-specific bundle
+
+    def bundle(self):
+        return self.build()
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> ArchSpec:
+    if name not in REGISTRY:
+        from . import _load_all        # lazy-populate
+        _load_all()
+    if name in REGISTRY:
+        return REGISTRY[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet "
+                                  "(ROADMAP §1 item 8); ported: "
+                                  f"{sorted(REGISTRY)}")
+    raise KeyError(f"unknown arch {name!r}")
+
+
+GNN_SHAPES = {
+    "full_graph_sm": {"kind": "train", "n_nodes": 2708, "n_edges": 10556,
+                      "d_feat": 1433},
+}

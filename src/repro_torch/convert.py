@@ -7,23 +7,23 @@ the reference's parameter tree to numpy and hands it here.
 """
 from __future__ import annotations
 
-from typing import Mapping
-
 import numpy as np
 import torch
 
 from .device import resolve_device
 
 
-def params_from_jax(tree: Mapping, device="cuda") -> dict:
-    """``{"layers": [{"w": (d_in, d_out), "b": (d_out,)}, ...]}`` of numpy
-    (or array-like) leaves -> the same tree of float32 tensors on
-    ``device``."""
+def params_from_jax(tree, device="cuda"):
+    """Any nested dict / list / tuple tree of numpy (or array-like) leaves
+    -> the same tree of float32 tensors on ``device``: GCN's
+    ``{"layers": [{"w", "b"}, ...]}``, GIN's ``convs[i].mlp[j].{w, b}``
+    with its 0-d ``eps``, ``lin1`` and ``lin2``."""
     dev = resolve_device(device)
-    layers = []
-    for i, layer in enumerate(tree["layers"]):
-        if "w" not in layer:
-            raise KeyError(f"layer {i} has no 'w' (keys: {sorted(layer)})")
-        layers.append({k: torch.tensor(np.asarray(v, np.float32), device=dev)
-                       for k, v in layer.items()})
-    return {"layers": layers}
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return torch.tensor(np.asarray(t, np.float32), device=dev)
+    return walk(tree)

@@ -1,31 +1,35 @@
-"""GraphExecutionPlan / LayerExecutionPlan — forward half of
-``repro/exec/plan.py``.
+"""GraphExecutionPlan / LayerExecutionPlan — port of ``repro/exec/plan.py``.
 
-A plan compiles a Graph once into the fused aggregation
+A plan compiles a Graph once into both directions of the aggregation
 
-    F(x) = s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])
+    F(x)   = s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])         (forward)
+    F*(g)  = s_in ⊙ (Aᵀ (s_out ⊙ g) [+ s_out ⊙ g])       (backward, wrt x)
 
 with the modes of the reference ("gcn": D^-1/2 (A + I) D^-1/2; "sum";
-"mean"), and a layer plan runs ``act(F(x) @ W + b)`` in either computation
-order (``F`` is linear, so ``F(x) W == F(x W)``).
+"mean").  F is linear, so its backward is the same fused op over a
+precompiled transpose plan (Aᵀ, scales swapped); a ``torch.autograd.Function``
+wires that in.  A layer plan runs
+``act(F(x) @ W + c · (x @ W_self) + b)`` in either computation order
+(``F(x) W == F(x W)``), fused into one launch when it aggregates first on
+the kernel backend, with a hand-written backward of its own.
 
 Backends, all over the slot-compacted block-ELL except ``coo``:
 
-    "cuda"  : the hand-written Hopper kernel ``spmm_blockell_compact``
-              (kernels/spmm_blockell.py); on a CPU tensor its wrapper runs
-              the plain version;
+    "cuda"  : the hand-written Hopper kernels ``spmm_blockell_compact`` and
+              (fused layers) ``spmm_blockell_update_compact``
+              (kernels/spmm_blockell.py); on a CPU tensor their wrappers run
+              the plain versions;
     "torch" : the plain version ``kernels/ref.spmm_blockell_compact_ref``
-              (a batched dense-tile einsum) on float32 tiles — the twin of
-              the reference's ``_jnp_blocks``;
+              on float32 tiles — the twin of the reference's ``_jnp_blocks``;
+              it never fuses, as ``jnp`` never does;
     "coo"   : one ``index_add_`` over dst-sorted edges whose weights fold
               in the normalization (the twin of the reference's coo path).
 
 Rows whose destination block has no active slot are not written by the
-kernel; the plan patches them with the analytic diagonal term.
+kernels; the plan patches them with the analytic diagonal (and self) term.
 
-Forward only: the transpose plan, the custom backward, degree buckets,
-padded (uncompacted) grids, the one-launch fused layer kernel and the chaos
-hooks of the reference are not ported yet.
+Not ported yet: degree buckets, padded (uncompacted) grids, weighted sum
+plans and the chaos hooks of the reference.
 """
 from __future__ import annotations
 
@@ -36,11 +40,13 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.blocksparse import BlockEll, build_blockell, traffic_model
+from ..core.blocksparse import (BlockEll, build_blockell, transpose_graph,
+                                traffic_model)
 from ..device import resolve_device
 from ..graph.structure import Graph
 from ..kernels.ref import spmm_blockell_compact_ref
-from ..kernels.spmm_blockell import spmm_blockell_compact
+from ..kernels.spmm_blockell import (spmm_blockell_compact,
+                                     spmm_blockell_update_compact)
 
 MODES = ("gcn", "sum", "mean")
 BACKENDS = ("cuda", "torch", "coo")
@@ -60,7 +66,7 @@ class SideMeta(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# the fused op, on any backend
+# one direction of the fused op, on any backend
 # ---------------------------------------------------------------------------
 def _run_side(meta: SideMeta, a: Dict[str, torch.Tensor], x: torch.Tensor
               ) -> torch.Tensor:
@@ -91,15 +97,63 @@ def _compact_blocks(meta: SideMeta, a: Dict[str, torch.Tensor],
     return torch.where(a["node_active"][:, None], y, fb)
 
 
+def _self_term(x: torch.Tensor, w_self: torch.Tensor,
+               self_coeff: Optional[torch.Tensor]) -> torch.Tensor:
+    """The epilogue's self half ``self_coeff * (x @ w_self)`` (coeff None
+    means 1)."""
+    s = x @ w_self
+    return s if self_coeff is None else s * self_coeff
+
+
+def _fused_layer(meta: SideMeta, a: Dict[str, torch.Tensor], x: torch.Tensor,
+                 w: torch.Tensor, b: Optional[torch.Tensor], relu: bool,
+                 w_self: Optional[torch.Tensor] = None,
+                 self_coeff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused layer launch: aggregation + (two-)W epilogue (+bias/ReLU)
+    (the compact path of the reference's ``_pallas_layer``)."""
+    y = None
+    if meta.n_active:
+        y = spmm_blockell_update_compact(
+            a["row_offsets"], a["cols"], a["blocks"], x.contiguous(),
+            a["s_in"], a["s_out"], w.contiguous(), b, w_self, self_coeff,
+            bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag, relu=relu)
+    # rows whose destination block has no active slot: the analytic
+    # diagonal and self terms go through the same update outside the kernel
+    fb = (x * (a["s_in"] * a["s_out"])[:, None] @ w if meta.add_diag
+          else x.new_zeros((x.shape[0], w.shape[1])))
+    if w_self is not None:
+        fb = fb + _self_term(x, w_self, self_coeff)
+    if b is not None:
+        fb = fb + b
+    if relu:
+        fb = torch.relu(fb)
+    if y is None:
+        return fb
+    return torch.where(a["node_active"][:, None], y, fb)
+
+
 # ---------------------------------------------------------------------------
 # the plan container
 # ---------------------------------------------------------------------------
+class _Aggregate(torch.autograd.Function):
+    """``F(x)`` forward; ``F*(g)`` through the transpose plan backward."""
+
+    @staticmethod
+    def forward(ctx, plan: "GraphExecutionPlan", x: torch.Tensor):
+        ctx.plan = plan
+        return plan.raw_apply(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return None, ctx.plan.raw_apply_t(g)
+
+
 @dataclasses.dataclass
 class GraphExecutionPlan:
-    """Everything the forward hot path needs, compiled from a Graph once.
+    """Everything the hot path needs, compiled from a Graph once.
 
-    The block-ELL is built eagerly for the block backends and lazily for
-    ``coo`` (which only needs the sorted edge arrays)."""
+    The block-ELL structures are built eagerly for the block backends and
+    lazily for ``coo`` (which only needs the sorted edge arrays)."""
 
     mode: str
     backend: str
@@ -108,9 +162,13 @@ class GraphExecutionPlan:
     num_nodes: int
     add_diag: bool
     meta_fwd: SideMeta
+    meta_bwd: SideMeta
     _fwd: Dict[str, torch.Tensor] = dataclasses.field(repr=False)
+    _bwd: Dict[str, torch.Tensor] = dataclasses.field(repr=False)
     _ell: Optional[BlockEll] = dataclasses.field(default=None, repr=False)
+    _ell_t: Optional[BlockEll] = dataclasses.field(default=None, repr=False)
     _g_adj: Optional[Graph] = dataclasses.field(default=None, repr=False)
+    _g_adj_t: Optional[Graph] = dataclasses.field(default=None, repr=False)
 
     @property
     def ell(self) -> BlockEll:
@@ -119,18 +177,33 @@ class GraphExecutionPlan:
                                        storage="auto")
         return self._ell
 
+    @property
+    def ell_t(self) -> BlockEll:
+        if self._ell_t is None:
+            self._ell_t = build_blockell(self._g_adj_t, bm=self.bm,
+                                         bk=self.bk, storage="auto")
+        return self._ell_t
+
+    def raw_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """One forward aggregation with no autograd attached — the building
+        block :class:`LayerExecutionPlan` composes inside its own backward."""
+        return _run_side(self.meta_fwd, self._fwd, x)
+
+    def raw_apply_t(self, g: torch.Tensor) -> torch.Tensor:
+        """One aggregation through the precompiled TRANSPOSE plan (``Aᵀ``
+        with the scales swapped) — the cotangent hot path."""
+        return _run_side(self.meta_bwd, self._bwd, g)
+
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """One forward aggregation ``F(x)``.  The backward (through the
-        transpose plan) is not ported yet, so the kernel backend refuses
-        inputs that need a gradient instead of silently detaching them."""
+        """Differentiable fused aggregation ``F(x)``: one launch forward, one
+        through the transpose plan backward."""
         if x.shape[0] != self.num_nodes:
             raise ValueError(f"plan compiled for {self.num_nodes} nodes but "
                              f"x has {x.shape[0]} rows (wrong graph?)")
-        if (self.backend == "cuda" and x.requires_grad
-                and torch.is_grad_enabled()):
-            raise NotImplementedError("the cuda backend has no backward yet "
-                                      "(transpose plan not ported)")
-        return _run_side(self.meta_fwd, self._fwd, x)
+        return _Aggregate.apply(self, x)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(x)
 
     @property
     def n_active(self) -> int:
@@ -149,7 +222,8 @@ class GraphExecutionPlan:
                 "bm": self.bm, "bk": self.bk,
                 "grid_size": self.grid_size,
                 "padded_grid_size": self.ell.n_row_blocks * self.ell.width,
-                "plan_bytes": self.ell.storage_bytes(),
+                "plan_bytes": (self.ell.storage_bytes()
+                               + self.ell_t.storage_bytes()),
                 **traffic_model(self.ell, d)}
 
 
@@ -174,7 +248,7 @@ def _side_arrays(ell: BlockEll, s_in: np.ndarray, s_out: np.ndarray,
                  backend: str, device: torch.device
                  ) -> Dict[str, torch.Tensor]:
     t = lambda a: torch.as_tensor(a).to(device)
-    # the kernel takes the exact 0/1 bitmask as uint8 tiles; the plain
+    # the kernels take the exact 0/1 bitmask as uint8 tiles; the plain
     # version computes in float32
     comp = ell.compact(np.uint8 if ell.implicit and backend == "cuda"
                        else np.float32)
@@ -212,13 +286,14 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     """Compile ``g`` into a :class:`GraphExecutionPlan` on ``device``.
 
     ``backend=None`` picks ``"cuda"`` on a CUDA device and ``"coo"`` on the
-    CPU.  Square blocks are required, as in the reference.  The block
-    backends always run slot-compacted (the reference's ``compact=True``);
-    the padded grid waits for the padded kernel and the autotune that races
-    the two.  Tiles are the exact 0/1 bitmask whenever it is exact
-    (``storage="auto"``); edge weights are ignored (the reference's
-    ``weighted=True`` sum plans and its ``width``/``storage`` overrides are
-    not ported yet)."""
+    CPU.  Square blocks are required, as in the reference (the transpose
+    plan reuses the same tiling).  The block backends always run
+    slot-compacted (the reference's ``compact=True``); the padded grid waits
+    for the padded kernel and the autotune that races the two.  Tiles are
+    the exact 0/1 bitmask whenever it is exact (``storage="auto"``); edge
+    weights are ignored (the reference's ``weighted=True`` sum plans, its
+    ``width``/``storage`` overrides and degree buckets are not ported
+    yet)."""
     dev = resolve_device(device)
     bm = bm or 128
     bk = bk or bm
@@ -231,26 +306,37 @@ def build_plan(g: Graph, mode: str = "gcn", *,
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
     s_in, s_out, add_diag = _mode_scales(mode, g)
     g_adj = dataclasses.replace(g, edge_weight=None)
+    g_adj_t = transpose_graph(g_adj)
     R = int(np.ceil(g.num_nodes / bm))
     C = int(np.ceil(g.num_nodes / bk))
+
+    def meta_for(n_active: int) -> SideMeta:
+        return SideMeta(backend=backend, add_diag=add_diag, bm=bm, bk=bk,
+                        R=R, C=C, n_active=n_active, n=g.num_nodes)
+
     with obs.span("exec.plan.compile", cat="exec", backend=backend,
                   mode=mode, bm=bm, n=g.num_nodes) as sp:
         if backend == "coo":
+            # the coo path never touches tiles: block-ELL on first access
             fwd = _coo_arrays(g_adj, s_in, s_out, add_diag, dev)
-            ell, n_active = None, 0
+            bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, dev)
+            ell = ell_t = None
+            meta_f, meta_b = meta_for(0), meta_for(0)
         else:
             ell = build_blockell(g_adj, bm=bm, bk=bk, storage="auto")
+            ell_t = build_blockell(g_adj_t, bm=bm, bk=bk, storage="auto")
             fwd = _side_arrays(ell, s_in, s_out, backend, dev)
-            n_active = ell.n_active
-            sp.set(n_active=n_active, plan_bytes=ell.storage_bytes())
+            bwd = _side_arrays(ell_t, s_out, s_in, backend, dev)
+            meta_f, meta_b = meta_for(ell.n_active), meta_for(ell_t.n_active)
+            sp.set(n_active=ell.n_active,
+                   plan_bytes=int(ell.storage_bytes()
+                                  + ell_t.storage_bytes()))
     obs.counter("exec.plan.compiles", backend=backend).inc()
-    meta = SideMeta(backend=backend, add_diag=add_diag,
-                    bm=bm, bk=bk, R=R, C=C, n_active=n_active,
-                    n=g.num_nodes)
     return GraphExecutionPlan(
         mode=mode, backend=backend, bm=bm, bk=bk,
-        num_nodes=g.num_nodes, add_diag=add_diag, meta_fwd=meta, _fwd=fwd,
-        _ell=ell, _g_adj=g_adj)
+        num_nodes=g.num_nodes, add_diag=add_diag, meta_fwd=meta_f,
+        meta_bwd=meta_b, _fwd=fwd, _bwd=bwd, _ell=ell, _ell_t=ell_t,
+        _g_adj=g_adj, _g_adj_t=g_adj_t)
 
 
 # ===========================================================================
@@ -283,57 +369,185 @@ def spmm_cost(n: int, e: int, d: int, *, bytes_per_el: int = 4,
 
 def choose_order(n: int, e: int, d_in: int, d_out: int) -> str:
     """Shrinking layers aggregate after the update, growing layers before
-    it; ties go to aggregate-first."""
+    it; ties go to aggregate-first, the fusable order."""
     c = layer_order_costs(n, e, d_in, d_out)
     return ("update_first" if c["update_first"] < c["aggregate_first"]
             else "aggregate_first")
 
 
+class _Layer(torch.autograd.Function):
+    """One layer ``act(F(x) @ w + c · (x @ ws) + b)`` and the reference's
+    hand-written backward (``repro/exec/plan.py`` ``bwd_core``), which never
+    re-runs the forward."""
+
+    @staticmethod
+    def forward(ctx, lp: "LayerExecutionPlan", relu: bool, x, w, b, ws, c):
+        gp = lp.gplan
+        # the backward mirrors the forward's order so the transpose SpMM
+        # always streams the narrow feature side; fused layers keep no
+        # aggregation residual, so they use the d_out-side form
+        agg = None
+        if lp.fuse:
+            y = _fused_layer(gp.meta_fwd, gp._fwd, x, w, b, relu, ws, c)
+        else:
+            if lp.order == "aggregate_first":
+                agg = gp.raw_apply(x)
+                y = agg @ w
+            else:
+                y = gp.raw_apply(x @ w)
+            if ws is not None:
+                y = y + _self_term(x, ws, c)
+            if b is not None:
+                y = y + b
+            if relu:
+                y = torch.relu(y)
+        ctx.lp, ctx.relu = lp, relu
+        # dW needs x unless the aggregation residual stands in for it; the
+        # self half's dW_self and dc need x in any case
+        keep_x = agg is None or ws is not None
+        ctx.save_for_backward(agg, x if keep_x else None, w, ws, c,
+                              y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        agg, x, w, ws, c, y = ctx.saved_tensors
+        gp = ctx.lp.gplan
+        need_x, need_w, need_b, need_ws, need_c = ctx.needs_input_grad[2:]
+        if ctx.relu:
+            g = torch.where(y > 0, g, torch.zeros_like(g))
+        dx = dw = db = dws = dc = None
+        if agg is not None:
+            # agg = M x: dx = Mᵀ (ḡ Wᵀ) runs at width d_in and dW = aggᵀ ḡ
+            # reuses the forward's aggregation
+            if need_x:
+                dx = gp.raw_apply_t(g @ w.T)
+            if need_w:
+                dw = agg.T @ g
+        elif need_x or need_w:
+            # h = Mᵀ ḡ runs at width d_out, dW = Σ_v x_v ⊗ h_v
+            h = gp.raw_apply_t(g)
+            if need_x:
+                dx = h @ w.T
+            if need_w:
+                dw = x.T @ h
+        if ws is not None:
+            # the self half shares one xᵀ ḡ between dW_self and dc
+            xtg = x.T @ g if (need_ws or need_c) else None
+            if c is None:
+                if need_x:
+                    dx = dx + g @ ws.T
+                dws = xtg if need_ws else None
+            else:
+                if need_x:
+                    dx = dx + c * (g @ ws.T)
+                dws = c * xtg if need_ws else None
+                if need_c:
+                    dc = torch.sum(ws * xtg).reshape(c.shape)
+        if need_b:
+            db = torch.sum(g, dim=0)
+        return None, None, dx, dw, db, dws, dc
+
+
 @dataclasses.dataclass
 class LayerExecutionPlan:
-    """A whole GNN layer ``act(F(x) @ w + b)`` as one scheduled op.
+    """A whole GNN layer ``act(F(x) @ w + self_coeff · (x @ w_self) + b)``
+    as one scheduled op.
 
-    ``order="update_first"`` evaluates it as ``act(F(x @ w) + b)``, so the
-    aggregation streams the narrower width.  The update matmul runs in
-    ``torch.matmul`` (full fp32: TF32 is off), as the reference leaves it
-    to XLA."""
+    ``order="update_first"`` evaluates it as ``act(F(x @ w) + …)``, so the
+    aggregation streams the narrower width.  ``fuse=True`` (the ``cuda``
+    backend in aggregate-first order) runs aggregation, W product(s), bias
+    and ReLU as ONE ``spmm_blockell_update_compact`` launch.  The unfused
+    update matmuls run in ``torch.matmul`` (full fp32: TF32 is off), as the
+    reference leaves them to XLA.  GraphSAGE's concat form and GIN's
+    ``((1+ε) h + F(h)) @ W`` (``w_self=w``, ``self_coeff=1+ε``) are each
+    one plan call.
+
+    The backward runs ONE aggregation through the transpose plan and
+    mirrors the forward's order: update-first and fused layers take
+    ``h = Mᵀ ḡ`` (width d_out), ``dx = h Wᵀ``, ``dW = xᵀ h``; unfused
+    aggregate-first layers keep ``agg = M x`` and take ``dx = Mᵀ (ḡ Wᵀ)``,
+    ``dW = aggᵀ ḡ``.  The self half adds ``dx += c ḡ W_selfᵀ``,
+    ``dW_self = c xᵀ ḡ`` and ``dc = ⟨W_self, xᵀ ḡ⟩``; when ``w_self`` is
+    ``w`` autograd sums both gradient paths into it.
+    """
 
     gplan: GraphExecutionPlan
     d_in: int
     d_out: int
     order: str
+    fuse: bool = False
+    model_order: str = ""
 
     @property
     def mode(self) -> str:
         return self.gplan.mode
 
+    @property
+    def backend(self) -> str:
+        return self.gplan.backend
+
+    @property
+    def num_nodes(self) -> int:
+        return self.gplan.num_nodes
+
     def apply(self, x: torch.Tensor, w: torch.Tensor,
-              b: Optional[torch.Tensor] = None, *,
-              relu: bool = False) -> torch.Tensor:
+              b: Optional[torch.Tensor] = None, *, relu: bool = False,
+              w_self: Optional[torch.Tensor] = None, self_coeff=None
+              ) -> torch.Tensor:
+        """Differentiable layer
+        ``act(F(x) @ w + self_coeff * (x @ w_self) + b)``; ``self_coeff`` is
+        a number or a tensor of one element (a trained parameter)."""
+        if x.shape[0] != self.num_nodes:
+            raise ValueError(f"plan compiled for {self.num_nodes} nodes but "
+                             f"x has {x.shape[0]} rows (wrong graph?)")
         if tuple(w.shape) != (self.d_in, self.d_out):
             raise ValueError(f"layer plan compiled for W {self.d_in}x"
                              f"{self.d_out}, got {tuple(w.shape)}")
-        if self.order == "aggregate_first":
-            y = self.gplan.apply(x) @ w
-        else:
-            y = self.gplan.apply(x @ w)
-        if b is not None:
-            y = y + b
-        return torch.relu(y) if relu else y
+        if w_self is not None and tuple(w_self.shape) != (self.d_in,
+                                                          self.d_out):
+            raise ValueError(f"w_self must match W {self.d_in}x{self.d_out}, "
+                             f"got {tuple(w_self.shape)}")
+        if self_coeff is not None:
+            if w_self is None:
+                raise ValueError("self_coeff needs w_self (the self half it "
+                                 "scales)")
+            if not torch.is_tensor(self_coeff):
+                self_coeff = torch.tensor(float(self_coeff), device=x.device)
+            self_coeff = self_coeff.reshape(())
+        return _Layer.apply(self, relu, x, w, b, w_self, self_coeff)
+
+    def __call__(self, x, w, b=None, *, relu: bool = False, w_self=None,
+                 self_coeff=None) -> torch.Tensor:
+        return self.apply(x, w, b, relu=relu, w_self=w_self,
+                          self_coeff=self_coeff)
+
+    def describe(self) -> dict:
+        return {"order": self.order, "fuse": self.fuse,
+                "model_order": self.model_order,
+                "d_in": self.d_in, "d_out": self.d_out,
+                **self.gplan.describe(self.d_in if
+                                      self.order == "aggregate_first"
+                                      else self.d_out)}
 
 
 def build_layer_plan(g: Graph, mode: str = "gcn", *, d_in: int, d_out: int,
-                     order: str = "auto", bm: Optional[int] = None,
-                     bk: Optional[int] = None, backend: Optional[str] = None,
+                     order: str = "auto", fuse: Optional[bool] = None,
+                     bm: Optional[int] = None, bk: Optional[int] = None,
+                     backend: Optional[str] = None,
                      gplan: Optional[GraphExecutionPlan] = None,
                      device="cuda") -> LayerExecutionPlan:
     """Compile one GNN layer ``(d_in -> d_out)`` over ``g``.
 
-    ``order="auto"`` consults the FLOP/byte model.  Pass a prebuilt
-    ``gplan`` to share one block-ELL construction across a model's layers.
+    ``order="auto"`` consults the FLOP/byte model; ``fuse=None`` turns the
+    one-launch layer kernel on exactly when it applies (``cuda`` backend,
+    aggregate-first order), as the reference does for ``pallas``.  Pass a
+    prebuilt ``gplan`` to share one block-ELL construction across a model's
+    layers.
     """
+    model_order = choose_order(g.num_nodes, g.num_valid_edges, d_in, d_out)
     if order in (None, "auto"):
-        order = choose_order(g.num_nodes, g.num_valid_edges, d_in, d_out)
+        order = model_order
     if order not in ORDERS:
         raise ValueError(f"unknown order {order!r}; expected {ORDERS}")
     if gplan is None:
@@ -342,5 +556,13 @@ def build_layer_plan(g: Graph, mode: str = "gcn", *, d_in: int, d_out: int,
     elif gplan.mode != mode:
         raise ValueError(f"prebuilt gplan has mode {gplan.mode!r}, layer "
                          f"plan wants {mode!r}")
+    fusable = gplan.backend == "cuda" and order == "aggregate_first"
+    if fuse is None:
+        fuse = fusable
+    elif fuse and not fusable:
+        raise ValueError("fuse=True requires backend='cuda' and "
+                         f"order='aggregate_first' (got {gplan.backend!r}, "
+                         f"{order!r})")
     return LayerExecutionPlan(gplan=gplan, d_in=d_in, d_out=d_out,
-                              order=order)
+                              order=order, fuse=fuse,
+                              model_order=model_order)

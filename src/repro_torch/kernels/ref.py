@@ -49,3 +49,38 @@ def spmm_blockell_compact_ref(row_offsets: torch.Tensor, cols: torch.Tensor,
     y = acc[:n_dst] * s_out[:, None]
     written = torch.repeat_interleave(counts > 0, bm)[:n_dst]
     return torch.where(written[:, None], y, torch.zeros_like(y))
+
+
+def spmm_blockell_update_compact_ref(
+        row_offsets: torch.Tensor, cols: torch.Tensor, blocks: torch.Tensor,
+        x: torch.Tensor, s_in: torch.Tensor, s_out: torch.Tensor,
+        w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+        w_self: Optional[torch.Tensor] = None,
+        self_coeff: Optional[torch.Tensor] = None,
+        x_self: Optional[torch.Tensor] = None,
+        x_diag: Optional[torch.Tensor] = None,
+        s_in_diag: Optional[torch.Tensor] = None, *, bm: int, bk: int,
+        add_diag: bool, relu: bool = False) -> torch.Tensor:
+    """The one-launch layer
+    ``act((s_out ⊙ acc) @ w + c · (x_self @ w_self) + bias)`` with ``acc``
+    the compact aggregation of :func:`spmm_blockell_compact_ref`.
+
+    w and w_self: (d_in, d_out); bias: (d_out,); self_coeff: a 0-d tensor
+    (c = 1 when absent); x_self: (n_dst, d_in), defaults to x.  Returns
+    (n_dst, d_out).  Rows of destination blocks with no slot come out as
+    zeros here; the kernel leaves them unwritten.
+    """
+    n_dst = s_out.shape[0]
+    y = spmm_blockell_compact_ref(row_offsets, cols, blocks, x, s_in, s_out,
+                                  x_diag, s_in_diag, bm=bm, bk=bk,
+                                  add_diag=add_diag) @ w
+    if w_self is not None:
+        xs = (x if x_self is None else x_self)[:n_dst] @ w_self
+        y = y + (xs if self_coeff is None else self_coeff * xs)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    written = torch.repeat_interleave(torch.diff(row_offsets.long()) > 0,
+                                      bm)[:n_dst]
+    return torch.where(written[:, None], y, torch.zeros_like(y))

@@ -1,18 +1,21 @@
-"""Block-ELL SpMM for Hopper: the wrapper of ``csrc/spmm_blockell_compact.cu``.
+"""Block-ELL kernels for Hopper: the wrappers of ``csrc/*.cu``.
 
 ``spmm_blockell_compact`` is the port of the Pallas TPU kernel of the same
 name (``repro/kernels/spmm_blockell.py``): the fused
 ``s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])`` over only the active row-major
-slots of a block-ELL compaction.  On a CUDA tensor it launches the
-hand-written kernel (built on first use, see ``_build``) or raises; on a
-CPU tensor it runs the plain version in ``ref.py``.  There is no fallback
-from the one to the other.
+slots of a block-ELL compaction.  ``spmm_blockell_update_compact`` is the
+port of the one-launch layer kernel: the same aggregation followed, in the
+same launch, by ``@ W [+ c · x_self @ W_self] + b`` and an optional ReLU.
+On a CUDA tensor each wrapper launches its hand-written kernel (built on
+first use, see ``_build``) or raises; on a CPU tensor it runs the plain
+version in ``ref.py``.  There is no fallback from the one to the other.
 
 The port drops the TPU layout padding: x keeps its own row count and width
-(no 128-lane d, no C*bk rows), s_in / s_out are 1-D, and the kernel walks
-each destination block's slots through ``row_offsets`` instead of relying
-on a sequential grid.  ``spmm_blockell_compact.launches`` counts kernel
-launches (a plain integer; the plain version does not count).
+(no 128-lane d, no C*bk rows), W keeps (d_in, d_out), the scales are 1-D,
+and the kernels walk each destination block's slots through
+``row_offsets`` instead of relying on a sequential grid.  Each wrapper's
+``launches`` attribute counts its kernel launches (a plain integer; the
+plain version does not count).
 """
 from __future__ import annotations
 
@@ -22,20 +25,26 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import spmm_blockell_compact_ref
+from .ref import spmm_blockell_compact_ref, spmm_blockell_update_compact_ref
 
-_FN = None
+_FNS = {}
+_F32 = (torch.float32,)
+_I32 = (torch.int32,)
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("spmm_blockell_compact").spmm_blockell_compact
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+def _kernel_fn(name: str):
+    """The ctypes entry point of ``csrc/<name>.cu``: pointers and the stream
+    as ``c_void_p``, every other argument a ``c_int``."""
+    fn = _FNS.get(name)
+    if fn is None:
+        n_ptr, n_int = {"spmm_blockell_compact": (9, 8),
+                        "spmm_blockell_update_compact": (14, 10)}[name]
+        fn = getattr(_build.load(name), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int,
@@ -51,32 +60,17 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def spmm_blockell_compact(row_offsets: torch.Tensor, cols: torch.Tensor,
-                          blocks: torch.Tensor, x: torch.Tensor,
-                          s_in: torch.Tensor, s_out: torch.Tensor,
-                          x_diag: Optional[torch.Tensor] = None,
-                          s_in_diag: Optional[torch.Tensor] = None, *,
-                          bm: int, bk: int, add_diag: bool) -> torch.Tensor:
-    """Slot-compacted fused SpMM; returns (n_dst, d) float32.
-
-    row_offsets: (R + 1,) int32 with R = ceil(n_dst / bm); cols:
-    (n_active,) int32 source blocks, sorted row-major; blocks:
-    (n_active, bm, bk) uint8 (exact 0/1 bitmask) or float32; x: (n_src, d)
-    float32; s_in: (n_src,); s_out: (n_dst,).  With ``add_diag`` (square
-    blocks only) the self term ``s_in_diag ⊙ x_diag`` seeds each row; they
-    default to s_in and x.  Offsets and block ids come from a
-    ``BlockCompaction``, which keeps them in range.  Rows of destination
-    blocks with no active slot are left unwritten by the kernel.
-    """
+def _check_aggregation(row_offsets, cols, blocks, x, s_in, s_out, x_diag,
+                       s_in_diag, bm: int, bk: int, add_diag: bool):
+    """The checks both kernels share; returns ``(R, x_diag, s_in_diag)``
+    with the self-term operands defaulted to x and s_in."""
     dev = x.device
-    f32 = (torch.float32,)
-    i32 = (torch.int32,)
-    _check("x", x, f32, 2, dev)
-    _check("row_offsets", row_offsets, i32, 1, dev)
-    _check("cols", cols, i32, 1, dev)
+    _check("x", x, _F32, 2, dev)
+    _check("row_offsets", row_offsets, _I32, 1, dev)
+    _check("cols", cols, _I32, 1, dev)
     _check("blocks", blocks, (torch.uint8, torch.float32), 3, dev)
-    _check("s_in", s_in, f32, 1, dev)
-    _check("s_out", s_out, f32, 1, dev)
+    _check("s_in", s_in, _F32, 1, dev)
+    _check("s_out", s_out, _F32, 1, dev)
     n_src, d = x.shape
     n_dst = s_out.shape[0]
     n_active = cols.shape[0]
@@ -98,33 +92,140 @@ def spmm_blockell_compact(row_offsets: torch.Tensor, cols: torch.Tensor,
             raise ValueError("add_diag requires square blocks (bm == bk)")
         x_diag = x if x_diag is None else x_diag
         s_in_diag = s_in if s_in_diag is None else s_in_diag
-        _check("x_diag", x_diag, f32, 2, dev)
-        _check("s_in_diag", s_in_diag, f32, 1, dev)
+        _check("x_diag", x_diag, _F32, 2, dev)
+        _check("s_in_diag", s_in_diag, _F32, 1, dev)
         if x_diag.shape[0] < n_dst or x_diag.shape[1] != d \
                 or s_in_diag.shape[0] < n_dst:
             raise ValueError(f"x_diag / s_in_diag must cover {n_dst} rows "
                              f"of width {d}")
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return R, x_diag, s_in_diag
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def spmm_blockell_compact(row_offsets: torch.Tensor, cols: torch.Tensor,
+                          blocks: torch.Tensor, x: torch.Tensor,
+                          s_in: torch.Tensor, s_out: torch.Tensor,
+                          x_diag: Optional[torch.Tensor] = None,
+                          s_in_diag: Optional[torch.Tensor] = None, *,
+                          bm: int, bk: int, add_diag: bool) -> torch.Tensor:
+    """Slot-compacted fused SpMM; returns (n_dst, d) float32.
+
+    row_offsets: (R + 1,) int32 with R = ceil(n_dst / bm); cols:
+    (n_active,) int32 source blocks, sorted row-major; blocks:
+    (n_active, bm, bk) uint8 (exact 0/1 bitmask) or float32; x: (n_src, d)
+    float32; s_in: (n_src,); s_out: (n_dst,).  With ``add_diag`` (square
+    blocks only) the self term ``s_in_diag ⊙ x_diag`` seeds each row; they
+    default to s_in and x.  Offsets and block ids come from a
+    ``BlockCompaction``, which keeps them in range.  Rows of destination
+    blocks with no active slot are left unwritten by the kernel.
+    """
+    R, x_diag, s_in_diag = _check_aggregation(
+        row_offsets, cols, blocks, x, s_in, s_out, x_diag, s_in_diag, bm, bk,
+        add_diag)
+    if x.device.type == "cpu":
         return spmm_blockell_compact_ref(
             row_offsets, cols, blocks, x, s_in, s_out, x_diag, s_in_diag,
             bm=bm, bk=bk, add_diag=add_diag)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    fn = _kernel_fn()
-    y = torch.empty((n_dst, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    n_src, d = x.shape
+    n_dst = s_out.shape[0]
+    fn = _kernel_fn("spmm_blockell_compact")
+    y = torch.empty((n_dst, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(row_offsets.data_ptr(), cols.data_ptr(), blocks.data_ptr(),
                  x.data_ptr(), s_in.data_ptr(), s_out.data_ptr(),
                  x_diag.data_ptr() if add_diag else None,
                  s_in_diag.data_ptr() if add_diag else None,
                  y.data_ptr(), int(blocks.dtype == torch.uint8), R, n_src,
                  n_dst, bm, bk, d, int(add_diag), stream)
-    if err:
-        raise RuntimeError(f"spmm_blockell_compact launch failed: "
-                           f"cudaError {err}")
+    _raise_on(err, "spmm_blockell_compact")
     spmm_blockell_compact.launches += 1
     return y
 
 
 spmm_blockell_compact.launches = 0
+
+
+def spmm_blockell_update_compact(
+        row_offsets: torch.Tensor, cols: torch.Tensor, blocks: torch.Tensor,
+        x: torch.Tensor, s_in: torch.Tensor, s_out: torch.Tensor,
+        w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+        w_self: Optional[torch.Tensor] = None,
+        self_coeff: Optional[torch.Tensor] = None,
+        x_self: Optional[torch.Tensor] = None,
+        x_diag: Optional[torch.Tensor] = None,
+        s_in_diag: Optional[torch.Tensor] = None, *, bm: int, bk: int,
+        add_diag: bool, relu: bool = False) -> torch.Tensor:
+    """Slot-compacted fused LAYER; returns (n_dst, d_out) float32.
+
+    The aggregation of :func:`spmm_blockell_compact` at width d_in, then in
+    the same launch ``(s_out ⊙ acc) @ w + c · (x_self @ w_self) + bias`` and
+    ReLU when ``relu``.  w: (d_in, d_out); bias: (d_out,) or None; w_self:
+    (d_in, d_out) or None and may be ``w`` itself; self_coeff: a 0-d float32
+    tensor on x's device (c = 1 when None; needs w_self); x_self:
+    (>= n_dst, d_in), defaults to x (needs w_self).  The self term needs
+    square blocks.  Rows of destination blocks with no active slot are left
+    unwritten by the kernel.
+    """
+    R, x_diag, s_in_diag = _check_aggregation(
+        row_offsets, cols, blocks, x, s_in, s_out, x_diag, s_in_diag, bm, bk,
+        add_diag)
+    dev = x.device
+    n_src, d_in = x.shape
+    n_dst = s_out.shape[0]
+    _check("w", w, _F32, 2, dev)
+    if w.shape[0] != d_in:
+        raise ValueError(f"w has {w.shape[0]} rows, x has {d_in} columns")
+    d_out = w.shape[1]
+    if d_out == 0:
+        raise ValueError("w has no output columns")
+    if bias is not None:
+        _check("bias", bias, _F32, 1, dev)
+        if bias.shape[0] != d_out:
+            raise ValueError(f"bias has {bias.shape[0]} entries, w has "
+                             f"{d_out} columns")
+    if w_self is None:
+        if self_coeff is not None or x_self is not None:
+            raise ValueError("self_coeff and x_self need w_self")
+    else:
+        if bm != bk:
+            raise ValueError("w_self requires square blocks (bm == bk)")
+        _check("w_self", w_self, _F32, 2, dev)
+        if w_self.shape != w.shape:
+            raise ValueError(f"w_self must be {tuple(w.shape)}, got "
+                             f"{tuple(w_self.shape)}")
+        x_self = x if x_self is None else x_self
+        _check("x_self", x_self, _F32, 2, dev)
+        if x_self.shape[0] < n_dst or x_self.shape[1] != d_in:
+            raise ValueError(f"x_self must cover {n_dst} rows of width "
+                             f"{d_in}")
+        if self_coeff is not None:
+            _check("self_coeff", self_coeff, _F32, 0, dev)
+    if dev.type == "cpu":
+        return spmm_blockell_update_compact_ref(
+            row_offsets, cols, blocks, x, s_in, s_out, w, bias, w_self,
+            self_coeff, x_self, x_diag, s_in_diag, bm=bm, bk=bk,
+            add_diag=add_diag, relu=relu)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _kernel_fn("spmm_blockell_update_compact")
+    y = torch.empty((n_dst, d_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(row_offsets.data_ptr(), cols.data_ptr(), blocks.data_ptr(),
+                 x.data_ptr(), s_in.data_ptr(), s_out.data_ptr(),
+                 w.data_ptr(), ptr(bias), ptr(w_self), ptr(self_coeff),
+                 ptr(x_self), ptr(x_diag), ptr(s_in_diag), y.data_ptr(),
+                 int(blocks.dtype == torch.uint8), R, n_src, n_dst, bm, bk,
+                 d_in, d_out, int(add_diag), int(relu), stream)
+    _raise_on(err, "spmm_blockell_update_compact")
+    spmm_blockell_update_compact.launches += 1
+    return y
+
+
+spmm_blockell_update_compact.launches = 0

@@ -1,1 +1,2 @@
-from .gcn import gcn_init, gcn_apply, make_graph_inputs
+from .gcn import gcn_init, gcn_apply, gcn_loss, make_graph_inputs
+from .sage_gin import gin_init, gin_apply, gin_loss

@@ -4,10 +4,12 @@ h^{l+1} = act( A_hat h^l W^l ),  A_hat = D^-1/2 (A+I) D^-1/2.
 
 The symmetric normalization factorizes into a source and a destination
 scale, so the aggregation runs unweighted on pre-scaled features.
-``executor`` is ``"segment"`` (an ``index_add_`` over the edge list) or
-``"fused"`` (one ``repro_torch.exec.LayerExecutionPlan`` call per layer:
-aggregation and update as one scheduled op, on the block-ELL kernel when
-the plan's backend is ``cuda``).
+``executor`` is ``"segment"`` (an ``index_add_`` over the edge list),
+``"blockell"`` (one ``repro_torch.exec.GraphExecutionPlan`` in mode "gcn":
+the whole A_hat chain as one differentiable launch, the update matmul
+apart) or ``"fused"`` (one ``repro_torch.exec.LayerExecutionPlan`` call per
+layer: aggregation and update as one scheduled op, on the block-ELL kernels
+when the plans' backend is ``cuda``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..nn.layers import linear_init, linear_apply
+from ..exec.plan import GraphExecutionPlan
+from ..nn.layers import cross_entropy, linear_apply, linear_init
 
 
 def gcn_init(generator: torch.Generator, dims: Sequence[int],
@@ -57,7 +60,9 @@ def _aggregate_segment(x: torch.Tensor, graph: Dict[str, torch.Tensor]
 def gcn_apply(params: Dict, x: torch.Tensor,
               graph: Optional[Dict[str, torch.Tensor]] = None,
               executor: str = "segment", plans=None) -> torch.Tensor:
-    """Forward pass; ReLU between layers, none after the last."""
+    """Forward pass; ReLU between layers, none after the last.  ``plans`` is
+    one LayerExecutionPlan per layer for ``"fused"`` and one
+    GraphExecutionPlan for ``"blockell"``."""
     layers = params["layers"]
     n_layers = len(layers)
     if executor == "fused":
@@ -71,11 +76,29 @@ def gcn_apply(params: Dict, x: torch.Tensor,
         for i, (p, lp) in enumerate(zip(layers, plans)):
             h = lp.apply(h, p["w"], p.get("b"), relu=i + 1 < n_layers)
         return h
-    if executor != "segment":
-        raise ValueError(f"unknown executor {executor!r} (segment | fused)")
+    if executor == "blockell":
+        if not isinstance(plans, GraphExecutionPlan):
+            raise ValueError("executor='blockell' needs one "
+                             "GraphExecutionPlan (build_plan(g, 'gcn'))")
+        if plans.mode != "gcn":
+            raise ValueError(f"plan mode {plans.mode!r} != 'gcn'")
+        aggregate = plans.apply
+    elif executor == "segment":
+        aggregate = lambda h: _aggregate_segment(h, graph)
+    else:
+        raise ValueError(f"unknown executor {executor!r} "
+                         "(segment | blockell | fused)")
     h = x
     for i, p in enumerate(layers):
-        h = linear_apply(p, _aggregate_segment(h, graph))
+        h = linear_apply(p, aggregate(h))
         if i + 1 < n_layers:
             h = torch.relu(h)
     return h
+
+
+def gcn_loss(params: Dict, x: torch.Tensor,
+             graph: Optional[Dict[str, torch.Tensor]], labels: torch.Tensor,
+             mask: torch.Tensor, executor: str = "segment",
+             plans=None) -> torch.Tensor:
+    logits = gcn_apply(params, x, graph, executor, plans)
+    return cross_entropy(logits, labels, mask)

@@ -1,1 +1,2 @@
-from .layers import linear_init, linear_apply
+from .layers import (cross_entropy, linear_apply, linear_init, mlp_apply,
+                     mlp_init)

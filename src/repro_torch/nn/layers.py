@@ -1,5 +1,6 @@
-"""Linear layers as plain functions on dicts of tensors (the port of the
-``linear_*`` half of ``repro/nn/layers.py``).
+"""Linear layers, MLPs and the masked cross-entropy as plain functions on
+dicts of tensors (the port of the ``linear_*``, ``mlp_*`` and
+``cross_entropy`` parts of ``repro/nn/layers.py``).
 
 ``linear_init`` draws from an explicit ``torch.Generator`` on the CPU and
 then moves the parameters to ``device``, so a seed gives the same weights
@@ -9,7 +10,7 @@ reference's parameters over with ``repro_torch.convert.params_from_jax``.)
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -33,3 +34,37 @@ def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int],
+             bias: bool = True, device="cuda") -> list:
+    """``dims = [d_in, hidden..., d_out]``: one linear layer per step."""
+    return [linear_init(generator, dims[i], dims[i + 1], bias, device=device)
+            for i in range(len(dims) - 1)]
+
+
+def mlp_apply(params: Sequence[dict], x: torch.Tensor,
+              act: Callable = torch.relu,
+              final_act: Optional[Callable] = None) -> torch.Tensor:
+    for i, p in enumerate(params):
+        x = linear_apply(p, x)
+        if i + 1 < len(params):
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy with an fp32 log-sum-exp; with ``mask``, the mean
+    over the rows it selects (``sum(nll * mask) / max(sum(mask), 1)``)."""
+    lg = logits.to(torch.float32)
+    m = torch.amax(lg, dim=-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,5 +1,5 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the serving slice through the kernel.
+"""The port on the card: each CUDA kernel against its plain version, the
+plans' backwards through the kernels, and the serving slice.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -9,19 +9,23 @@ is installed (``tests/conftest.py`` imports jax, hence ``--noconftest``):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Kernel against plain version: 1e-5 (fp32 sums of at most a row's slots x bk
-terms in another order).  Served answers against the kernel-computed
-oracle: 1e-4, the launcher's own bar.
+terms in another order); the layer kernel at d_in = 1433 sums 1433 products
+more per output, so it is held to 1e-4 there.  Plans on the ``cuda``
+backend against the ``torch`` backend, values and gradients: 1e-4 (sums of
+up to 1433 terms, then a second product).  Served answers against the
+kernel-computed oracle: 1e-4, the launcher's own bar.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import build_blockell
-from repro_torch.exec import build_plan
+from repro_torch.core import build_blockell, minhash_reorder
+from repro_torch.exec import build_layer_plan, build_plan
 from repro_torch.graph import DatasetSpec, Graph, cora_like, synthesize
 from repro_torch.kernels import spmm_blockell as sk
-from repro_torch.kernels.ref import spmm_blockell_compact_ref
+from repro_torch.kernels.ref import (spmm_blockell_compact_ref,
+                                     spmm_blockell_update_compact_ref)
 from repro_torch.serve import (EmbeddingCache, MicroBatcher, ServeEngine,
                                make_session, zipfian_trace)
 
@@ -116,3 +120,151 @@ def test_session_serves_through_the_kernel():
     eng = ServeEngine(sess, cache, MicroBatcher(max_batch=8, max_wait=1e-3))
     rep = eng.serve(zipfian_trace(g.num_nodes, 80, seed=1))
     assert rep.num_requests == 80 and rep.max_oracle_err < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# spmm_blockell_update_compact
+# ---------------------------------------------------------------------------
+# (d_in, d_out, add_diag, epilogue, overrides): d_in 16 / 128 / 1433 (the
+# chunk loop), d_out 200 (two output strips), GIN's w_self-is-w epilogue,
+# SAGE's two W, and the bucket overrides
+UPDATE_CASES = [(16, 7, True, "none", False),
+                (128, 128, False, "self_coeff", False),
+                (1433, 16, True, "none", False),
+                (64, 200, False, "two_w", False),
+                (128, 128, True, "self_coeff", True),
+                (1433, 130, True, "two_w", True)]
+
+
+def _update_case(g, bm, tiles, d_in, d_out, add_diag, epilogue, override,
+                 seed=0):
+    (ro, cols, blocks, _, s_in, s_out, _, _), written = _case(
+        g, bm, 1, tiles, False, seed)
+    rng = np.random.default_rng(seed + 1)
+    n = g.num_nodes
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).cuda()
+    mat = lambda a, b: t(rng.standard_normal((a, b)) / np.sqrt(a))
+    x, w, b = (t(rng.standard_normal((n, d_in))), mat(d_in, d_out),
+               t(rng.standard_normal(d_out)))
+    # no bias at d_out = 7 and no ReLU at d_in = 64: both epilogue flags
+    # are seen on and off
+    kw = {"bias": b if d_out != 7 else None, "w_self": None,
+          "self_coeff": None, "x_self": None, "x_diag": None,
+          "s_in_diag": None}
+    if epilogue == "two_w":
+        kw["w_self"] = mat(d_in, d_out)
+    elif epilogue == "self_coeff":
+        kw["w_self"], kw["self_coeff"] = w, t(1.3)
+    if override:
+        if kw["w_self"] is not None:
+            kw["x_self"] = t(rng.standard_normal((n, d_in)))
+        if add_diag:
+            kw["x_diag"] = t(rng.standard_normal((n, d_in)))
+            kw["s_in_diag"] = t(rng.uniform(0.2, 1, n))
+    args = (ro, cols, blocks, x, s_in, s_out, w)
+    opts = dict(bm=bm, bk=bm, add_diag=add_diag, relu=d_in != 64)
+    return args, kw, opts, written
+
+
+@pytest.mark.parametrize("bm", [32, 128])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("d_in,d_out,add_diag,epilogue,override",
+                         UPDATE_CASES)
+def test_update_kernel_matches_plain_version(bm, tiles, d_in, d_out,
+                                             add_diag, epilogue, override):
+    _need_cuda()
+    g = _random_graph(weighted=tiles == "f32")
+    args, kw, opts, written = _update_case(g, bm, tiles, d_in, d_out,
+                                           add_diag, epilogue, override)
+    before = sk.spmm_blockell_update_compact.launches
+    y = sk.spmm_blockell_update_compact(*args, **kw, **opts)
+    torch.cuda.synchronize()
+    assert sk.spmm_blockell_update_compact.launches == before + 1
+    assert y.shape == (g.num_nodes, d_out)
+    ref = spmm_blockell_update_compact_ref(*args, **kw, **opts)
+    tol = 1e-4 if d_in > 128 else TOL
+    torch.testing.assert_close(y[written], ref[written], atol=tol, rtol=tol)
+    # no atomics: a second run is bit-identical
+    again = sk.spmm_blockell_update_compact(*args, **kw, **opts)
+    assert torch.equal(again[written], y[written])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "device", "contiguity"])
+def test_update_kernel_wrapper_rejects_bad_operands(bad):
+    _need_cuda()
+    args, kw, opts, _ = _update_case(_random_graph(), 32, "u8", 16, 8, True,
+                                     "two_w", False)
+    args = list(args)
+    if bad == "dtype":
+        args[6] = args[6].double()
+    elif bad == "device":
+        kw["w_self"] = kw["w_self"].cpu()
+    else:
+        args[6] = args[6].T.contiguous().T
+    with pytest.raises((TypeError, ValueError)):
+        sk.spmm_blockell_update_compact(*args, **kw, **opts)
+
+
+def _leaves(*ts):
+    return [t.detach().clone().requires_grad_() for t in ts]
+
+
+@pytest.mark.parametrize("mode", ["gcn", "sum"])
+def test_graph_plan_gradient_on_the_card(mode):
+    _need_cuda()
+    g = cora_like(seed=0)
+    gen = torch.Generator("cuda").manual_seed(1)
+    x0 = torch.randn(g.num_nodes, 16, device="cuda", generator=gen)
+    proj = torch.randn(g.num_nodes, 16, device="cuda", generator=gen)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        (x,) = _leaves(x0)
+        (build_plan(g, mode, bm=128, backend=backend, device="cuda")
+         .apply(x) * proj).sum().backward()
+        grads[backend] = x.grad
+    torch.testing.assert_close(grads["cuda"], grads["torch"], atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("mode,d_in,d_out,epilogue", [
+    ("gcn", 1433, 16, "none"),          # gcn-cora layer 0: update-first
+    ("sum", 128, 128, "self_coeff"),    # GIN convs 2-5: fused
+    ("mean", 64, 16, "two_w")])         # SAGE's two-W layer, update-first
+def test_layer_plan_autograd_on_the_card(mode, d_in, d_out, epilogue):
+    """Both layer plans on the kernel backend against the plain backend on
+    the card: values and the gradient of every operand."""
+    _need_cuda()
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    gen = torch.Generator("cuda").manual_seed(2)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    x0, w0, b0 = r(g.num_nodes, d_in), r(d_in, d_out) / d_in ** 0.5, r(d_out)
+    ws0 = r(d_in, d_out) / d_in ** 0.5 if epilogue == "two_w" else None
+    proj = r(g.num_nodes, d_out)
+    out = {}
+    for backend in ("cuda", "torch"):
+        lp = build_layer_plan(g, mode, d_in=d_in, d_out=d_out, bm=128,
+                              backend=backend, device="cuda")
+        if backend == "cuda" and epilogue == "self_coeff":
+            assert lp.fuse
+        x, w, b = _leaves(x0, w0, b0)
+        ops = {"x": x, "w": w, "b": b}
+        kw = {}
+        if epilogue == "two_w":
+            (ops["ws"],) = _leaves(ws0)
+            kw["w_self"] = ops["ws"]
+        elif epilogue == "self_coeff":
+            (ops["c"],) = _leaves(torch.tensor(1.2, device="cuda"))
+            kw.update(w_self=w, self_coeff=ops["c"])
+        sk.spmm_blockell_update_compact.launches = 0
+        y = lp.apply(x, w, b, relu=True, **kw)
+        (y * proj).sum().backward()
+        if backend == "cuda":
+            assert sk.spmm_blockell_update_compact.launches == int(lp.fuse)
+        out[backend] = (y.detach(), {k: v.grad for k, v in ops.items()})
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], atol=1e-4,
+                               rtol=1e-4)
+    for k, gk in out["cuda"][1].items():
+        scale = max(1.0, float(out["torch"][1][k].abs().max()))
+        torch.testing.assert_close(gk, out["torch"][1][k], rtol=0,
+                                   atol=1e-4 * scale, msg=f"d{k}")

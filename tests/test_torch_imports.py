@@ -41,17 +41,22 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     expected = {"repro_torch.convert", "repro_torch.device",
+                "repro_torch.configs.base", "repro_torch.configs.families",
+                "repro_torch.configs.gcn_cora",
+                "repro_torch.configs.registry",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
                 "repro_torch.core.cache_model", "repro_torch.exec.plan",
                 "repro_torch.graph.datasets", "repro_torch.graph.sampler",
                 "repro_torch.graph.structure", "repro_torch.kernels._build",
                 "repro_torch.kernels.ref",
                 "repro_torch.kernels.spmm_blockell",
-                "repro_torch.launch.serve", "repro_torch.models.gcn",
+                "repro_torch.launch.serve", "repro_torch.launch.train",
+                "repro_torch.models.gcn", "repro_torch.models.sage_gin",
                 "repro_torch.nn.layers", "repro_torch.obs.registry",
                 "repro_torch.obs.trace", "repro_torch.serve.batcher",
                 "repro_torch.serve.cache", "repro_torch.serve.engine",
-                "repro_torch.serve.registry"}
+                "repro_torch.serve.registry", "repro_torch.train.fault",
+                "repro_torch.train.loop", "repro_torch.train.optimizer"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []
@@ -59,18 +64,22 @@ def test_port_imports_neither_jax_nor_reference():
     assert out["libs_loaded"] == []
 
 
-def test_kernel_source_ships_beside_the_package():
+@pytest.mark.parametrize("name", ["spmm_blockell_compact",
+                                  "spmm_blockell_update_compact"])
+def test_kernel_source_ships_beside_the_package(name):
     from repro_torch.kernels import _build
-    src = _build.CSRC / "spmm_blockell_compact.cu"
+    src = _build.CSRC / f"{name}.cu"
     assert src.is_file()
     text = src.read_text()
-    assert "repro/kernels/spmm_blockell.py::spmm_blockell_compact" in text
-    assert 'extern "C" int spmm_blockell_compact(' in text
+    assert f"repro/kernels/spmm_blockell.py::{name}" in text
+    assert f'extern "C" int {name}(' in text
+    # the products are written by hand: no library GEMM and no torch
+    for banned in ("cublas", "cutlass", "torch", "#include <ATen"):
+        assert banned not in text.lower(), banned
     # the build lands in the repository's ignored build/ directory
     assert _build.build_dir() == ROOT / "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert _build.library_path("spmm_blockell_compact").parent == \
-        _build.build_dir()
+    assert _build.library_path(name).parent == _build.build_dir()
 
 
 def test_installed_copy_refuses_to_build_outside_a_checkout(tmp_path,

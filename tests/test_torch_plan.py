@@ -1,11 +1,18 @@
-"""The port's forward execution plans against the reference's.
+"""The port's execution plans against the reference's.
 
-``GraphExecutionPlan`` forward on the port's ``cuda`` (kernel; its plain
-version on CPU tensors), ``torch`` (the plain version on float32 tiles) and
-``coo`` backends, in gcn and mean modes, against the reference's
-``pallas``-interpret, ``jnp`` and ``coo`` plans on the same graphs and
-inputs; then ``LayerExecutionPlan.apply`` in both computation orders.
-Tolerance 1e-5 (fp32 sums in another order).
+``GraphExecutionPlan`` forward and gradient on the port's ``cuda`` (kernel;
+its plain version on CPU tensors), ``torch`` (the plain version on float32
+tiles) and ``coo`` backends against the reference's ``pallas``-interpret,
+``jnp`` and ``coo`` plans and their custom VJP, on the same graphs and
+inputs; then ``LayerExecutionPlan.apply`` in both computation orders, fused
+and unfused, with its hand-written backward against ``jax.grad`` of the
+reference's layer plan; then the per-layer schedule against the reference's
+whole-forward DP.  Tolerance 1e-5 (fp32 sums in another order), the
+reference's own (``tests/test_exec_layer.py``).  Layer values and gradients
+are held to 1e-5 of the largest entry of each compared array
+(``_assert_close_scaled``): dW_self = xᵀḡ on the skewed graph sums 1024
+products of magnitude ~1 into entries up to ~60, so an entry near zero
+carries ~1e-5 of rounding whatever order the sum takes.
 """
 import functools
 
@@ -13,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.exec import build_layer_plan as ref_build_layer_plan
 from repro.exec import build_plan as ref_build_plan
@@ -25,6 +33,14 @@ from _torch_parity import GRAPHS, to_port
 TOL = 1e-5
 BM = 32
 PORT_BACKENDS = ["cuda", "torch", "coo"]
+
+
+def _assert_close_scaled(got, ref, what):
+    """|got - ref| <= TOL * max(1, max|ref|) entrywise."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=TOL * max(1.0, float(np.abs(ref).max())),
+                               err_msg=what)
 
 
 def _x(n, d, seed):
@@ -89,8 +105,11 @@ def test_plan_rejects_bad_configs():
     p = build_plan(g, "gcn", bm=BM, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="nodes"):
         p.apply(torch.zeros(g.num_nodes + 1, 4))
-    with pytest.raises(NotImplementedError, match="backward"):
-        p.apply(torch.zeros(g.num_nodes, 4, requires_grad=True))
+    # the kernel backend back-propagates through its transpose plan
+    x = torch.ones(g.num_nodes, 4)
+    p.apply(x.requires_grad_()).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
+    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
 
 
 @pytest.mark.parametrize("gname", sorted(GRAPHS))
@@ -184,3 +203,143 @@ def test_gcn_apply_matches_reference_on_masked_graph(backend):
     with pytest.raises(ValueError, match="one LayerExecutionPlan per layer"):
         gcn_apply(tparams, torch.as_tensor(x), executor="fused",
                   plans=plans[:1])
+
+
+# ---------------------------------------------------------------------------
+# backward: the aggregation's gradient, then whole layers
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _ref_vjp(gname, mode, d):
+    """The reference pallas-interpret plan's custom VJP of ⟨F(x), proj⟩."""
+    g = GRAPHS[gname]
+    p = ref_build_plan(g, mode, bm=BM, backend="pallas", compact=True,
+                       interpret=True)
+    proj = jnp.asarray(_x(g.num_nodes, d, 5))
+    return np.asarray(jax.grad(lambda x: jnp.sum(p.apply(x) * proj))(
+        jnp.asarray(_x(g.num_nodes, d, 1))))
+
+
+@pytest.mark.parametrize("gname", sorted(GRAPHS))
+@pytest.mark.parametrize("mode", ["gcn", "sum", "mean"])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_graph_plan_gradient_matches_reference_vjp(gname, mode, backend):
+    g = GRAPHS[gname]
+    d = 24
+    p = build_plan(to_port(g), mode, bm=BM, backend=backend, device="cpu")
+    x = torch.as_tensor(_x(g.num_nodes, d, 1)).requires_grad_()
+    (p.apply(x) * torch.as_tensor(_x(g.num_nodes, d, 5))).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), _ref_vjp(gname, mode, d),
+                               atol=TOL, rtol=TOL)
+
+
+# (epilogue, plan mode, relu, bias): GCN's plain layer, SAGE's two-W layer,
+# GIN's self-coefficient layer with the same W on both halves
+EPILOGUES = {"none": ("gcn", True, True),
+             "two_w": ("mean", False, True),
+             "self_coeff": ("sum", True, False)}
+
+
+def _layer_operands(g, epilogue, d_in=20, d_out=12):
+    rng = np.random.default_rng(11)
+    mat = lambda a, b: (rng.standard_normal((a, b)) / np.sqrt(a)).astype(
+        np.float32)
+    ops = {"x": _x(g.num_nodes, d_in, 3), "w": mat(d_in, d_out),
+           "b": rng.standard_normal(d_out).astype(np.float32),
+           "proj": _x(g.num_nodes, d_out, 6)}
+    if epilogue == "two_w":
+        ops["ws"] = mat(d_in, d_out)
+    if epilogue == "self_coeff":
+        ops["c"] = np.float32(1.3)
+    return ops
+
+
+@pytest.mark.parametrize("gname", sorted(GRAPHS))
+@pytest.mark.parametrize("order,fuse", [("aggregate_first", True),
+                                        ("aggregate_first", False),
+                                        ("update_first", False)])
+@pytest.mark.parametrize("epilogue", sorted(EPILOGUES))
+def test_layer_plan_value_and_grads_match_reference(gname, order, fuse,
+                                                    epilogue):
+    """Values and the gradient of every operand, self_coeff included; with
+    ``w_self=w`` both gradient paths sum into W on both sides."""
+    g = GRAPHS[gname]
+    mode, relu, bias = EPILOGUES[epilogue]
+    ops = _layer_operands(g, epilogue)
+    d_in, d_out = ops["w"].shape
+    names = ["x", "w"] + (["b"] if bias else []) + \
+        [k for k in ("ws", "c") if k in ops]
+
+    def call(apply, v):
+        ws = v.get("ws", v["w"] if "c" in v else None)
+        return apply(v["x"], v["w"], v.get("b"), relu=relu, w_self=ws,
+                     self_coeff=v.get("c"))
+
+    ref_lp = ref_build_layer_plan(g, mode, d_in=d_in, d_out=d_out,
+                                  order=order, fuse=fuse, bm=BM,
+                                  backend="pallas", interpret=True)
+    proj = jnp.asarray(ops["proj"])
+
+    def ref_loss(*vals):
+        y = call(ref_lp.apply, dict(zip(names, vals)))
+        return jnp.sum(y * proj), y
+
+    (_, ref_y), ref_grads = jax.value_and_grad(
+        ref_loss, argnums=tuple(range(len(names))), has_aux=True)(
+        *(jnp.asarray(ops[k]) for k in names))
+
+    lp = build_layer_plan(to_port(g), mode, d_in=d_in, d_out=d_out,
+                          order=order, fuse=fuse, bm=BM, backend="cuda",
+                          device="cpu")
+    assert (lp.order, lp.fuse) == (order, fuse)
+    tv = {k: torch.tensor(np.asarray(ops[k])).requires_grad_() for k in names}
+    y = call(lp.apply, tv)
+    (y * torch.as_tensor(ops["proj"])).sum().backward()
+    _assert_close_scaled(y.detach().numpy(), ref_y, "value")
+    for k, rg in zip(names, ref_grads):
+        _assert_close_scaled(tv[k].grad.numpy(), rg, f"d{k}")
+
+
+def test_fused_layer_needs_the_kernel_backend_and_aggregate_first():
+    g = to_port(GRAPHS["random"])
+    assert build_layer_plan(g, "sum", d_in=16, d_out=16, bm=BM,
+                            backend="cuda", device="cpu").fuse
+    assert not build_layer_plan(g, "sum", d_in=16, d_out=16, bm=BM,
+                                backend="torch", device="cpu").fuse
+    for backend, order in (("torch", "aggregate_first"),
+                           ("coo", "aggregate_first"),
+                           ("cuda", "update_first")):
+        with pytest.raises(ValueError, match="fuse"):
+            build_layer_plan(g, "sum", d_in=16, d_out=16, order=order,
+                             fuse=True, bm=BM, backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["gcn-cora", "gin"])
+def test_schedule_matches_reference_dp(model):
+    """The port's per-layer ``order="auto"`` plans on the reordered Cora pick
+    the (order, fuse) the reference's whole-forward DP picks on the TPU
+    candidate grid (cold, uncalibrated), with pallas read as cuda."""
+    from repro.core import minhash_reorder as ref_minhash
+    from repro.exec.forward import (build_cost_oracle, dp_schedule, gcn_chain,
+                                    gin_chain)
+    from repro.graph import cora_like as ref_cora_like
+    from repro_torch.core import minhash_reorder
+    from repro_torch.graph import cora_like
+
+    g_ref = ref_cora_like().permute(ref_minhash(ref_cora_like()))
+    specs = (gcn_chain([1433, 16, 7]) if model == "gcn-cora"
+             else gin_chain(1433, 128, 5))
+    _, sched = dp_schedule(build_cost_oracle(
+        g_ref, specs, platform="tpu", use_cache=False, use_calibration=False,
+        respect_quarantine=False))
+    g = cora_like().permute(minhash_reorder(cora_like()))
+    gplan = None
+    port = []
+    for s in specs:
+        lp = build_layer_plan(g, s.mode, d_in=s.d_in, d_out=s.d_out,
+                              order="auto", bm=128, backend="cuda",
+                              gplan=gplan, device="cpu")
+        gplan = lp.gplan
+        port.append((lp.order, lp.fuse, lp.backend, lp.gplan.bm, True))
+    expected = [(o, f, "cuda" if b == "pallas" else b, bm, c)
+                for o, f, b, bm, c in sched]
+    assert port == expected
