@@ -14,25 +14,46 @@
    (with ``torch.sparse.mm`` as its yardstick) and at the training shapes
    (forward and transpose plans of the MinHash-reordered Cora);
    ``spmm_blockell_update_compact`` in four cases on the reordered Cora,
-   with a bit-identical rerun of the main-path case.
+   with a bit-identical rerun of the main-path case; both compact kernels
+   at the bucketed tiles (bm 256 and 512, with the destination overrides);
+   the padded kernels ``spmm_blockell_fused`` (gcn-cora's padded plans at
+   bm 128, forward and transposed, and bm 256), ``spmm_blockell`` (the same
+   ELL at d = 64) and ``spmm_blockell_update`` (the GIN conv at bm 128, and
+   once at d_in = 1433).
 4. Serving phase: ``repro_torch.launch.serve`` (Cora, GCN [1433, 64, 16],
    200 requests); the launcher exits 1 unless the online answers match the
    kernel-computed oracle within 1e-4.
-5. Training phases: ``repro_torch.launch.train`` for gcn-cora (20 steps),
-   then GIN at its paper width (1433 -> 128 x 5 convs -> 7, 20 steps of
-   ``fit``), each held against the same training on the plain backend.
-   Every path runs with each kernel's launch count set to 0 just before it
-   and read just after, and fails if a kernel it needs was not launched.
-6. Prints one JSON line with every kernel's numbers, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+5. The autotune path: ``repro_torch.launch.train --arch gcn-cora`` at its
+   default ``--executor auto`` on a fresh tuning cache (20 steps): every
+   layer's trial table and the raced schedules are printed, every candidate
+   must have been measured (a missing one is rebuilt and run outside any
+   ``try`` so its error surfaces), the kernels must have launched during
+   tuning, the winning schedule's training is held against the same
+   schedule on the plain backend, a rerun must read the cache, run no trial
+   and launch exactly the kernels the winner's ``cuda`` layers need, and
+   ``--executor fused`` on a fresh cache must give the cold DP's schedule,
+   launch its 4 compact kernels a step and hold against the plain backend.  Then GIN at its paper width (1433 -> 128 x 5 convs -> 7, 20
+   steps of ``fit``) on the port's cold ``plan_forward`` schedule, held
+   against the plain backend.  ``kernels.ops.spmm`` (the entry point of
+   ``spmm_blockell``) runs as a path of its own.  Every path runs with each
+   kernel's launch count set to 0 just before it and read just after, and
+   fails if a kernel it needs was not launched.
+6. Writes the full report (every case, trial table and path) to
+   ``build/chip_smoke.json``, prints one JSON line with every kernel's
+   numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; no phase is caught and swallowed.
 It imports nothing of JAX and nothing of the JAX package.
 """
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 import warnings
 from pathlib import Path
 
@@ -47,9 +68,18 @@ ORACLE_TOL = 1e-4
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 KERNELS = {
+    "spmm_blockell": (
+        "src/repro_torch/csrc/spmm_blockell.cu",
+        "src/repro/kernels/spmm_blockell.py:95"),
+    "spmm_blockell_fused": (
+        "src/repro_torch/csrc/spmm_blockell_fused.cu",
+        "src/repro/kernels/spmm_blockell.py:154"),
     "spmm_blockell_compact": (
         "src/repro_torch/csrc/spmm_blockell_compact.cu",
         "src/repro/kernels/spmm_blockell.py:229"),
+    "spmm_blockell_update": (
+        "src/repro_torch/csrc/spmm_blockell_update.cu",
+        "src/repro/kernels/spmm_blockell.py:344"),
     "spmm_blockell_update_compact": (
         "src/repro_torch/csrc/spmm_blockell_update_compact.cu",
         "src/repro/kernels/spmm_blockell.py:449"),
@@ -397,6 +427,221 @@ def update_phase(torch, dev, g):
     return cases
 
 
+def bucket_tile_phase(torch, dev, g):
+    """Both compact kernels at the bucketed candidates' hub tiles (bm 256
+    and 512), with the destination operands gathered into bucket order as
+    the bucketed plans pass them; held against their plain versions."""
+    from repro_torch.exec import build_plan
+    from repro_torch.kernels import spmm_blockell as sk
+    from repro_torch.kernels.ref import (spmm_blockell_compact_ref,
+                                         spmm_blockell_update_compact_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    compact, update = [], []
+    for hub in (256, 512):
+        plan = build_plan(g, "gcn", backend="cuda", buckets=f"128@7+{hub}",
+                          device=dev)
+        a = plan._fwd
+        ab = a["buckets"][1]                      # the hub bucket
+        n_dst = ab["s_out_sel"].numel()
+        x = r(g.num_nodes, 48)
+        args = (ab["row_offsets"], ab["cols"], ab["blocks"], x, a["s_in"],
+                ab["s_out_sel"], x[ab["idx"]], ab["s_in_diag"])
+        kw = dict(bm=hub, bk=hub, add_diag=True)
+        y = sk.spmm_blockell_compact(*args, **kw)
+        ref = spmm_blockell_compact_ref(*args, **kw)
+        torch.cuda.synchronize()
+        written = torch.repeat_interleave(
+            torch.diff(ab["row_offsets"].long()) > 0, hub)[:n_dst]
+        name = f"bucket hub bm={hub} d=48 x_diag/s_in_diag"
+        err = assert_close_scaled(y[written], ref[written], KERNEL_TOL,
+                                  f"kernel vs plain {name}")
+        compact.append({"kernel": "spmm_blockell_compact", "case": name,
+                        "max_abs_err": err,
+                        "ms": gpu_ms(lambda: sk.spmm_blockell_compact(
+                            *args, **kw)),
+                        "plain_ms": gpu_ms(lambda: spmm_blockell_compact_ref(
+                            *args, **kw)), "weight": 0})
+        x = r(g.num_nodes, 128)
+        w = r(128, 128) / 128 ** 0.5
+        c = torch.tensor(1.25, device=dev)
+        xg = x[ab["idx"]]
+        uargs = (ab["row_offsets"], ab["cols"], ab["blocks"], x, a["s_in"],
+                 ab["s_out_sel"], w, r(128), w, c, xg, xg, ab["s_in_diag"])
+        ukw = dict(bm=hub, bk=hub, add_diag=True, relu=True)
+        y = sk.spmm_blockell_update_compact(*uargs, **ukw)
+        ref = spmm_blockell_update_compact_ref(*uargs, **ukw)
+        torch.cuda.synchronize()
+        name = (f"bucket hub bm={hub} 128->128 w_self is w, c, bias, ReLU, "
+                "x_self/x_diag/s_in_diag")
+        err = assert_close_scaled(y[written], ref[written], KERNEL_TOL,
+                                  f"update kernel vs plain {name}")
+        update.append({"kernel": "spmm_blockell_update_compact",
+                       "case": name, "max_abs_err": err,
+                       "ms": gpu_ms(lambda: sk.spmm_blockell_update_compact(
+                           *uargs, **ukw)),
+                       "plain_ms": gpu_ms(
+                           lambda: spmm_blockell_update_compact_ref(
+                               *uargs, **ukw)), "weight": 0})
+        for case in (compact[-1], update[-1]):
+            print("case " + json.dumps(case))
+    return compact, update
+
+
+def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
+                bm, weight, add_diag=False, plan_side=None, library=None,
+                update=None):
+    """One padded-kernel case on the side arrays ``a`` of a padded plan:
+    the kernel (raw launch, no Python checks) and its plain version, timed,
+    held to each other on every row (the padded kernels write them all).
+    ``kernel`` is spmm_blockell (y = A x), spmm_blockell_fused or, with
+    ``update = (w, bias, w_self, coeff, relu)``, spmm_blockell_update.
+    With ``plan_side`` and ``library`` the plan's output is held against
+    ``torch.sparse.mm`` and the library call is timed."""
+    from repro_torch.kernels import ref as plain
+    from repro_torch.kernels import spmm_blockell as sk
+
+    n = a["s_in"].numel()
+    cols, blocks = a["block_cols"], a["blocks"]
+    R, W = cols.shape
+    x = torch.randn((n, d), generator=gen, device=dev)
+    fn = sk._kernel_fn(kernel)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
+    u8 = int(blocks.dtype == torch.uint8)
+    if kernel == "spmm_blockell":
+        args, kw = (cols, blocks, x), dict(bm=bm, bk=bm, n_dst=n)
+        d_out = d
+        y = torch.empty((n, d), device=dev)
+        raw = (cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+               y.data_ptr(), u8, R, W, n, n, bm, bm, d, stream)
+        ref_fn = plain.spmm_blockell_ref
+    elif kernel == "spmm_blockell_fused":
+        args = (cols, blocks, x, a["s_in"], a["s_out"])
+        kw = dict(bm=bm, bk=bm, add_diag=add_diag)
+        d_out = d
+        y = torch.empty((n, d), device=dev)
+        raw = (cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+               a["s_in"].data_ptr(), a["s_out"].data_ptr(), y.data_ptr(), u8,
+               R, W, n, n, bm, bm, d, int(add_diag), stream)
+        ref_fn = plain.spmm_blockell_fused_ref
+    else:
+        w, b, ws, c, relu = update
+        args = (cols, blocks, x, a["s_in"], a["s_out"], w, b, ws, c)
+        kw = dict(bm=bm, bk=bm, add_diag=add_diag, relu=relu)
+        d_out = w.shape[1]
+        y = torch.empty((n, d_out), device=dev)
+        raw = (cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+               a["s_in"].data_ptr(), a["s_out"].data_ptr(), w.data_ptr(),
+               ptr(b), ptr(ws), ptr(c), y.data_ptr(), u8, R, W, n, n, bm, bm,
+               d, d_out, int(add_diag), int(relu), stream)
+        ref_fn = plain.spmm_blockell_update_ref
+    got = getattr(sk, kernel)(*args, **kw)
+    ref = ref_fn(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{kernel} output not finite ({name})")
+    tol = 1e-4 if d > 512 else KERNEL_TOL
+    err = assert_close_scaled(got, ref, tol, f"{kernel} vs plain {name}")
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError(f"{kernel} launch failed")
+
+    # no atomics: a second run is bit-identical
+    if not torch.equal(getattr(sk, kernel)(*args, **kw), got):
+        raise AssertionError(f"{kernel} rerun is not bit-identical ({name})")
+    big = d > 512
+    ms = gpu_ms(launch, n_inner=5 if big else 20)
+    plain_ms = gpu_ms(lambda: ref_fn(*args, **kw), n_inner=5 if big else 20)
+    # what the data needs: the active tiles, the slot table, x, the scales
+    # and the output, each moved once; the edges' products, the scales and
+    # self term, and the dense epilogue product on every row
+    tile_bytes = n_active * bm * bm * blocks.element_size()
+    nbytes = (tile_bytes + 4 * R * W + 4 * n * d + 4 * n * d_out
+              + (0 if kernel == "spmm_blockell" else 8 * n))
+    ops = 2 * nnz * d
+    if kernel != "spmm_blockell":
+        ops += 2 * n * d + (2 * n * d if add_diag else 0)
+    if update is not None:
+        w, b, ws, c, relu = update
+        n_w = 1 if ws is None or ws is w else 2
+        nbytes += 4 * n_w * d * d_out + (4 * d_out if b is not None else 0)
+        ops += (2 * n_w * n * d * d_out + (2 * n * d if ws is not None else 0)
+                + (n * d_out if b is not None else 0))
+    case = {"kernel": kernel, "case": name, "max_abs_err": err,
+            "ref_max_abs": float(ref.abs().max()), "tolerance": tol,
+            "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
+            "dense_tile_ops_ms": 2 * n_active * bm * bm * d
+            / PEAK_FP32_FLOPS * 1e3,
+            "library_ms": None, "weight": weight}
+    if library is not None:
+        side = plan_side(x) if plan_side is not None else got
+        case["plan_vs_library_err"] = assert_close_scaled(
+            side, torch.sparse.mm(library, x), KERNEL_TOL,
+            f"{name} vs torch.sparse.mm")
+        case["library_ms"] = gpu_ms(lambda: torch.sparse.mm(library, x))
+    print("case " + json.dumps(case))
+    return case
+
+
+def padded_phase(torch, dev, g):
+    """The padded kernels at the shapes the padded candidates of the
+    autotune race give them on the reordered Cora: ``spmm_blockell_fused``
+    on gcn-cora's padded plan (forward d = 16 and 7, both transposes; one
+    padded gcn-cora step's four launches) and at bm 256; ``spmm_blockell``
+    on the same ELL at d = 64 (``torch.sparse.mm`` of the bare adjacency as
+    its yardstick); ``spmm_blockell_update`` on the GIN conv at bm 128 and
+    once at d_in = 1433 (gcn 1433 -> 16)."""
+    from repro_torch.exec import build_plan
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fused, spmm, update = [], [], []
+    for bm in (BM, 256):
+        plan = build_plan(g, "gcn", bm=bm, backend="cuda", compact=False,
+                          device=dev)
+        ell, ell_t = plan.ell, plan.ell_t
+        nnz = int(ell.density_stats()["nnz"])
+        print(f"padded plan (gcn, bm={bm}): R={ell.n_row_blocks} "
+              f"W={ell.width} slots={ell.n_row_blocks * ell.width} "
+              f"active={ell.n_active} (transposed W={ell_t.width}, active "
+              f"{ell_t.n_active}) tile MB="
+              f"{plan._fwd['blocks'].numel() / 1e6:.2f}")
+        sides = (("forward", plan._fwd, ell, plan.raw_apply, False),
+                 ("transposed", plan._bwd, ell_t, plan.raw_apply_t, True))
+        for side, a, e, apply, transposed in sides:
+            lib = library_matrix(torch, dev, g, "gcn", transposed)
+            for d in ((16, 7) if bm == BM else (16,)):
+                fused.append(padded_case(
+                    torch, dev, "spmm_blockell_fused", a, nnz, e.n_active, d,
+                    gen, f"gcn padded bm={bm} {side} d={d}", bm=bm,
+                    weight=int(bm == BM), add_diag=True, plan_side=apply,
+                    library=lib))
+        if bm == BM:
+            spmm.append(padded_case(
+                torch, dev, "spmm_blockell", plan._fwd, nnz, ell.n_active,
+                64, gen, f"y = A x padded bm={bm} d=64", bm=bm, weight=1,
+                library=library_matrix(torch, dev, g, "sum", False)))
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    for mode, d_in, d_out, epi, weight in (("sum", 128, 128, "self_coeff", 1),
+                                          ("gcn", 1433, 16, "none", 0)):
+        plan = build_plan(g, mode, bm=BM, backend="cuda", compact=False,
+                          device=dev)
+        nnz = int(plan.ell.density_stats()["nnz"])
+        w = r(d_in, d_out) / d_in ** 0.5
+        ws, c = ((w, torch.tensor(1.25, device=dev)) if epi == "self_coeff"
+                 else (None, None))
+        name = (f"{mode} padded bm={BM} {d_in}->{d_out}"
+                + (", w_self is w, c = 1 + eps" if ws is not None else "")
+                + ", bias, ReLU")
+        update.append(padded_case(
+            torch, dev, "spmm_blockell_update", plan._fwd, nnz,
+            plan.ell.n_active, d_in, gen, name, bm=BM, weight=weight,
+            add_diag=plan.add_diag, update=(w, r(d_out), ws, c, True)))
+    return spmm, fused, update
+
+
 # ---------------------------------------------------------------------------
 # main-path phases
 # ---------------------------------------------------------------------------
@@ -518,82 +763,311 @@ def step_breakdown(torch, what, loss_fn, params, batch):
     return report
 
 
-def gcn_training_phase(torch, dev):
-    """The launcher trains gcn-cora through the compact kernel: 2 forward
-    and 2 transposed launches a step.  Then the kernel backend is held
-    against the plain backend: step 0 within 1e-5, 10 losses within 1e-4
-    (fp32 sums over up to 1433 terms in another order, through 10 Adam
-    steps; the CPU test holds the port to the reference at the same bar)."""
-    from repro_torch.configs import get
+@contextlib.contextmanager
+def tuning_cache():
+    """A fresh, empty autotune cache for the launcher (removed after)."""
+    old = os.environ.get("REPRO_TORCH_EXEC_CACHE")
+    with tempfile.TemporaryDirectory(prefix="exec-cache-") as d:
+        os.environ["REPRO_TORCH_EXEC_CACHE"] = d
+        try:
+            yield d
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TORCH_EXEC_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_EXEC_CACHE"] = old
+
+
+def run_launcher(argv):
+    """``launch.train.main(argv)`` with its standard output captured and
+    echoed; returns (result, printed lines, wall seconds)."""
     from repro_torch.launch import train
-    from repro_torch.launch.train import gnn_batch, layer_plans, training_graph
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = train.main(argv)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="")
+    return res, out.splitlines(), wall
 
-    reset_launches()
-    res = train.main(["--arch", "gcn-cora", "--steps", str(TRAIN_STEPS)])
-    launches = read_launches(torch)
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    print(f"gcn-cora training: launches={launches} per step={per_step} "
-          f"(expected compact 4, update 0); losses {res.losses}")
-    check_curve(res.losses, "gcn-cora")
-    if launches["spmm_blockell_compact"] < 4 * TRAIN_STEPS:
-        raise AssertionError("gcn-cora training launched the compact kernel "
-                             f"{launches['spmm_blockell_compact']} times; "
-                             f"expected >= {4 * TRAIN_STEPS}")
 
-    bundle = get("gcn-cora").bundle()
-    g = training_graph()
-    batch = gnn_batch(g, bundle.n_classes, dev)
-    dims = [g.node_feat.shape[1], *bundle.model_kw["hidden"],
-            bundle.n_classes]
+def schedule_of(lines):
+    return [l for l in lines if l.startswith("layer ")]
+
+
+def plain_schedule(configs):
+    """The same schedule on the plain backend: ``cuda`` read as ``torch``,
+    which never fuses; ``coo`` stays ``coo``."""
+    out = []
+    for c in configs:
+        c = list(c)
+        if c[2] == "cuda":
+            c[1], c[2] = False, "torch"
+        out.append(tuple(c))
+    return out
+
+
+def step_launches(fplan):
+    """Kernel launches one training step of a forward plan's ``cuda`` layers
+    needs: each layer's forward, and one transpose aggregation in its
+    backward, except the first layer in unfused aggregate-first order (its
+    dW reuses the forward's aggregation and the features take no gradient).
+    A bucketed side launches once per bucket with active slots."""
+    from repro_torch.exec.plan import BucketedSideMeta
+
+    def side(meta, fused):
+        if isinstance(meta, BucketedSideMeta):
+            return (("spmm_blockell_update_compact" if fused
+                     else "spmm_blockell_compact"),
+                    sum(1 for b in meta.buckets if b.n_rows and b.n_active))
+        if fused:
+            return ("spmm_blockell_update_compact" if meta.compact
+                    else "spmm_blockell_update"), 1
+        return ("spmm_blockell_compact" if meta.compact
+                else "spmm_blockell_fused"), int(bool(meta.n_active))
+
+    out = dict.fromkeys(KERNELS, 0)
+    for i, lp in enumerate(fplan):
+        if lp.backend != "cuda":
+            continue
+        k, n = side(lp.gplan.meta_fwd, lp.fuse)
+        out[k] += n
+        if not (i == 0 and lp.order == "aggregate_first" and not lp.fuse):
+            k, n = side(lp.gplan.meta_bwd, False)
+            out[k] += n
+    return out
+
+
+def check_step_launches(launches, fplan, steps, what):
+    """The launches of ``steps`` training steps are exactly what the
+    schedule's ``cuda`` layers need (:func:`step_launches`)."""
+    want = {k: v * steps for k, v in step_launches(fplan).items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launched {launches} in {steps} "
+                             f"steps; the schedule {list(fplan.configs)} "
+                             f"needs {want}")
+
+
+def gcn_make(g, bundle, dims, specs, batch, configs, dev):
+    """``make(backend)`` for :func:`hold_against_plain`: gcn-cora on
+    ``configs`` (``cuda``), or on the same schedule's plain version."""
+    import torch
+    from repro_torch.exec import build_forward_plan
 
     def make(backend):
-        plans = layer_plans(g, "gcn", dims, backend=backend, device=dev)
+        cfgs = configs if backend == "cuda" else plain_schedule(configs)
+        plans = build_forward_plan(g, specs, cfgs, device=dev)
         params = bundle.init_params(torch.Generator().manual_seed(0),
                                     dims[0], device=dev)
         return (bundle.loss_fn("full_graph_sm", executor="fused",
                                exec_plan=plans), params, batch)
+    return make
 
-    report = hold_against_plain(torch, "gcn-cora", make, COMPARE_STEPS,
-                                grad_tol=1e-5, loss_tol=1e-4)
-    loss_fn, params, _ = make("cuda")
-    report["breakdown"] = step_breakdown(torch, "gcn-cora", loss_fn, params,
-                                         batch)
-    return launches, res.losses, report
+
+def trials_counted():
+    from repro_torch import obs
+    return obs.counter("exec.autotune.trials").value
+
+
+def gcn_autotune_phase(torch, dev, g):
+    """The reference's default training path on the card: the launcher at
+    ``--executor auto`` on a fresh cache tunes every layer over the card's
+    grid (compact, padded and bucketed plans, fused and unfused, both
+    orders, bm 128/256/512, coo), races the schedules whole-chain and trains
+    the winner 20 steps.  Checks, in order: every candidate of every layer
+    was measured (a missing one is rebuilt and run outside any ``try``);
+    the padded and compact kernels launched while tuning; the winner's
+    training against the same schedule on the plain backend (step 0 within
+    1e-5, 10 losses within 1e-4 relative: fp32 sums over up to 1433 terms in
+    another order, through 10 Adam steps); a rerun reads the cache, runs no
+    trial, and launches exactly what the winner's ``cuda`` layers need each
+    step (forward and transpose); ``--executor fused`` on a fresh cache gives
+    the cold DP's schedule, launches its 4 compact kernels a step, and holds
+    against its plain version to the same limits."""
+    import importlib
+    from repro_torch import obs
+    from repro_torch.configs import get
+    from repro_torch.exec import (bucket_layer_candidates,
+                                  build_forward_plan, default_layer_candidates,
+                                  gcn_chain, plan_forward)
+    from repro_torch.exec.forward import autotune_forward
+    from repro_torch.launch.train import gnn_batch
+    at = importlib.import_module("repro_torch.exec.autotune")
+
+    bundle = get("gcn-cora").bundle()
+    dims = [g.node_feat.shape[1], *bundle.model_kw["hidden"],
+            bundle.n_classes]
+    specs = gcn_chain(dims)
+    argv = ["--arch", "gcn-cora", "--steps", str(TRAIN_STEPS)]
+    obs.enable()
+    report = {}
+    with tuning_cache():
+        reset_launches()
+        trials0 = trials_counted()
+        res, lines, wall = run_launcher(argv)
+        launches = read_launches(torch)
+        report["tuning_trials"] = trials_counted() - trials0
+        report["launcher_wall_s"] = wall
+        check_curve(res.losses, "gcn-cora (autotuned)")
+        _, rec = autotune_forward(g, specs, device=dev)     # cached
+        if not rec.from_cache:
+            raise AssertionError("the launcher's forward verdict was not "
+                                 "cached")
+        print("raced schedules: " + json.dumps(
+            {"table_us": dict(rec.table), "winner": rec.source,
+             "schedules": {lab: [list(c) for c in cfgs]
+                           for lab, cfgs in rec.schedules}}))
+        tables = []
+        for i, s in enumerate(specs):
+            cands = (default_layer_candidates("cuda", s.d_in, s.d_out)
+                     + bucket_layer_candidates(g, "cuda", s.d_in, s.d_out))
+            lrec = at.autotune_layer(g, s.d_in, s.d_out, s.mode,
+                                     relu=s.relu, bias=s.bias,
+                                     candidates=cands, device=dev)
+            table = {json.dumps(list(r[:-1])): r[-1] for r in lrec.table}
+            print(f"layer {i} trial table (us, fwd+bwd): "
+                  + json.dumps(table))
+            tables.append({"layer": i, "spec": s.sig,
+                           "winner": list(lrec.as_config().values()),
+                           "from_cache": lrec.from_cache, "table_us": table})
+            if not lrec.from_cache:
+                raise AssertionError(f"layer {i}: the launcher's trial "
+                                     "table was not cached")
+            measured = {tuple(r[:-1]) for r in lrec.table}
+            for cand in cands:
+                if tuple(cand) in measured:
+                    continue
+                # the race hid this candidate's failure: run it here, with
+                # no try around it, so its error surfaces
+                order, fuse, backend, bm, compact, sig = \
+                    at.split_layer_cand(cand)
+                gp = at.build_plan(g, s.mode, bm=bm, backend=backend,
+                                   compact=compact, buckets=sig, device=dev)
+                lp = at.build_layer_plan(g, s.mode, d_in=s.d_in,
+                                         d_out=s.d_out, order=order,
+                                         fuse=fuse, gplan=gp)
+                x = torch.randn(g.num_nodes, s.d_in, device=dev)
+                w = torch.randn(s.d_in, s.d_out, device=dev)
+                at.fwd_bwd(lambda x, w: lp.apply(x, w, relu=s.relu), x, w)
+                torch.cuda.synchronize()
+                raise AssertionError(f"layer {i}: candidate {cand} has no "
+                                     "row in the trial table")
+        report["layer_tables"] = tables
+        report["verdict"] = {"source": rec.source, "us": rec.us,
+                             "configs": [list(c) for c in rec.configs],
+                             "table_us": dict(rec.table)}
+        for k in ("spmm_blockell_fused", "spmm_blockell_update",
+                  "spmm_blockell_compact", "spmm_blockell_update_compact"):
+            if not launches[k]:
+                raise AssertionError(f"{k} never launched while tuning")
+        print(f"gcn-cora autotune: launches={launches} "
+              f"trials={report['tuning_trials']} wall={wall:.2f}s; "
+              f"losses {res.losses}")
+
+        # the winner against the same schedule on the plain backend
+        batch = gnn_batch(g, bundle.n_classes, dev)
+        make = gcn_make(g, bundle, dims, specs, batch, rec.configs, dev)
+        report["hold"] = hold_against_plain(torch, "gcn-cora (autotuned)",
+                                            make, COMPARE_STEPS,
+                                            grad_tol=1e-5, loss_tol=1e-4)
+        loss_fn, params, _ = make("cuda")
+        report["breakdown"] = step_breakdown(torch, "gcn-cora (autotuned)",
+                                             loss_fn, params, batch)
+
+        # the rerun reads the cache: no trial, the same schedule
+        reset_launches()
+        trials0 = trials_counted()
+        res2, lines2, wall2 = run_launcher(argv)
+        train_launches = read_launches(torch)
+        if trials_counted() != trials0:
+            raise AssertionError("the cached rerun ran "
+                                 f"{trials_counted() - trials0} trials")
+        if not any("(cached)" in l for l in lines2):
+            raise AssertionError("the rerun did not print (cached)")
+        if schedule_of(lines2) != schedule_of(lines):
+            raise AssertionError("the cached rerun changed the schedule")
+        rel = max(abs(a - b) / max(abs(b), 1e-12)
+                  for a, b in zip(res2.losses, res.losses))
+        if rel > 1e-4:      # coo's index_add_ sums in another order per run
+            raise AssertionError(f"the cached rerun's losses part by {rel}")
+        report["cached_wall_s"] = wall2
+        report["cached_launches"] = train_launches
+        print(f"gcn-cora cached rerun: launches={train_launches} "
+              f"wall={wall2:.2f}s")
+        check_step_launches(train_launches,
+                            build_forward_plan(g, specs, rec.configs,
+                                               device=dev),
+                            TRAIN_STEPS, "gcn-cora cached rerun")
+
+    # --executor fused: the cold DP, no measuring
+    with tuning_cache():
+        reset_launches()
+        res3, lines3, _ = run_launcher(argv + ["--executor", "fused"])
+        fused_launches = read_launches(torch)
+        check_curve(res3.losses, "gcn-cora (--executor fused)")
+        cold = [f"layer {i} ({s.d_in}->{s.d_out}): order=update_first "
+                "fuse=False cuda bm=128 compact=True"
+                for i, s in enumerate(specs)]
+        if schedule_of(lines3) != cold:
+            raise AssertionError(f"--executor fused cold schedule "
+                                 f"{schedule_of(lines3)} != {cold}")
+        cold_plan = plan_forward(g, specs, device=dev)
+        print(f"gcn-cora --executor fused: launches={fused_launches} "
+              f"(expected 4 compact a step)")
+        check_step_launches(fused_launches, cold_plan, TRAIN_STEPS,
+                            "gcn-cora --executor fused")
+        if fused_launches["spmm_blockell_compact"] != 4 * TRAIN_STEPS:
+            raise AssertionError("--executor fused launched the compact "
+                                 f"kernel {fused_launches} times; expected "
+                                 f"{4 * TRAIN_STEPS}")
+        report["fused_hold"] = hold_against_plain(
+            torch, "gcn-cora (--executor fused)",
+            gcn_make(g, bundle, dims, specs, batch, cold_plan.configs, dev),
+            COMPARE_STEPS, grad_tol=1e-5, loss_tol=1e-4)
+    return launches, fused_launches, res.losses, report
 
 
 def gin_training_phase(torch, dev, g):
-    """GIN at its paper width trains through both kernels: per step 4
-    ``spmm_blockell_update_compact`` (convs 2-5 forward, fused) and 6
-    ``spmm_blockell_compact`` (conv 1 forward, 5 transposes).  Held against
-    the unfused plain backend: step 0's loss and every gradient (ε's
-    included) within 1e-4 of the largest entry (sums of up to 1433 terms
-    through 5 convs and a 2-layer head), and the losses of steps 0-4 within
-    a relative 1e-3.  Later steps are printed, not held: the run is chaotic
-    (its loss jumps from ~40 to ~2000 on step 1), and even the reference's
-    own executors part by more than 1e-3 within 5 steps
-    (``tests/test_torch_gin.py``)."""
-    from repro_torch.launch.train import gnn_batch, layer_plans
+    """GIN at its paper width on the port's cold ``plan_forward`` schedule
+    (a fresh tuning cache): conv 1 update-first compact, convs 2-5 fused
+    compact, so per step 4 ``spmm_blockell_update_compact`` (convs 2-5
+    forward) and 6 ``spmm_blockell_compact`` (conv 1 forward, 5
+    transposes).  Held against the unfused plain backend: step 0's loss and
+    every gradient (ε's included) within 1e-4 of the largest entry (sums of
+    up to 1433 terms through 5 convs and a 2-layer head), and the losses of
+    steps 0-4 within a relative 1e-3.  Later steps are printed, not held:
+    the run is chaotic (its loss jumps from ~40 to ~2000 on step 1), and
+    even the reference's own executors part by more than 1e-3 within 5
+    steps (``tests/test_torch_gin.py``)."""
+    from repro_torch.exec import build_forward_plan, gin_chain, plan_forward
+    from repro_torch.launch.train import gnn_batch
     from repro_torch.models.sage_gin import gin_init, gin_loss
     from repro_torch.train import adam, fit
 
     batch = gnn_batch(g, 7, dev)
-    dims = [g.node_feat.shape[1]] + [128] * 5
+    specs = gin_chain(g.node_feat.shape[1], 128, 5)
+    with tuning_cache():
+        cold = plan_forward(g, specs, device=dev)
+    expected = ([("update_first", False, "cuda", 128, True)]
+                + [("aggregate_first", True, "cuda", 128, True)] * 4)
+    print(f"GIN schedule (cold plan_forward): {list(cold.configs)}")
+    if list(cold.configs) != expected:
+        raise AssertionError(f"unexpected GIN schedule {cold.configs}")
 
     def make(backend):
-        plans = layer_plans(g, "sum", dims, backend=backend, device=dev)
+        configs = (cold.configs if backend == "cuda"
+                   else plain_schedule(cold.configs))
+        plans = build_forward_plan(g, specs, configs, device=dev)
 
         def loss_fn(p, b):
             return gin_loss(p, b["x"], None, b["labels"], b["train_mask"],
                             executor="fused", plan=plans)
-        params = gin_init(torch.Generator().manual_seed(0), dims[0], 128, 5,
-                          7, device=dev)
+        params = gin_init(torch.Generator().manual_seed(0),
+                          specs[0].d_in, 128, 5, 7, device=dev)
         return loss_fn, params, plans
 
-    loss_fn, params, plans = make("cuda")
-    sched = [(lp.order, lp.fuse) for lp in plans]
-    print(f"GIN schedule: {sched}")
-    if sched != [("update_first", False)] + [("aggregate_first", True)] * 4:
-        raise AssertionError(f"unexpected GIN schedule {sched}")
+    loss_fn, params, _ = make("cuda")
     reset_launches()
     res = fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
               steps=TRAIN_STEPS, clip_norm=1.0, log=lambda s: None)
@@ -621,6 +1095,27 @@ def gin_training_phase(torch, dev, g):
                                 grad_tol=1e-4, loss_tol=1e-3)
     report["breakdown"] = breakdown
     return launches, res.losses, breakdown["step_ms"], report
+
+
+def ops_spmm_phase(torch, dev, g):
+    """``kernels.ops.spmm`` — the entry point of ``spmm_blockell`` (the
+    reference's ``ops.spmm``; no plan calls it) — on the reordered Cora at
+    bm 128, d = 64, held against ``ops.spmm_ref``."""
+    from repro_torch.core import build_blockell
+    from repro_torch.kernels import ops
+
+    ell = build_blockell(g, bm=BM, bk=BM, storage="auto")
+    x = torch.randn(g.num_nodes, 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    reset_launches()
+    y = ops.spmm(ell, x)
+    launches = read_launches(torch)
+    err = assert_close_scaled(y, ops.spmm_ref(ell, x), KERNEL_TOL,
+                              "ops.spmm vs ops.spmm_ref")
+    print(f"ops.spmm: launches={launches} max_abs_err={err:.3e}")
+    if launches["spmm_blockell"] != 1:
+        raise AssertionError(f"ops.spmm launched {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -676,13 +1171,21 @@ def main() -> int:
     compact_cases = serving_kernel_phase(torch, dev)
     compact_cases += training_compact_phase(torch, dev, g_train)
     update_cases = update_phase(torch, dev, g_train)
+    bucket_compact, bucket_update = bucket_tile_phase(torch, dev, g_train)
+    compact_cases += bucket_compact
+    update_cases += bucket_update
+    spmm_cases, fused_cases, padded_update_cases = padded_phase(torch, dev,
+                                                                g_train)
 
     paths = {"serving": serving_phase(torch)}
-    gcn_launches, gcn_losses, _ = gcn_training_phase(torch, dev)
-    paths["gcn-cora training"] = gcn_launches
-    gin_launches, gin_losses, gin_step_ms, _ = gin_training_phase(
+    gcn_launches, fused_launches, gcn_losses, gcn_report = \
+        gcn_autotune_phase(torch, dev, g_train)
+    paths["gcn-cora training (autotuned)"] = gcn_launches
+    paths["gcn-cora training (--executor fused)"] = fused_launches
+    gin_launches, gin_losses, gin_step_ms, gin_report = gin_training_phase(
         torch, dev, g_train)
     paths["GIN training"] = gin_launches
+    paths["ops.spmm"] = ops_spmm_phase(torch, dev, g_train)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -690,12 +1193,27 @@ def main() -> int:
           f"GIN {gin_step_ms:.3f} ms/step")
 
     kernels = [
+        kernel_row("spmm_blockell", spmm_cases, total["spmm_blockell"],
+                   "y = A x on the reordered Cora's padded ELL, bm=128, d=64 "
+                   "(kernels.ops.spmm's shape); library: torch.sparse.mm of "
+                   "the bare adjacency"),
+        kernel_row("spmm_blockell_fused", fused_cases,
+                   total["spmm_blockell_fused"],
+                   "one padded gcn-cora step's aggregations on the reordered "
+                   "Cora, bm=128 (forward d=16, 7; transposed d=16, 7), as "
+                   "the padded candidates of the autotune race run them"),
         kernel_row("spmm_blockell_compact", compact_cases,
                    total["spmm_blockell_compact"],
                    "one GCN serving forward on Cora (d=64 then 16) + one "
-                   "gcn-cora training step (forward d=16, 7; transposed "
+                   "gcn-cora compact step (forward d=16, 7; transposed "
                    "d=16, 7) + one GIN step (forward d=128; 5 transposed "
                    "d=128) on the reordered Cora, bm=128"),
+        kernel_row("spmm_blockell_update", padded_update_cases,
+                   total["spmm_blockell_update"],
+                   "one padded GIN conv launch (sum 128->128, w_self is w, "
+                   "1+eps, bias, ReLU) on the reordered Cora, bm=128; "
+                   "library_ms null: no single PyTorch call computes "
+                   "aggregation and W epilogue together"),
         kernel_row("spmm_blockell_update_compact", update_cases,
                    total["spmm_blockell_update_compact"],
                    "one GIN training step's 4 fused convs (sum 128->128, "
@@ -703,6 +1221,15 @@ def main() -> int:
                    "bm=128; library_ms null: no single PyTorch call "
                    "computes aggregation and W epilogue together"),
     ]
+    # the full report, too long for the end of the output, beside the
+    # kernels' builds in the checkout's ignored build/ directory
+    (_build.build_dir() / "chip_smoke.json").write_text(json.dumps({
+        "card": smi.stdout.strip(), "kernels": kernels, "paths": paths,
+        "cases": (spmm_cases + fused_cases + compact_cases
+                  + padded_update_cases + update_cases),
+        "gcn_autotune": gcn_report, "gin": gin_report,
+        "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
+        indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,16 @@ class BlockEll:
         return (np.dtype(np.float32) if self.blocks is None
                 else self.blocks.dtype)
 
+    def dense_blocks(self, dtype=np.float32) -> np.ndarray:
+        """(R, W, bm, bk) compute tiles of the padded grid, unpacking the
+        bitmask if implicit."""
+        if self.blocks is not None:
+            return (self.blocks if self.blocks.dtype == dtype
+                    else self.blocks.astype(dtype))
+        R, W = self.block_cols.shape
+        bits = np.unpackbits(self.packed, axis=-1, count=self.bk)
+        return bits.reshape(R, W, self.bm, self.bk).astype(dtype)
+
     def storage_bytes(self) -> int:
         """Bytes the adjacency tiles occupy."""
         tiles = self.packed if self.blocks is None else self.blocks

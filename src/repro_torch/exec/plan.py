@@ -13,23 +13,35 @@ wires that in.  A layer plan runs
 (``F(x) W == F(x W)``), fused into one launch when it aggregates first on
 the kernel backend, with a hand-written backward of its own.
 
-Backends, all over the slot-compacted block-ELL except ``coo``:
+Backends (the reference's ``pallas`` is ``cuda`` here, its ``jnp`` is
+``torch``):
 
-    "cuda"  : the hand-written Hopper kernels ``spmm_blockell_compact`` and
-              (fused layers) ``spmm_blockell_update_compact``
-              (kernels/spmm_blockell.py); on a CPU tensor their wrappers run
-              the plain versions;
-    "torch" : the plain version ``kernels/ref.spmm_blockell_compact_ref``
-              on float32 tiles — the twin of the reference's ``_jnp_blocks``;
-              it never fuses, as ``jnp`` never does;
+    "cuda"  : the hand-written Hopper kernels (kernels/spmm_blockell.py):
+              ``spmm_blockell_compact`` / ``spmm_blockell_update_compact``
+              over the slot-compacted block-ELL (``compact=True``),
+              ``spmm_blockell_fused`` / ``spmm_blockell_update`` over the
+              padded (R, W) grid (``compact=False``); on a CPU tensor the
+              wrappers run the plain versions;
+    "torch" : the plain versions in ``kernels/ref.py`` on float32 tiles —
+              the twin of the reference's ``jnp`` path; it never fuses;
     "coo"   : one ``index_add_`` over dst-sorted edges whose weights fold
               in the normalization (the twin of the reference's coo path).
 
 Rows whose destination block has no active slot are not written by the
-kernels; the plan patches them with the analytic diagonal (and self) term.
+compact kernels; the plan patches them with the analytic diagonal (and
+self) term.  The padded kernels write every row.
 
-Not ported yet: degree buckets, padded (uncompacted) grids, weighted sum
-plans and the chaos hooks of the reference.
+Degree-bucketed plans (``buckets="128@7+256"``, see ``bucketing.py``)
+partition destination nodes by in-degree, build one rectangular block-ELL
+per bucket at its own tile and launch one compact kernel per bucket on
+``cuda`` (destination operands gathered into bucket-local order through the
+kernels' ``x_diag`` / ``s_in_diag`` / ``x_self`` overrides), or one padded
+plain product per bucket on ``torch``; the outputs are stitched back
+through the inverse permutation.  Each direction buckets by its own
+in-degrees, so the transpose plan re-buckets.
+
+Not ported yet: weighted sum plans, the ``width``/``storage`` overrides and
+the chaos hooks of the reference.
 """
 from __future__ import annotations
 
@@ -40,13 +52,17 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.blocksparse import (BlockEll, build_blockell, transpose_graph,
-                                traffic_model)
+from ..core.blocksparse import (BlockEll, build_blockell, build_blockell_coo,
+                                transpose_graph, traffic_model)
 from ..device import resolve_device
 from ..graph.structure import Graph
-from ..kernels.ref import spmm_blockell_compact_ref
+from ..kernels.ref import (spmm_blockell_compact_ref, spmm_blockell_fused_ref,
+                           spmm_blockell_ref)
 from ..kernels.spmm_blockell import (spmm_blockell_compact,
+                                     spmm_blockell_fused,
+                                     spmm_blockell_update,
                                      spmm_blockell_update_compact)
+from .bucketing import assign_buckets, bucket_occupancy, parse_bucket_sig
 
 MODES = ("gcn", "sum", "mean")
 BACKENDS = ("cuda", "torch", "coo")
@@ -56,6 +72,7 @@ ORDERS = ("aggregate_first", "update_first")
 class SideMeta(NamedTuple):
     """Static facts one direction of the plan needs."""
     backend: str
+    compact: bool
     add_diag: bool
     bm: int
     bk: int
@@ -65,28 +82,64 @@ class SideMeta(NamedTuple):
     n: int            # num_nodes
 
 
+class BucketMeta(NamedTuple):
+    """Geometry of ONE degree bucket's rectangular block-ELL."""
+    bm: int
+    bk: int
+    R: int            # ceil(n_rows / bm)  (bucket-local destination blocks)
+    C: int            # ceil(n / bk)       (global source blocks)
+    W: int            # ELL width of this bucket
+    n_active: int
+    n_rows: int       # nodes assigned to this bucket
+
+
+class BucketedSideMeta(NamedTuple):
+    """One direction of a degree-bucketed plan.  Forward and backward carry
+    independent bucket tuples: the transpose graph is re-bucketed by its
+    own in-degrees (the original graph's out-degrees)."""
+    backend: str
+    compact: bool
+    add_diag: bool
+    n: int            # num_nodes
+    buckets: tuple    # Tuple[BucketMeta, ...]
+
+
 # ---------------------------------------------------------------------------
 # one direction of the fused op, on any backend
 # ---------------------------------------------------------------------------
-def _run_side(meta: SideMeta, a: Dict[str, torch.Tensor], x: torch.Tensor
+def _run_side(meta, a: Dict[str, torch.Tensor], x: torch.Tensor
               ) -> torch.Tensor:
+    if isinstance(meta, BucketedSideMeta):
+        return _run_bucketed(meta, a, x)
     if meta.backend == "coo":
         y = torch.zeros_like(x).index_add_(0, a["dst"],
                                            x[a["src"]] * a["w"][:, None])
         if meta.add_diag:
             y = y + a["dvec"][:, None] * x
         return y
-    if meta.backend in ("cuda", "torch"):
+    if meta.backend not in ("cuda", "torch"):
+        raise ValueError(meta.backend)
+    if meta.compact:
         return _compact_blocks(meta, a, x)
-    raise ValueError(meta.backend)
+    spmm = (spmm_blockell_fused if meta.backend == "cuda"
+            else spmm_blockell_fused_ref)
+    # the padded kernel writes every row: no fallback patch
+    return spmm(a["block_cols"], a["blocks"], x.contiguous(), a["s_in"],
+                a["s_out"], bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag)
+
+
+def _diag_fallback(add_diag: bool, a: Dict[str, torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+    """What rows with no active slot hold: the analytic diagonal term, zero
+    when there is no self-loop."""
+    return (x * a["s_in"][:, None] * a["s_out"][:, None] if add_diag
+            else torch.zeros_like(x))
 
 
 def _compact_blocks(meta: SideMeta, a: Dict[str, torch.Tensor],
                     x: torch.Tensor) -> torch.Tensor:
     # destination blocks with no active slot are never written: patch them
-    # with the analytic diagonal term (zero when there is no self-loop)
-    fb = (x * a["s_in"][:, None] * a["s_out"][:, None] if meta.add_diag
-          else torch.zeros_like(x))
+    fb = _diag_fallback(meta.add_diag, a, x)
     if meta.n_active == 0:
         return fb
     spmm = (spmm_blockell_compact if meta.backend == "cuda"
@@ -97,6 +150,45 @@ def _compact_blocks(meta: SideMeta, a: Dict[str, torch.Tensor],
     return torch.where(a["node_active"][:, None], y, fb)
 
 
+def _run_bucketed(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+    """Multi-grid aggregation: one launch per degree bucket, outputs
+    stitched back to node order through the inverse permutation."""
+    x = x.contiguous()
+    outs = []
+    if meta.backend == "torch":
+        # per-bucket padded plain product (the reference's jnp path): every
+        # bucket row is computed, so nothing needs patching
+        xs = x * a["s_in"][:, None]
+        for bmeta, ab in zip(meta.buckets, a["buckets"]):
+            if not bmeta.n_rows:
+                continue
+            y = spmm_blockell_ref(ab["block_cols"], ab["blocks"], xs,
+                                  bm=bmeta.bm, bk=bmeta.bk,
+                                  n_dst=bmeta.n_rows)
+            if meta.add_diag:
+                y = y + xs[ab["idx"]]
+            outs.append(y * ab["s_out_sel"][:, None])
+        return torch.cat(outs, dim=0)[a["inv_perm"]]
+    for bmeta, ab in zip(meta.buckets, a["buckets"]):
+        if not bmeta.n_rows:
+            continue
+        if not bmeta.n_active:
+            # every row of this bucket takes the global diagonal fallback
+            outs.append(x.new_zeros((bmeta.n_rows, x.shape[1])))
+            continue
+        xd = sd = None
+        if meta.add_diag:
+            xd, sd = x[ab["idx"]], ab["s_in_diag"]
+        outs.append(spmm_blockell_compact(
+            ab["row_offsets"], ab["cols"], ab["blocks"], x, a["s_in"],
+            ab["s_out_sel"], xd, sd, bm=bmeta.bm, bk=bmeta.bk,
+            add_diag=meta.add_diag))
+    y = torch.cat(outs, dim=0)[a["inv_perm"]]
+    return torch.where(a["node_active"][:, None], y,
+                       _diag_fallback(meta.add_diag, a, x))
+
+
 def _self_term(x: torch.Tensor, w_self: torch.Tensor,
                self_coeff: Optional[torch.Tensor]) -> torch.Tensor:
     """The epilogue's self half ``self_coeff * (x @ w_self)`` (coeff None
@@ -105,21 +197,14 @@ def _self_term(x: torch.Tensor, w_self: torch.Tensor,
     return s if self_coeff is None else s * self_coeff
 
 
-def _fused_layer(meta: SideMeta, a: Dict[str, torch.Tensor], x: torch.Tensor,
-                 w: torch.Tensor, b: Optional[torch.Tensor], relu: bool,
-                 w_self: Optional[torch.Tensor] = None,
-                 self_coeff: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One fused layer launch: aggregation + (two-)W epilogue (+bias/ReLU)
-    (the compact path of the reference's ``_pallas_layer``)."""
-    y = None
-    if meta.n_active:
-        y = spmm_blockell_update_compact(
-            a["row_offsets"], a["cols"], a["blocks"], x.contiguous(),
-            a["s_in"], a["s_out"], w.contiguous(), b, w_self, self_coeff,
-            bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag, relu=relu)
-    # rows whose destination block has no active slot: the analytic
-    # diagonal and self terms go through the same update outside the kernel
-    fb = (x * (a["s_in"] * a["s_out"])[:, None] @ w if meta.add_diag
+def _layer_fallback(add_diag: bool, a: Dict[str, torch.Tensor],
+                    x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], relu: bool,
+                    w_self: Optional[torch.Tensor],
+                    self_coeff: Optional[torch.Tensor]) -> torch.Tensor:
+    """The layer's rows whose destination block has no active slot: the
+    analytic diagonal and self terms through the same update."""
+    fb = (x * (a["s_in"] * a["s_out"])[:, None] @ w if add_diag
           else x.new_zeros((x.shape[0], w.shape[1])))
     if w_self is not None:
         fb = fb + _self_term(x, w_self, self_coeff)
@@ -127,8 +212,64 @@ def _fused_layer(meta: SideMeta, a: Dict[str, torch.Tensor], x: torch.Tensor,
         fb = fb + b
     if relu:
         fb = torch.relu(fb)
-    if y is None:
+    return fb
+
+
+def _fused_layer(meta, a: Dict[str, torch.Tensor], x: torch.Tensor,
+                 w: torch.Tensor, b: Optional[torch.Tensor], relu: bool,
+                 w_self: Optional[torch.Tensor] = None,
+                 self_coeff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused layer: aggregation + (two-)W epilogue (+bias/ReLU) in one
+    launch, or one per bucket (the reference's ``_pallas_layer``)."""
+    x, w = x.contiguous(), w.contiguous()
+    if isinstance(meta, BucketedSideMeta):
+        return _bucketed_layer(meta, a, x, w, b, relu, w_self, self_coeff)
+    if not meta.compact:
+        # the padded kernel writes every row: no fallback patch
+        return spmm_blockell_update(
+            a["block_cols"], a["blocks"], x, a["s_in"], a["s_out"], w, b,
+            w_self, self_coeff, bm=meta.bm, bk=meta.bk,
+            add_diag=meta.add_diag, relu=relu)
+    fb = _layer_fallback(meta.add_diag, a, x, w, b, relu, w_self,
+                         self_coeff)
+    if not meta.n_active:
         return fb
+    y = spmm_blockell_update_compact(
+        a["row_offsets"], a["cols"], a["blocks"], x, a["s_in"], a["s_out"],
+        w, b, w_self, self_coeff, bm=meta.bm, bk=meta.bk,
+        add_diag=meta.add_diag, relu=relu)
+    return torch.where(a["node_active"][:, None], y, fb)
+
+
+def _bucketed_layer(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
+                    x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], relu: bool,
+                    w_self: Optional[torch.Tensor] = None,
+                    self_coeff: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Fused layer over degree buckets: one update-epilogue compact launch
+    per bucket (destination-row operands gathered into bucket-local order),
+    outputs stitched through the inverse permutation."""
+    d_out = w.shape[1]
+    outs = []
+    for bmeta, ab in zip(meta.buckets, a["buckets"]):
+        if not bmeta.n_rows:
+            continue
+        if not bmeta.n_active:
+            outs.append(x.new_zeros((bmeta.n_rows, d_out)))
+            continue
+        xg = (x[ab["idx"]] if meta.add_diag or w_self is not None
+              else None)
+        outs.append(spmm_blockell_update_compact(
+            ab["row_offsets"], ab["cols"], ab["blocks"], x, a["s_in"],
+            ab["s_out_sel"], w, b, w_self, self_coeff,
+            x_self=xg if w_self is not None else None,
+            x_diag=xg if meta.add_diag else None,
+            s_in_diag=ab["s_in_diag"] if meta.add_diag else None,
+            bm=bmeta.bm, bk=bmeta.bk, add_diag=meta.add_diag, relu=relu))
+    y = torch.cat(outs, dim=0)[a["inv_perm"]]
+    fb = _layer_fallback(meta.add_diag, a, x, w, b, relu, w_self,
+                         self_coeff)
     return torch.where(a["node_active"][:, None], y, fb)
 
 
@@ -153,22 +294,27 @@ class GraphExecutionPlan:
     """Everything the hot path needs, compiled from a Graph once.
 
     The block-ELL structures are built eagerly for the block backends and
-    lazily for ``coo`` (which only needs the sorted edge arrays)."""
+    lazily for ``coo`` (which only needs the sorted edge arrays) and for
+    bucketed plans (which keep one block-ELL per bucket instead)."""
 
     mode: str
     backend: str
+    compact: bool
     bm: int
     bk: int
     num_nodes: int
     add_diag: bool
-    meta_fwd: SideMeta
-    meta_bwd: SideMeta
+    meta_fwd: object                  # SideMeta | BucketedSideMeta
+    meta_bwd: object
     _fwd: Dict[str, torch.Tensor] = dataclasses.field(repr=False)
     _bwd: Dict[str, torch.Tensor] = dataclasses.field(repr=False)
     _ell: Optional[BlockEll] = dataclasses.field(default=None, repr=False)
     _ell_t: Optional[BlockEll] = dataclasses.field(default=None, repr=False)
     _g_adj: Optional[Graph] = dataclasses.field(default=None, repr=False)
     _g_adj_t: Optional[Graph] = dataclasses.field(default=None, repr=False)
+    buckets: str = ""                 # bucket signature, "" = single grid
+    _plan_bytes: int = 0              # bucketed: total per-bucket tile bytes
+    _occupancy: list = dataclasses.field(default_factory=list, repr=False)
 
     @property
     def ell(self) -> BlockEll:
@@ -196,7 +342,8 @@ class GraphExecutionPlan:
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """Differentiable fused aggregation ``F(x)``: one launch forward, one
-        through the transpose plan backward."""
+        through the transpose plan backward (one per bucket when
+        bucketed)."""
         if x.shape[0] != self.num_nodes:
             raise ValueError(f"plan compiled for {self.num_nodes} nodes but "
                              f"x has {x.shape[0]} rows (wrong graph?)")
@@ -207,19 +354,37 @@ class GraphExecutionPlan:
 
     @property
     def n_active(self) -> int:
+        if self.buckets:
+            return sum(m.n_active for m in self.meta_fwd.buckets)
         return self.ell.n_active
 
     @property
     def grid_size(self) -> int:
-        """Accumulation steps of one forward: ``n_active`` on the block
-        backends, nnz for coo."""
+        """Accumulation steps of one forward: ``n_active`` for the compacted
+        grid, ``R * W`` for the padded one, nnz for coo; for a bucketed
+        plan the sum over sub-grids (compacted on ``cuda``, padded at
+        per-bucket widths on ``torch``)."""
+        if self.buckets:
+            ms = self.meta_fwd.buckets
+            if self.backend == "cuda":
+                return sum(m.n_active for m in ms)
+            return sum(m.R * m.W for m in ms if m.n_rows)
         if self.backend == "coo":
             return int(self._fwd["src"].shape[0])
-        return self.ell.n_active
+        if self.compact:
+            return self.ell.n_active
+        return self.ell.n_row_blocks * self.ell.width
 
     def describe(self, d: int = 128) -> dict:
+        if self.buckets:
+            return {"mode": self.mode, "backend": self.backend,
+                    "compact": self.compact, "bm": self.bm, "bk": self.bk,
+                    "buckets": self.buckets,
+                    "bucket_occupancy": list(self._occupancy),
+                    "grid_size": self.grid_size,
+                    "plan_bytes": self._plan_bytes}
         return {"mode": self.mode, "backend": self.backend,
-                "bm": self.bm, "bk": self.bk,
+                "compact": self.compact, "bm": self.bm, "bk": self.bk,
                 "grid_size": self.grid_size,
                 "padded_grid_size": self.ell.n_row_blocks * self.ell.width,
                 "plan_bytes": (self.ell.storage_bytes()
@@ -244,22 +409,101 @@ def _mode_scales(mode: str, g: Graph):
     raise ValueError(f"unknown plan mode {mode!r}; expected one of {MODES}")
 
 
+def _to(device: torch.device):
+    return lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+
+def _tile_dtype(ell: BlockEll, backend: str):
+    """The kernels take the exact 0/1 bitmask as uint8 tiles; the plain
+    version computes in float32."""
+    return np.uint8 if ell.implicit and backend == "cuda" else np.float32
+
+
 def _side_arrays(ell: BlockEll, s_in: np.ndarray, s_out: np.ndarray,
-                 backend: str, device: torch.device
+                 backend: str, compact: bool, device: torch.device
                  ) -> Dict[str, torch.Tensor]:
-    t = lambda a: torch.as_tensor(a).to(device)
-    # the kernels take the exact 0/1 bitmask as uint8 tiles; the plain
-    # version computes in float32
-    comp = ell.compact(np.uint8 if ell.implicit and backend == "cuda"
-                       else np.float32)
-    node_active = np.repeat(comp.row_active, ell.bm)[:ell.num_nodes]
-    return {"s_in": t(s_in.astype(np.float32)),
-            "s_out": t(s_out.astype(np.float32)),
-            "blocks": t(comp.blocks),
-            # each destination block's slots are walked by offset
-            "row_offsets": t(comp.row_offsets.astype(np.int32)),
-            "cols": t(comp.cols),
-            "node_active": t(node_active)}
+    t = _to(device)
+    a = {"s_in": t(s_in.astype(np.float32)),
+         "s_out": t(s_out.astype(np.float32))}
+    if compact:
+        comp = ell.compact(_tile_dtype(ell, backend))
+        node_active = np.repeat(comp.row_active, ell.bm)[:ell.num_nodes]
+        a.update(blocks=t(comp.blocks),
+                 # each destination block's slots are walked by offset
+                 row_offsets=t(comp.row_offsets.astype(np.int32)),
+                 cols=t(comp.cols), node_active=t(node_active))
+    else:
+        a.update(block_cols=t(ell.block_cols),
+                 blocks=t(ell.dense_blocks(_tile_dtype(ell, backend))))
+    return a
+
+
+def _bucketed_side_arrays(g: Graph, scheme, s_in: np.ndarray,
+                          s_out: np.ndarray, backend: str,
+                          device: torch.device):
+    """Per-bucket arrays + metas for ONE direction of a bucketed plan.
+
+    Destination nodes are partitioned by ``g``'s in-degrees (so the
+    transpose direction re-buckets by its own skew) and remapped to a
+    bucket-local contiguous row space; sources stay global.  Returns
+    ``(arrays, metas, plan_bytes)``."""
+    t = _to(device)
+    n = g.num_nodes
+    valid = (g.edge_mask if g.edge_mask is not None
+             else np.ones(g.num_edges, bool))
+    src = g.src[valid].astype(np.int64)
+    dst = g.dst[valid].astype(np.int64)
+    w = (g.edge_weight[valid] if g.edge_weight is not None
+         else np.ones(src.shape[0], np.float32))
+    idx_list = assign_buckets(g.in_degrees(), scheme)
+    bucket_of = np.zeros(n, np.int64)
+    local_of = np.zeros(n, np.int64)
+    for b, idx in enumerate(idx_list):
+        bucket_of[idx] = b
+        local_of[idx] = np.arange(idx.size)
+    dst_bucket = bucket_of[dst]
+
+    metas, buckets_a = [], []
+    node_active = np.zeros(n, bool)
+    plan_bytes = 0
+    for b, ((bm_b, _cut), idx) in enumerate(zip(scheme, idx_list)):
+        if idx.size == 0:
+            metas.append(BucketMeta(bm=bm_b, bk=bm_b, R=0, C=0, W=0,
+                                    n_active=0, n_rows=0))
+            buckets_a.append({})
+            continue
+        sel = dst_bucket == b
+        ell_b = build_blockell_coo(
+            src[sel], local_of[dst[sel]], w[sel], num_nodes=n,
+            num_rows=int(idx.size), bm=bm_b, bk=bm_b, storage="auto")
+        plan_bytes += ell_b.storage_bytes()
+        ab = {"idx": t(idx), "s_out_sel": t(s_out[idx].astype(np.float32))}
+        if backend == "torch":
+            ab["block_cols"] = t(ell_b.block_cols)
+            ab["blocks"] = t(ell_b.dense_blocks(np.float32))
+            node_active[idx] = True         # every bucket row is computed
+            n_act = ell_b.n_active
+        else:
+            comp = ell_b.compact(_tile_dtype(ell_b, backend))
+            ab["row_offsets"] = t(comp.row_offsets.astype(np.int32))
+            ab["cols"] = t(comp.cols)
+            ab["blocks"] = t(comp.blocks)
+            ab["s_in_diag"] = t(s_in[idx].astype(np.float32))
+            node_active[idx] = np.repeat(comp.row_active, bm_b)[:idx.size]
+            n_act = comp.n_active
+        metas.append(BucketMeta(bm=bm_b, bk=bm_b, R=ell_b.n_row_blocks,
+                                C=int(np.ceil(n / bm_b)), W=ell_b.width,
+                                n_active=int(n_act), n_rows=int(idx.size)))
+        buckets_a.append(ab)
+
+    perm = np.concatenate([idx for idx in idx_list if idx.size])
+    inv = np.zeros(n, np.int64)
+    inv[perm] = np.arange(n)
+    a = {"s_in": t(s_in.astype(np.float32)),
+         "s_out": t(s_out.astype(np.float32)),
+         "buckets": buckets_a, "inv_perm": t(inv),
+         "node_active": t(node_active)}
+    return a, tuple(metas), int(plan_bytes)
 
 
 def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
@@ -271,7 +515,7 @@ def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
     dst = g.dst[valid].astype(np.int64)
     w = s_out[dst] * s_in[src]
     order = np.argsort(dst, kind="stable")   # dst-major: scatter locality
-    t = lambda a: torch.as_tensor(a).to(device)
+    t = _to(device)
     out = {"src": t(src[order]), "dst": t(dst[order]),
            "w": t(w[order].astype(np.float32))}
     if add_diag:
@@ -281,20 +525,25 @@ def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
 
 def build_plan(g: Graph, mode: str = "gcn", *,
                bm: Optional[int] = None, bk: Optional[int] = None,
-               backend: Optional[str] = None,
-               device="cuda") -> GraphExecutionPlan:
+               backend: Optional[str] = None, compact: bool = True,
+               buckets: str = "", device="cuda") -> GraphExecutionPlan:
     """Compile ``g`` into a :class:`GraphExecutionPlan` on ``device``.
 
     ``backend=None`` picks ``"cuda"`` on a CUDA device and ``"coo"`` on the
-    CPU.  Square blocks are required, as in the reference (the transpose
-    plan reuses the same tiling).  The block backends always run
-    slot-compacted (the reference's ``compact=True``); the padded grid waits
-    for the padded kernel and the autotune that races the two.  Tiles are
-    the exact 0/1 bitmask whenever it is exact (``storage="auto"``); edge
-    weights are ignored (the reference's ``weighted=True`` sum plans, its
-    ``width``/``storage`` overrides and degree buckets are not ported
-    yet)."""
+    CPU (``repro_torch.exec.autotune_plan`` picks by measurement instead).
+    Square blocks are required, as in the reference (the transpose plan
+    reuses the same tiling).  ``compact=False`` runs the padded (R, W) grid.
+    ``buckets`` is a degree-bucket signature (``"128@7+256"``; see
+    ``bucketing.py``): one sub-grid per bucket at that bucket's square tile,
+    on ``cuda`` (compact kernels) or ``torch`` (padded plain products);
+    bucketed plans imply compaction and a block backend.  Tiles are the
+    exact 0/1 bitmask whenever it is exact (``storage="auto"``); edge
+    weights are ignored (the reference's ``weighted=True`` sum plans and
+    its ``width``/``storage`` overrides are not ported yet)."""
     dev = resolve_device(device)
+    scheme = parse_bucket_sig(buckets)
+    if scheme:
+        bm = bk = max(b for b, _ in scheme)
     bm = bm or 128
     bk = bk or bm
     if bm != bk:
@@ -304,6 +553,12 @@ def build_plan(g: Graph, mode: str = "gcn", *,
         backend = "cuda" if dev.type == "cuda" else "coo"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
+    if scheme and backend == "coo":
+        raise ValueError("degree buckets need a block backend "
+                         "(cuda or torch), not coo")
+    if scheme and not compact:
+        raise ValueError("bucketed plans imply slot compaction "
+                         "(compact=True)")
     s_in, s_out, add_diag = _mode_scales(mode, g)
     g_adj = dataclasses.replace(g, edge_weight=None)
     g_adj_t = transpose_graph(g_adj)
@@ -311,32 +566,56 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     C = int(np.ceil(g.num_nodes / bk))
 
     def meta_for(n_active: int) -> SideMeta:
-        return SideMeta(backend=backend, add_diag=add_diag, bm=bm, bk=bk,
-                        R=R, C=C, n_active=n_active, n=g.num_nodes)
+        return SideMeta(backend=backend, compact=compact, add_diag=add_diag,
+                        bm=bm, bk=bk, R=R, C=C, n_active=n_active,
+                        n=g.num_nodes)
 
+    plan_bytes = 0
+    occupancy: list = []
     with obs.span("exec.plan.compile", cat="exec", backend=backend,
-                  mode=mode, bm=bm, n=g.num_nodes) as sp:
-        if backend == "coo":
+                  mode=mode, bm=bm, compact=compact, n=g.num_nodes,
+                  buckets=buckets) as sp:
+        ell = ell_t = None
+        if scheme:
+            # each direction bucketed by ITS OWN in-degrees
+            fwd, metas_f, bytes_f = _bucketed_side_arrays(
+                g_adj, scheme, s_in, s_out, backend, dev)
+            bwd, metas_b, bytes_b = _bucketed_side_arrays(
+                g_adj_t, scheme, s_out, s_in, backend, dev)
+            plan_bytes = bytes_f + bytes_b
+            meta_f, meta_b = (
+                BucketedSideMeta(backend=backend, compact=compact,
+                                 add_diag=add_diag, n=g.num_nodes,
+                                 buckets=m) for m in (metas_f, metas_b))
+            occupancy = bucket_occupancy(g.in_degrees(), scheme)
+            for i, occ in enumerate(occupancy):
+                obs.gauge("exec.plan.bucket_nodes", bucket=i,
+                          bm=occ["bm"]).set(occ["nodes"])
+                obs.gauge("exec.plan.bucket_edges", bucket=i,
+                          bm=occ["bm"]).set(occ["edges"])
+            sp.set(n_active=sum(m.n_active for m in metas_f),
+                   plan_bytes=plan_bytes)
+        elif backend == "coo":
             # the coo path never touches tiles: block-ELL on first access
             fwd = _coo_arrays(g_adj, s_in, s_out, add_diag, dev)
             bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, dev)
-            ell = ell_t = None
             meta_f, meta_b = meta_for(0), meta_for(0)
         else:
             ell = build_blockell(g_adj, bm=bm, bk=bk, storage="auto")
             ell_t = build_blockell(g_adj_t, bm=bm, bk=bk, storage="auto")
-            fwd = _side_arrays(ell, s_in, s_out, backend, dev)
-            bwd = _side_arrays(ell_t, s_out, s_in, backend, dev)
+            fwd = _side_arrays(ell, s_in, s_out, backend, compact, dev)
+            bwd = _side_arrays(ell_t, s_out, s_in, backend, compact, dev)
             meta_f, meta_b = meta_for(ell.n_active), meta_for(ell_t.n_active)
             sp.set(n_active=ell.n_active,
                    plan_bytes=int(ell.storage_bytes()
                                   + ell_t.storage_bytes()))
     obs.counter("exec.plan.compiles", backend=backend).inc()
     return GraphExecutionPlan(
-        mode=mode, backend=backend, bm=bm, bk=bk,
+        mode=mode, backend=backend, compact=compact, bm=bm, bk=bk,
         num_nodes=g.num_nodes, add_diag=add_diag, meta_fwd=meta_f,
         meta_bwd=meta_b, _fwd=fwd, _bwd=bwd, _ell=ell, _ell_t=ell_t,
-        _g_adj=g_adj, _g_adj_t=g_adj_t)
+        _g_adj=g_adj, _g_adj_t=g_adj_t, buckets=buckets,
+        _plan_bytes=plan_bytes, _occupancy=occupancy)
 
 
 # ===========================================================================
@@ -457,7 +736,9 @@ class LayerExecutionPlan:
     ``order="update_first"`` evaluates it as ``act(F(x @ w) + …)``, so the
     aggregation streams the narrower width.  ``fuse=True`` (the ``cuda``
     backend in aggregate-first order) runs aggregation, W product(s), bias
-    and ReLU as ONE ``spmm_blockell_update_compact`` launch.  The unfused
+    and ReLU as ONE launch: ``spmm_blockell_update_compact`` on a compact
+    plan, ``spmm_blockell_update`` on a padded one, one compact launch per
+    bucket on a bucketed one.  The unfused
     update matmuls run in ``torch.matmul`` (full fp32: TF32 is off), as the
     reference leaves them to XLA.  GraphSAGE's concat form and GIN's
     ``((1+ε) h + F(h)) @ W`` (``w_self=w``, ``self_coeff=1+ε``) are each
@@ -534,9 +815,9 @@ class LayerExecutionPlan:
 def build_layer_plan(g: Graph, mode: str = "gcn", *, d_in: int, d_out: int,
                      order: str = "auto", fuse: Optional[bool] = None,
                      bm: Optional[int] = None, bk: Optional[int] = None,
-                     backend: Optional[str] = None,
+                     backend: Optional[str] = None, compact: bool = True,
                      gplan: Optional[GraphExecutionPlan] = None,
-                     device="cuda") -> LayerExecutionPlan:
+                     buckets: str = "", device="cuda") -> LayerExecutionPlan:
     """Compile one GNN layer ``(d_in -> d_out)`` over ``g``.
 
     ``order="auto"`` consults the FLOP/byte model; ``fuse=None`` turns the
@@ -552,7 +833,7 @@ def build_layer_plan(g: Graph, mode: str = "gcn", *, d_in: int, d_out: int,
         raise ValueError(f"unknown order {order!r}; expected {ORDERS}")
     if gplan is None:
         gplan = build_plan(g, mode, bm=bm, bk=bk, backend=backend,
-                           device=device)
+                           compact=compact, buckets=buckets, device=device)
     elif gplan.mode != mode:
         raise ValueError(f"prebuilt gplan has mode {gplan.mode!r}, layer "
                          f"plan wants {mode!r}")

@@ -5,10 +5,12 @@ its own into ``<repo>/build/lib<name>-<hash>.so`` (the directory is listed
 in ``.gitignore``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o build/lib<name>-<hash>.so \\
+         csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited source builds anew
-and a stale library is never loaded.  A build writes a temporary file and
+Sources may include the shared headers ``csrc/*.cuh``.  The hash covers
+the source, every header and the flags, so an edited source or header
+builds anew and a stale library is never loaded.  A build writes a temporary file and
 renames it into place, so concurrent processes never load a half-written
 library.  Nothing here runs at import time: the CPU tests import every
 module on machines with no ``nvcc``.
@@ -58,6 +60,8 @@ def build_dir() -> Path:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -74,7 +78,8 @@ def build(*names: str) -> Dict[str, Path]:
     t0 = time.perf_counter()
     for n in todo:
         tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

@@ -84,3 +84,70 @@ def spmm_blockell_update_compact_ref(
     written = torch.repeat_interleave(torch.diff(row_offsets.long()) > 0,
                                       bm)[:n_dst]
     return torch.where(written[:, None], y, torch.zeros_like(y))
+
+
+# ---------------------------------------------------------------------------
+# the padded (R, W) slot grid
+# ---------------------------------------------------------------------------
+def spmm_blockell_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
+                      x: torch.Tensor, *, bm: int, bk: int,
+                      n_dst: Optional[int] = None) -> torch.Tensor:
+    """``y = A x`` over the padded slot grid: ``y[rows of r] = Σ_w
+    A[r, w] x_tile(block_cols[r, w])``, slots with ``col < 0`` skipped.
+
+    block_cols: (R, W) int; blocks: (R, W, bm, bk) uint8 or float32; x:
+    (n_src, d).  Returns (n_dst, d), every row written; n_dst defaults to
+    R * bm.  One batched product per slot column keeps the gathered tiles
+    at (R, bk, d) instead of (R, W, bk, d)."""
+    R, W = block_cols.shape
+    n_src, d = x.shape
+    C = -(-n_src // bk)
+    xb = F.pad(x, (0, 0, 0, C * bk - n_src)).reshape(C, bk, d)
+    cols = block_cols.long()
+    y = x.new_zeros((R, bm, d))
+    for w in range(W):
+        c = cols[:, w]
+        tiles = xb[c.clamp(min=0)] * (c >= 0).to(x.dtype)[:, None, None]
+        y = y + torch.bmm(blocks[:, w].to(x.dtype), tiles)
+    return y.reshape(R * bm, d)[:R * bm if n_dst is None else n_dst]
+
+
+def spmm_blockell_fused_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
+                            x: torch.Tensor, s_in: torch.Tensor,
+                            s_out: torch.Tensor, *, bm: int, bk: int,
+                            add_diag: bool) -> torch.Tensor:
+    """``s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])`` over the padded slot grid.
+
+    s_in: (n_src,); s_out: (n_dst,).  Returns (n_dst, d), every row
+    written (rows of blocks with no active slot get the self term or
+    zero)."""
+    n_dst = s_out.shape[0]
+    xs = x * s_in[:, None]
+    y = spmm_blockell_ref(block_cols, blocks, xs, bm=bm, bk=bk, n_dst=n_dst)
+    if add_diag:
+        k = min(n_dst, x.shape[0])
+        y = y + F.pad(xs[:k], (0, 0, 0, n_dst - k))
+    return y * s_out[:, None]
+
+
+def spmm_blockell_update_ref(
+        block_cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor,
+        s_in: torch.Tensor, s_out: torch.Tensor, w: torch.Tensor,
+        bias: Optional[torch.Tensor] = None,
+        w_self: Optional[torch.Tensor] = None,
+        self_coeff: Optional[torch.Tensor] = None, *, bm: int, bk: int,
+        add_diag: bool, relu: bool = False) -> torch.Tensor:
+    """The padded one-launch layer
+    ``act((s_out ⊙ acc) @ w + c · (x @ w_self) + bias)`` with ``acc`` the
+    aggregation of :func:`spmm_blockell_fused_ref`; every row written."""
+    n_dst = s_out.shape[0]
+    y = spmm_blockell_fused_ref(block_cols, blocks, x, s_in, s_out, bm=bm,
+                                bk=bk, add_diag=add_diag) @ w
+    if w_self is not None:
+        xs = x[:n_dst] @ w_self
+        y = y + (xs if self_coeff is None else self_coeff * xs)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y

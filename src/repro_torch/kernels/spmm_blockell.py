@@ -1,19 +1,23 @@
 """Block-ELL kernels for Hopper: the wrappers of ``csrc/*.cu``.
 
-``spmm_blockell_compact`` is the port of the Pallas TPU kernel of the same
-name (``repro/kernels/spmm_blockell.py``): the fused
+Each is the port of the Pallas TPU kernel of the same name
+(``repro/kernels/spmm_blockell.py``).  ``spmm_blockell_compact``: the fused
 ``s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])`` over only the active row-major
-slots of a block-ELL compaction.  ``spmm_blockell_update_compact`` is the
-port of the one-launch layer kernel: the same aggregation followed, in the
-same launch, by ``@ W [+ c · x_self @ W_self] + b`` and an optional ReLU.
+slots of a block-ELL compaction.  ``spmm_blockell_update_compact``: the
+one-launch layer, the same aggregation followed, in the same launch, by
+``@ W [+ c · x_self @ W_self] + b`` and an optional ReLU.
+``spmm_blockell``, ``spmm_blockell_fused`` and ``spmm_blockell_update``:
+the padded twins over the (R, W) slot table, padding slots (``col < 0``)
+skipped and every row written.
 On a CUDA tensor each wrapper launches its hand-written kernel (built on
 first use, see ``_build``) or raises; on a CPU tensor it runs the plain
 version in ``ref.py``.  There is no fallback from the one to the other.
 
 The port drops the TPU layout padding: x keeps its own row count and width
 (no 128-lane d, no C*bk rows), W keeps (d_in, d_out), the scales are 1-D,
-and the kernels walk each destination block's slots through
-``row_offsets`` instead of relying on a sequential grid.  Each wrapper's
+and the kernels walk each destination block's slots (through
+``row_offsets``, or along ``block_cols[r]``) instead of relying on a
+sequential grid.  Each wrapper's
 ``launches`` attribute counts its kernel launches (a plain integer; the
 plain version does not count).
 """
@@ -25,7 +29,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import spmm_blockell_compact_ref, spmm_blockell_update_compact_ref
+from .ref import (spmm_blockell_compact_ref, spmm_blockell_fused_ref,
+                  spmm_blockell_ref, spmm_blockell_update_compact_ref,
+                  spmm_blockell_update_ref)
 
 _FNS = {}
 _F32 = (torch.float32,)
@@ -38,7 +44,10 @@ def _kernel_fn(name: str):
     fn = _FNS.get(name)
     if fn is None:
         n_ptr, n_int = {"spmm_blockell_compact": (9, 8),
-                        "spmm_blockell_update_compact": (14, 10)}[name]
+                        "spmm_blockell_update_compact": (14, 10),
+                        "spmm_blockell": (4, 8),
+                        "spmm_blockell_fused": (6, 9),
+                        "spmm_blockell_update": (10, 11)}[name]
         fn = getattr(_build.load(name), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
@@ -101,6 +110,57 @@ def _check_aggregation(row_offsets, cols, blocks, x, s_in, s_out, x_diag,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return R, x_diag, s_in_diag
+
+
+def _check_epilogue(x, w, bias, w_self, self_coeff, bm: int, bk: int
+                    ) -> int:
+    """The checks of the layer kernels' W epilogue; returns d_out."""
+    dev = x.device
+    d_in = x.shape[1]
+    _check("w", w, _F32, 2, dev)
+    if w.shape[0] != d_in:
+        raise ValueError(f"w has {w.shape[0]} rows, x has {d_in} columns")
+    d_out = w.shape[1]
+    if d_out == 0:
+        raise ValueError("w has no output columns")
+    if bias is not None:
+        _check("bias", bias, _F32, 1, dev)
+        if bias.shape[0] != d_out:
+            raise ValueError(f"bias has {bias.shape[0]} entries, w has "
+                             f"{d_out} columns")
+    if w_self is None:
+        if self_coeff is not None:
+            raise ValueError("self_coeff needs w_self")
+    else:
+        if bm != bk:
+            raise ValueError("w_self requires square blocks (bm == bk)")
+        _check("w_self", w_self, _F32, 2, dev)
+        if w_self.shape != w.shape:
+            raise ValueError(f"w_self must be {tuple(w.shape)}, got "
+                             f"{tuple(w_self.shape)}")
+        if self_coeff is not None:
+            _check("self_coeff", self_coeff, _F32, 0, dev)
+    return d_out
+
+
+def _check_padded(block_cols, blocks, x, bm: int, bk: int, n_dst: int):
+    """The checks the padded kernels share; returns ``(R, W)``."""
+    dev = x.device
+    _check("x", x, _F32, 2, dev)
+    _check("block_cols", block_cols, _I32, 2, dev)
+    _check("blocks", blocks, (torch.uint8, torch.float32), 4, dev)
+    R, W = block_cols.shape
+    if tuple(blocks.shape) != (R, W, bm, bk):
+        raise ValueError(f"blocks must be ({R}, {W}, {bm}, {bk}), got "
+                         f"{tuple(blocks.shape)}")
+    if R != max(-(-n_dst // bm), 1):
+        raise ValueError(f"block_cols has {R} row blocks; {n_dst} rows at "
+                         f"bm={bm} need {max(-(-n_dst // bm), 1)}")
+    if x.shape[1] == 0:
+        raise ValueError("x has no feature columns")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return R, W
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -179,34 +239,15 @@ def spmm_blockell_update_compact(
     dev = x.device
     n_src, d_in = x.shape
     n_dst = s_out.shape[0]
-    _check("w", w, _F32, 2, dev)
-    if w.shape[0] != d_in:
-        raise ValueError(f"w has {w.shape[0]} rows, x has {d_in} columns")
-    d_out = w.shape[1]
-    if d_out == 0:
-        raise ValueError("w has no output columns")
-    if bias is not None:
-        _check("bias", bias, _F32, 1, dev)
-        if bias.shape[0] != d_out:
-            raise ValueError(f"bias has {bias.shape[0]} entries, w has "
-                             f"{d_out} columns")
-    if w_self is None:
-        if self_coeff is not None or x_self is not None:
-            raise ValueError("self_coeff and x_self need w_self")
-    else:
-        if bm != bk:
-            raise ValueError("w_self requires square blocks (bm == bk)")
-        _check("w_self", w_self, _F32, 2, dev)
-        if w_self.shape != w.shape:
-            raise ValueError(f"w_self must be {tuple(w.shape)}, got "
-                             f"{tuple(w_self.shape)}")
+    if w_self is None and x_self is not None:
+        raise ValueError("x_self needs w_self")
+    d_out = _check_epilogue(x, w, bias, w_self, self_coeff, bm, bk)
+    if w_self is not None:
         x_self = x if x_self is None else x_self
         _check("x_self", x_self, _F32, 2, dev)
         if x_self.shape[0] < n_dst or x_self.shape[1] != d_in:
             raise ValueError(f"x_self must cover {n_dst} rows of width "
                              f"{d_in}")
-        if self_coeff is not None:
-            _check("self_coeff", self_coeff, _F32, 0, dev)
     if dev.type == "cpu":
         return spmm_blockell_update_compact_ref(
             row_offsets, cols, blocks, x, s_in, s_out, w, bias, w_self,
@@ -229,3 +270,132 @@ def spmm_blockell_update_compact(
 
 
 spmm_blockell_update_compact.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the padded (R, W) slot grid
+# ---------------------------------------------------------------------------
+def spmm_blockell(block_cols: torch.Tensor, blocks: torch.Tensor,
+                  x: torch.Tensor, *, bm: int, bk: int,
+                  n_dst: Optional[int] = None) -> torch.Tensor:
+    """Padded ``y = A x``; returns (n_dst, d) float32, every row written.
+
+    block_cols: (R, W) int32 source blocks, -1 for a padding slot (ids come
+    from a ``BlockEll``, which keeps them below ceil(n_src / bk)); blocks:
+    (R, W, bm, bk) uint8 or float32; x: (n_src, d) float32; n_dst defaults
+    to R * bm.
+    """
+    R = block_cols.shape[0]
+    n_dst = R * bm if n_dst is None else n_dst
+    R, W = _check_padded(block_cols, blocks, x, bm, bk, n_dst)
+    if x.device.type == "cpu":
+        return spmm_blockell_ref(block_cols, blocks, x, bm=bm, bk=bk,
+                                 n_dst=n_dst)
+    n_src, d = x.shape
+    fn = _kernel_fn("spmm_blockell")
+    y = torch.empty((n_dst, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(block_cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+                 y.data_ptr(), int(blocks.dtype == torch.uint8), R, W, n_src,
+                 n_dst, bm, bk, d, stream)
+    _raise_on(err, "spmm_blockell")
+    spmm_blockell.launches += 1
+    return y
+
+
+spmm_blockell.launches = 0
+
+
+def spmm_blockell_fused(block_cols: torch.Tensor, blocks: torch.Tensor,
+                        x: torch.Tensor, s_in: torch.Tensor,
+                        s_out: torch.Tensor, *, bm: int, bk: int,
+                        add_diag: bool) -> torch.Tensor:
+    """Padded fused SpMM ``s_out ⊙ (A (s_in ⊙ x) [+ s_in ⊙ x])``; returns
+    (n_dst, d) float32 with n_dst = len(s_out), every row written (rows of
+    blocks with no active slot get the self term or zero).
+
+    As :func:`spmm_blockell` plus s_in: (n_src,) and s_out: (n_dst,).  The
+    self term needs square blocks.
+    """
+    n_dst = s_out.shape[0]
+    R, W = _check_padded(block_cols, blocks, x, bm, bk, n_dst)
+    dev = x.device
+    _check("s_in", s_in, _F32, 1, dev)
+    _check("s_out", s_out, _F32, 1, dev)
+    n_src, d = x.shape
+    if s_in.shape[0] != n_src:
+        raise ValueError(f"s_in has {s_in.shape[0]} rows, x has {n_src}")
+    if add_diag and bm != bk:
+        raise ValueError("add_diag requires square blocks (bm == bk)")
+    if dev.type == "cpu":
+        return spmm_blockell_fused_ref(block_cols, blocks, x, s_in, s_out,
+                                       bm=bm, bk=bk, add_diag=add_diag)
+    fn = _kernel_fn("spmm_blockell_fused")
+    y = torch.empty((n_dst, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(block_cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+                 s_in.data_ptr(), s_out.data_ptr(), y.data_ptr(),
+                 int(blocks.dtype == torch.uint8), R, W, n_src, n_dst, bm,
+                 bk, d, int(add_diag), stream)
+    _raise_on(err, "spmm_blockell_fused")
+    spmm_blockell_fused.launches += 1
+    return y
+
+
+spmm_blockell_fused.launches = 0
+
+
+def spmm_blockell_update(
+        block_cols: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor,
+        s_in: torch.Tensor, s_out: torch.Tensor, w: torch.Tensor,
+        bias: Optional[torch.Tensor] = None,
+        w_self: Optional[torch.Tensor] = None,
+        self_coeff: Optional[torch.Tensor] = None, *, bm: int, bk: int,
+        add_diag: bool, relu: bool = False) -> torch.Tensor:
+    """Padded fused LAYER; returns (n_dst, d_out) float32, every row
+    written.
+
+    The aggregation of :func:`spmm_blockell_fused` at width d_in, then in
+    the same launch ``(s_out ⊙ acc) @ w + c · (x @ w_self) + bias`` and
+    ReLU when ``relu``.  w: (d_in, d_out); bias: (d_out,) or None; w_self:
+    (d_in, d_out) or None and may be ``w`` itself; self_coeff: a 0-d
+    float32 tensor on x's device (c = 1 when None; needs w_self).  The self
+    and diagonal terms need square blocks and read x's first n_dst rows.
+    """
+    n_dst = s_out.shape[0]
+    R, W = _check_padded(block_cols, blocks, x, bm, bk, n_dst)
+    dev = x.device
+    _check("s_in", s_in, _F32, 1, dev)
+    _check("s_out", s_out, _F32, 1, dev)
+    n_src, d_in = x.shape
+    if s_in.shape[0] != n_src:
+        raise ValueError(f"s_in has {s_in.shape[0]} rows, x has {n_src}")
+    d_out = _check_epilogue(x, w, bias, w_self, self_coeff, bm, bk)
+    if add_diag or w_self is not None:
+        if bm != bk:
+            raise ValueError("add_diag requires square blocks (bm == bk)")
+        if n_src < n_dst:
+            raise ValueError(f"the self term reads {n_dst} rows of x, which "
+                             f"has {n_src}")
+    if dev.type == "cpu":
+        return spmm_blockell_update_ref(
+            block_cols, blocks, x, s_in, s_out, w, bias, w_self, self_coeff,
+            bm=bm, bk=bk, add_diag=add_diag, relu=relu)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _kernel_fn("spmm_blockell_update")
+    y = torch.empty((n_dst, d_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(block_cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+                 s_in.data_ptr(), s_out.data_ptr(), w.data_ptr(), ptr(bias),
+                 ptr(w_self), ptr(self_coeff), y.data_ptr(),
+                 int(blocks.dtype == torch.uint8), R, W, n_src, n_dst, bm,
+                 bk, d_in, d_out, int(add_diag), int(relu), stream)
+    _raise_on(err, "spmm_blockell_update")
+    spmm_blockell_update.launches += 1
+    return y
+
+
+spmm_blockell_update.launches = 0

@@ -2,19 +2,23 @@
 ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
-      --steps 50 [--executor fused|blockell|segment] [--device cpu]
+      --steps 50 [--executor auto|forward|fused|blockell|segment] \\
+      [--device cpu]
 
 The graph is ``cora_like()`` permuted by ``minhash_reorder``, as in the
-reference.  ``--executor fused`` (the default) builds one
-``LayerExecutionPlan`` per layer with ``order="auto"`` over one shared
-``GraphExecutionPlan`` on the ``cuda`` backend: for gcn-cora that is the
-schedule the reference's whole-forward DP picks (both layers update-first,
-one ``spmm_blockell_compact`` launch per layer forward and one per layer
-backward).  On ``--device cpu`` the same plans run the kernels' plain
-versions.  ``blockell`` and ``segment`` work as in the reference.
-``auto`` and ``forward`` choose by racing measured candidates
-(``repro/exec/autotune.py``, ``repro/exec/forward.py``), which is not
-ported yet.  Runs on ``cuda`` unless ``--device cpu`` is given.
+reference.  ``--executor auto`` (the default, as in the reference) and
+``forward`` schedule the WHOLE forward by measurement
+(``exec.autotune_forward``): every layer's (order, fusion, backend, block
+shape, compaction, degree buckets) is raced on the device over the
+candidate grid — compact, padded and bucketed plans on ``cuda`` on the card,
+``coo`` and ``torch`` on the CPU — then the per-layer-greedy, warm-DP and
+cold-DP schedules race as whole-chain forward+backward passes, and the
+verdict is cached on disk (``$REPRO_TORCH_EXEC_CACHE`` or
+``~/.cache/repro_torch/exec``; delete it to tune afresh).  ``fused`` trusts
+the DP over the cache or, cold, the FLOP/byte model, without measuring
+(``exec.plan_forward``).  ``blockell`` (one aggregation plan plus a separate
+matmul) and ``segment`` (the edge list) work as in the reference.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 import argparse
 
@@ -24,11 +28,9 @@ import torch
 from ..configs import get
 from ..core import minhash_reorder
 from ..device import resolve_device
-from ..exec import build_layer_plan, build_plan
+from ..exec import autotune_forward, build_plan, gcn_chain, plan_forward
 from ..graph import cora_like
 from ..train import TrainResult, adam, fit
-
-NOT_PORTED_EXECUTORS = ("auto", "forward")
 
 
 def training_graph():
@@ -50,44 +52,46 @@ def gnn_batch(g, n_classes: int, device="cuda") -> dict:
             "x": t(g.node_feat), "deg": t(deg)}
 
 
-def layer_plans(g, mode: str, dims, *, backend: str = "cuda",
-                device="cuda") -> list:
-    """One ``LayerExecutionPlan`` per layer of ``dims = [d_in, ..., d_out]``
-    over one shared graph plan, each with ``order="auto"`` at bm = 128."""
-    plans, gplan = [], None
-    for d_in, d_out in zip(dims[:-1], dims[1:]):
-        lp = build_layer_plan(g, mode, d_in=d_in, d_out=d_out, order="auto",
-                              bm=128, backend=backend, gplan=gplan,
-                              device=device)
-        plans.append(lp)
-        gplan = lp.gplan
-    return plans
+def schedule_plans(g, specs, executor: str, device="cuda"):
+    """The whole-forward plan of ``--executor``: ``autotune_forward`` for
+    ``auto`` / ``forward`` (printing the verdict), ``plan_forward`` for
+    ``fused``; then one line per layer, as the reference prints them."""
+    if executor in ("auto", "forward"):
+        fplan, rec = autotune_forward(g, specs, device=device)
+        greedy = rec.greedy_us
+        print(f"forward autotune: schedule={rec.source} "
+              f"{rec.us:.0f}us whole-chain"
+              + (f" (per-layer-greedy {greedy:.0f}us, "
+                 f"{rec.speedup_vs_greedy:.2f}x)"
+                 if greedy is not None else "")
+              + (" (cached)" if rec.from_cache else ""))
+    else:
+        fplan = plan_forward(g, specs, device=device)
+    for i, (s, lp) in enumerate(zip(specs, fplan.layers)):
+        print(f"layer {i} ({s.d_in}->{s.d_out}): order={lp.order} "
+              f"fuse={lp.fuse} {lp.backend} bm={lp.gplan.bm} "
+              f"compact={lp.gplan.compact}"
+              + (f" buckets={lp.gplan.buckets}" if lp.gplan.buckets else ""))
+    return fplan
 
 
-def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "fused",
+def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "auto",
                device="cuda") -> TrainResult:
     dev = resolve_device(device)
-    if executor in NOT_PORTED_EXECUTORS:
-        raise NotImplementedError(
-            f"--executor {executor} races measured schedules (autotune and "
-            "the whole-forward DP), which are not ported yet (ROADMAP §1 "
-            "item 5); use fused, blockell or segment")
     bundle = get(arch).bundle()
     g = training_graph()
     exec_plan = None
-    if executor == "fused":
-        exec_plan = layer_plans(g, "gcn", [g.node_feat.shape[1],
-                                           *bundle.model_kw["hidden"],
-                                           bundle.n_classes], device=dev)
-        for i, lp in enumerate(exec_plan):
-            print(f"layer {i} ({lp.d_in}->{lp.d_out}): order={lp.order} "
-                  f"fuse={lp.fuse} {lp.backend} bm={lp.gplan.bm} "
-                  f"compact=True")
+    loss_executor = executor
+    if executor in ("auto", "forward", "fused"):
+        specs = gcn_chain([g.node_feat.shape[1], *bundle.model_kw["hidden"],
+                           bundle.n_classes])
+        exec_plan = schedule_plans(g, specs, executor, dev)
+        loss_executor = "fused"
     elif executor == "blockell":
         exec_plan = build_plan(g, "gcn", bm=128, backend="cuda", device=dev)
     elif executor != "segment":
         raise ValueError(f"unknown executor {executor!r}")
-    loss_fn = bundle.loss_fn("full_graph_sm", executor=executor,
+    loss_fn = bundle.loss_fn("full_graph_sm", executor=loss_executor,
                              exec_plan=exec_plan)
     params = bundle.init_params(torch.Generator().manual_seed(0),
                                 g.node_feat.shape[1], device=dev)
@@ -104,14 +108,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="checkpoint directory (not ported yet)")
     ap.add_argument("--dist", action="store_true",
                     help="shard the graph over devices (not ported yet)")
-    ap.add_argument("--executor", default="fused",
+    ap.add_argument("--executor", default="auto",
                     choices=["auto", "segment", "blockell", "fused",
                              "forward"],
-                    help="GNN execution engine: 'fused' (default) runs one "
-                         "layer plan per layer with the FLOP/byte model's "
-                         "order; 'blockell' one aggregation plan plus a "
-                         "separate matmul; 'segment' the edge list; 'auto' "
-                         "and 'forward' wait for the ported autotune")
+                    help="GNN execution engine: 'auto' (default) and "
+                         "'forward' schedule the whole forward by measured "
+                         "whole-chain fwd+bwd races, cached on disk; "
+                         "'fused' trusts the DP over the cache or the "
+                         "FLOP/byte model without measuring; 'blockell' one "
+                         "aggregation plan plus a separate matmul; "
+                         "'segment' the edge list")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)
 
@@ -121,6 +127,9 @@ def main(argv=None) -> TrainResult:
     if args.dist:
         raise NotImplementedError("--dist is not ported yet (ROADMAP §1 "
                                   "item 9)")
+    if args.ckpt:
+        raise NotImplementedError("--ckpt is not ported yet (ROADMAP §1 "
+                                  "item 6)")
     spec = get(args.arch)
     if spec.family != "gnn":
         raise NotImplementedError(f"the {spec.family} family is not ported "

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..exec.plan import build_layer_plan
+from ..exec import gcn_chain, plan_forward
 from ..graph.structure import Graph
 from ..graph.sampler import FullNeighborhood, NeighborSampler
 from ..models.gcn import gcn_apply, gcn_init, make_graph_inputs
@@ -41,15 +41,14 @@ class GNNSession:
     degrees, so block outputs equal the offline full-graph forward row for
     row and the engine's oracle check is exact.
 
-    ``executor='fused'`` (default) runs the offline forward through one
-    :class:`~repro_torch.exec.LayerExecutionPlan` per layer, sharing one
-    graph plan: on ``cuda`` every aggregation is one launch of the
-    hand-written block-ELL kernel, on the CPU its plain version.  Each layer
-    is built with ``order="auto"`` (the FLOP/byte model), ``bm=128`` and
-    slot compaction — the configuration the reference's whole-forward DP
-    picks cold for this chain on its accelerator.  The DP, autotune and
-    calibration are not ported yet.  ``executor='segment'`` runs the plain
-    edge-list forward.
+    ``executor='fused'`` (default) compiles the offline forward through
+    :func:`~repro_torch.exec.plan_forward`, as the reference does: the DP
+    over the layer chain picks every layer's (order, fuse, backend, bm,
+    compact, buckets) jointly — measured costs when the autotune cache
+    (``$REPRO_TORCH_EXEC_CACHE``) is warm for this graph and device, the
+    FLOP/byte model when cold — over the card's candidate grid on ``cuda``
+    and the CPU grid on the CPU; layers with matching configs share one
+    graph plan.  ``executor='segment'`` runs the plain edge-list forward.
 
     ``params`` (a tree like ``gcn_init``'s) replaces the seeded init, e.g.
     with the reference's weights carried over by ``params_from_jax``.
@@ -85,16 +84,11 @@ class GNNSession:
                           else NeighborSampler(g, list(fanouts), seed=seed))
         self._layer_cache: Optional[List[np.ndarray]] = None
         self._layer_plans = None
+        self._fplan = None
         if executor == "fused":
-            backend = "cuda" if self.device.type == "cuda" else "torch"
-            plans, gplan = [], None
-            for d_in, d_out in zip(self.dims[:-1], self.dims[1:]):
-                lp = build_layer_plan(g, "gcn", d_in=d_in, d_out=d_out,
-                                      order="auto", backend=backend, bm=128,
-                                      gplan=gplan, device=self.device)
-                plans.append(lp)
-                gplan = lp.gplan
-            self._layer_plans = plans
+            self._fplan = plan_forward(g, gcn_chain(self.dims),
+                                       device=self.device)
+            self._layer_plans = self._fplan.layers
 
     @property
     def num_layers(self) -> int:

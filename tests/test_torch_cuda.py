@@ -1,5 +1,9 @@
-"""The port on the card: each CUDA kernel against its plain version, the
-plans' backwards through the kernels, and the serving slice.
+"""The port on the card: each CUDA kernel against its plain version (the
+compact kernels at bm 16-512, with and without the bucket overrides; the
+padded kernels ``spmm_blockell``, ``spmm_blockell_fused`` and
+``spmm_blockell_update``), the plans' backwards through the kernels
+(compact, padded and degree-bucketed), a tiny autotune on the card, and the
+serving slice.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -24,8 +28,12 @@ from repro_torch.core import build_blockell, minhash_reorder
 from repro_torch.exec import build_layer_plan, build_plan
 from repro_torch.graph import DatasetSpec, Graph, cora_like, synthesize
 from repro_torch.kernels import spmm_blockell as sk
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (spmm_blockell_compact_ref,
-                                     spmm_blockell_update_compact_ref)
+                                     spmm_blockell_fused_ref,
+                                     spmm_blockell_ref,
+                                     spmm_blockell_update_compact_ref,
+                                     spmm_blockell_update_ref)
 from repro_torch.serve import (EmbeddingCache, MicroBatcher, ServeEngine,
                                make_session, zipfian_trace)
 
@@ -268,3 +276,219 @@ def test_layer_plan_autograd_on_the_card(mode, d_in, d_out, epilogue):
         scale = max(1.0, float(out["torch"][1][k].abs().max()))
         torch.testing.assert_close(gk, out["torch"][1][k], rtol=0,
                                    atol=1e-4 * scale, msg=f"d{k}")
+
+
+# ---------------------------------------------------------------------------
+# the compact kernels at the bucketed tiles (bm 256 and 512)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bm", [256, 512])
+@pytest.mark.parametrize("override", [False, True])
+def test_compact_kernels_at_bucketed_tiles(bm, override):
+    """Bucketed plans run both compact kernels at bm = bk = 256 and 512 with
+    the destination overrides; on Cora, as the bucketed candidates do."""
+    _need_cuda()
+    g = cora_like(seed=0)
+    args, written = _case(g, bm, 48, "u8", override)
+    kw = dict(bm=bm, bk=bm, add_diag=True)
+    y = sk.spmm_blockell_compact(*args, **kw)
+    torch.cuda.synchronize()
+    ref = spmm_blockell_compact_ref(*args, **kw)
+    torch.testing.assert_close(y[written], ref[written], atol=TOL, rtol=TOL)
+    uargs, ukw, opts, written = _update_case(g, bm, "u8", 128, 128, True,
+                                             "self_coeff", override)
+    opts.update(bm=bm, bk=bm)
+    y = sk.spmm_blockell_update_compact(*uargs, **ukw, **opts)
+    torch.cuda.synchronize()
+    ref = spmm_blockell_update_compact_ref(*uargs, **ukw, **opts)
+    torch.testing.assert_close(y[written], ref[written], atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the padded kernels
+# ---------------------------------------------------------------------------
+def _padded(g, bm, tiles, seed=0):
+    ell = build_blockell(g, bm=bm, bk=bm,
+                         storage="auto" if tiles == "u8" else "dense")
+    t = lambda a: torch.as_tensor(a).cuda()
+    rng = np.random.default_rng(seed)
+    n = g.num_nodes
+    return ell, (t(ell.block_cols),
+                 t(ell.dense_blocks(np.uint8 if tiles == "u8"
+                                    else np.float32))), \
+        (t(rng.uniform(0.2, 1, n).astype(np.float32)),
+         t(rng.uniform(0.2, 1, n).astype(np.float32)))
+
+
+@pytest.mark.parametrize("bm", [32, 128])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("d,add_diag", [(64, True), (7, True), (72, False),
+                                        (200, True)])
+def test_padded_kernels_match_plain_versions(bm, tiles, d, add_diag):
+    _need_cuda()
+    g = _random_graph(weighted=tiles == "f32")
+    _, (cols, blocks), (s_in, s_out) = _padded(g, bm, tiles)
+    x = torch.randn(g.num_nodes, d, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    before = (sk.spmm_blockell_fused.launches, sk.spmm_blockell.launches)
+    y = sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out, bm=bm, bk=bm,
+                               add_diag=add_diag)
+    z = sk.spmm_blockell(cols, blocks, x, bm=bm, bk=bm, n_dst=g.num_nodes)
+    torch.cuda.synchronize()
+    assert (sk.spmm_blockell_fused.launches,
+            sk.spmm_blockell.launches) == (before[0] + 1, before[1] + 1)
+    # every row is written, blocks with no active slot included
+    torch.testing.assert_close(
+        y, spmm_blockell_fused_ref(cols, blocks, x, s_in, s_out, bm=bm,
+                                   bk=bm, add_diag=add_diag),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(
+        z, spmm_blockell_ref(cols, blocks, x, bm=bm, bk=bm,
+                             n_dst=g.num_nodes), atol=TOL, rtol=TOL)
+    assert torch.equal(sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out,
+                                              bm=bm, bk=bm,
+                                              add_diag=add_diag), y)
+
+
+def test_padded_kernels_write_rows_of_empty_blocks():
+    _need_cuda()
+    rng = np.random.default_rng(2)
+    g = Graph(src=rng.integers(0, 256, 400).astype(np.int32),
+              dst=rng.integers(0, 32, 400).astype(np.int32), num_nodes=256)
+    _, (cols, blocks), (s_in, s_out) = _padded(g, 32, "u8")
+    x = torch.ones(256, 8, device="cuda")
+    y = sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out, bm=32, bk=32,
+                               add_diag=True)
+    torch.testing.assert_close(y[32:], (s_in * s_out)[32:, None].expand(
+        -1, 8), atol=TOL, rtol=TOL)
+    w = torch.ones(8, 3, device="cuda")
+    u = sk.spmm_blockell_update(cols, blocks, x, s_in, s_out, w,
+                                torch.full((3,), 0.5, device="cuda"),
+                                bm=32, bk=32, add_diag=False)
+    torch.testing.assert_close(u[32:], torch.full((224, 3), 0.5,
+                                                  device="cuda"))
+
+
+@pytest.mark.parametrize("bm", [32, 128])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("d_in,d_out,add_diag,epilogue", [
+    (16, 7, True, "none"), (128, 128, False, "self_coeff"),
+    (1433, 16, True, "none"), (64, 200, False, "two_w"),
+    (1433, 130, True, "self_coeff")])
+def test_padded_update_kernel_matches_plain_version(bm, tiles, d_in, d_out,
+                                                    add_diag, epilogue):
+    _need_cuda()
+    g = _random_graph(weighted=tiles == "f32")
+    _, (cols, blocks), (s_in, s_out) = _padded(g, bm, tiles)
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).cuda()
+    mat = lambda a, b: t(rng.standard_normal((a, b)) / np.sqrt(a))
+    x, w = t(rng.standard_normal((g.num_nodes, d_in))), mat(d_in, d_out)
+    b = t(rng.standard_normal(d_out)) if d_out != 7 else None
+    ws = c = None
+    if epilogue == "two_w":
+        ws = mat(d_in, d_out)
+    elif epilogue == "self_coeff":
+        ws, c = w, t(1.3)
+    args = (cols, blocks, x, s_in, s_out, w, b, ws, c)
+    kw = dict(bm=bm, bk=bm, add_diag=add_diag, relu=d_in != 64)
+    before = sk.spmm_blockell_update.launches
+    y = sk.spmm_blockell_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert sk.spmm_blockell_update.launches == before + 1
+    tol = 1e-4 if d_in > 128 else TOL
+    torch.testing.assert_close(y, spmm_blockell_update_ref(*args, **kw),
+                               atol=tol, rtol=tol)
+    assert torch.equal(sk.spmm_blockell_update(*args, **kw), y)
+
+
+def test_ops_spmm_on_the_card():
+    _need_cuda()
+    g = cora_like(seed=0)
+    ell = build_blockell(g, bm=128, bk=128, storage="auto")
+    x = torch.randn(g.num_nodes, 64, device="cuda")
+    torch.testing.assert_close(ops.spmm(ell, x), ops.spmm_ref(ell, x),
+                               atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# padded and bucketed plans through the kernels, forward and backward
+# ---------------------------------------------------------------------------
+PLAN_FORMS = [dict(compact=False), dict(buckets="128@7+256"),
+              dict(buckets="128@7+512")]
+
+
+@pytest.mark.parametrize("form", PLAN_FORMS, ids=["padded", "b256", "b512"])
+@pytest.mark.parametrize("mode", ["gcn", "sum"])
+def test_padded_and_bucketed_plan_gradients_on_the_card(form, mode):
+    _need_cuda()
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    x0 = torch.randn(g.num_nodes, 16, device="cuda", generator=gen)
+    proj = torch.randn(g.num_nodes, 16, device="cuda", generator=gen)
+    out = {}
+    for backend in ("cuda", "torch"):
+        (x,) = _leaves(x0)
+        y = build_plan(g, mode, bm=128, backend=backend, device="cuda",
+                       **form).apply(x)
+        (y * proj).sum().backward()
+        out[backend] = (y.detach(), x.grad)
+    for a, b in zip(out["cuda"], out["torch"]):
+        torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("form", PLAN_FORMS, ids=["padded", "b256", "b512"])
+@pytest.mark.parametrize("mode,d_in,d_out,epilogue", [
+    ("gcn", 1433, 16, "none"), ("sum", 128, 128, "self_coeff")])
+def test_padded_and_bucketed_fused_layers_on_the_card(form, mode, d_in,
+                                                      d_out, epilogue):
+    """The fused padded layer (``spmm_blockell_update``) and the fused
+    bucketed layer (one ``spmm_blockell_update_compact`` per bucket)
+    against the unfused plain backend: values and every gradient."""
+    _need_cuda()
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    gen = torch.Generator("cuda").manual_seed(2)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    x0, w0, b0 = r(g.num_nodes, d_in), r(d_in, d_out) / d_in ** 0.5, r(d_out)
+    proj = r(g.num_nodes, d_out)
+    out = {}
+    for backend in ("cuda", "torch"):
+        lp = build_layer_plan(g, mode, d_in=d_in, d_out=d_out,
+                              order="aggregate_first", bm=128,
+                              backend=backend, device="cuda", **form)
+        assert lp.fuse == (backend == "cuda")
+        x, w, b = _leaves(x0, w0, b0)
+        ops_ = {"x": x, "w": w, "b": b}
+        kw = {}
+        if epilogue == "self_coeff":
+            (ops_["c"],) = _leaves(torch.tensor(1.2, device="cuda"))
+            kw.update(w_self=w, self_coeff=ops_["c"])
+        launches = (sk.spmm_blockell_update.launches
+                    + sk.spmm_blockell_update_compact.launches)
+        y = lp.apply(x, w, b, relu=True, **kw)
+        (y * proj).sum().backward()
+        if backend == "cuda":
+            assert (sk.spmm_blockell_update.launches
+                    + sk.spmm_blockell_update_compact.launches) > launches
+        out[backend] = (y.detach(), {k: v.grad for k, v in ops_.items()})
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], atol=1e-4,
+                               rtol=1e-4)
+    for k, gk in out["cuda"][1].items():
+        scale = max(1.0, float(out["torch"][1][k].abs().max()))
+        torch.testing.assert_close(gk, out["torch"][1][k], rtol=0,
+                                   atol=1e-4 * scale, msg=f"d{k}")
+
+
+def test_autotune_layer_races_every_candidate_on_the_card(tmp_path):
+    """The card's grid on a small graph: every candidate (compact, padded,
+    fused, coo) is measured, none drops out."""
+    _need_cuda()
+    import importlib
+    at = importlib.import_module("repro_torch.exec.autotune")
+    g = _random_graph()
+    cands = at.default_layer_candidates("cuda", 32, 16)
+    rec = at.autotune_layer(g, 32, 16, "gcn", candidates=cands, iters=1,
+                            cache_dir=str(tmp_path), device="cuda")
+    assert sorted(tuple(r[:-1]) for r in rec.table) == sorted(cands)
+    assert at.device_sig("cuda").startswith("cuda-")

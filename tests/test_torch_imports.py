@@ -46,6 +46,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.configs.registry",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
                 "repro_torch.core.cache_model", "repro_torch.exec.plan",
+                "repro_torch.exec.bucketing", "repro_torch.exec.autotune",
+                "repro_torch.exec.forward", "repro_torch.obs.audit",
+                "repro_torch.kernels.ops",
                 "repro_torch.graph.datasets", "repro_torch.graph.sampler",
                 "repro_torch.graph.structure", "repro_torch.kernels._build",
                 "repro_torch.kernels.ref",
@@ -65,12 +68,16 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 @pytest.mark.parametrize("name", ["spmm_blockell_compact",
-                                  "spmm_blockell_update_compact"])
+                                  "spmm_blockell_update_compact",
+                                  "spmm_blockell", "spmm_blockell_fused",
+                                  "spmm_blockell_update"])
 def test_kernel_source_ships_beside_the_package(name):
     from repro_torch.kernels import _build
     src = _build.CSRC / f"{name}.cu"
     assert src.is_file()
-    text = src.read_text()
+    # a source and the shared headers it may include
+    text = "\n".join(p.read_text() for p in
+                     [src, *sorted(_build.CSRC.glob("*.cuh"))])
     assert f"repro/kernels/spmm_blockell.py::{name}" in text
     assert f'extern "C" int {name}(' in text
     # the products are written by hand: no library GEMM and no torch

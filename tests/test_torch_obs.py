@@ -56,7 +56,12 @@ def test_gated_metrics_and_spans():
     assert "exec.plan.compile" in names and "serve.batch" in names
     assert names.count("serve.request") == 12
     snap = obs.snapshot()
-    assert snap["counters"]["exec.plan.compiles{backend=torch}"] >= 2
+    # the explicit torch plan, then the session's plans on whatever backend
+    # its whole-forward DP picks over the CPU grid
+    compiles = {k: v for k, v in snap["counters"].items()
+                if k.startswith("exec.plan.compiles{")}
+    assert compiles["exec.plan.compiles{backend=torch}"] >= 1
+    assert sum(compiles.values()) >= 2
     assert snap["counters"]["serve.requests"] == 12
     assert tracer.events and obs.stop_trace() is None
     obs.reset()

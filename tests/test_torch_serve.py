@@ -151,6 +151,41 @@ def test_full_width_cora_matches_reference():
                                    rtol=1e-4, err_msg=f"layer {l}")
 
 
+@pytest.mark.parametrize("warm", [False, True])
+def test_session_schedule_matches_reference(warm, tmp_path, monkeypatch):
+    """``GNNSession`` builds its plans through ``plan_forward`` as the
+    reference's session does: on the serving graph its schedule is the
+    reference's (``jnp`` read as ``torch``), cold, and warm after the same
+    measured layer table is in both caches."""
+    from repro.graph import cora_like as ref_cora_like
+    monkeypatch.setenv("REPRO_TORCH_EXEC_CACHE", str(tmp_path / "port"))
+    monkeypatch.setenv("REPRO_EXEC_CACHE", str(tmp_path / "ref"))
+    g_ref = ref_cora_like(seed=0)
+    if warm:
+        # one measured table, written under each side's own key
+        import importlib
+        ref_at = importlib.import_module("repro.exec.autotune")
+        at = importlib.import_module("repro_torch.exec.autotune")
+        rows = [["aggregate_first", False, "coo", 128, True, 100.0],
+                ["update_first", False, "coo", 128, True, 5000.0]]
+        for mod, name in ((ref_at, "jnp"), (at, "torch")):
+            mod._cache_put(mod._cache_path(None),
+                           f"{ref_at.graph_fingerprint(g_ref)}:layer:1433x64"
+                           f":gcn:r1b1:cpu:x", {"table": rows + [
+                               ["update_first", False, name, 64, True,
+                                2000.0]]})
+    ref = ref_make_session("gcn", g_ref, seed=0)
+    sess = make_session("gcn", cora_like(seed=0), seed=0, device="cpu")
+    expected = [tuple({"jnp": "torch"}.get(v, v) if isinstance(v, str)
+                      else v for v in c) for c in ref._fplan.configs]
+    assert list(sess._fplan.configs) == expected
+    assert sess._fplan.source == ref._fplan.source
+    if warm:
+        assert expected[0][0] == "aggregate_first"   # the measured table won
+    assert [lp.gplan.backend for lp in sess._layer_plans] == \
+        [c[2] for c in expected]
+
+
 def test_seeded_init_is_reproducible():
     g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
     a = make_session("gcn", g, hidden=8, out_dim=4, seed=5, device="cpu")

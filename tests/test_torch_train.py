@@ -4,12 +4,15 @@
   ``repro.train`` / ``repro.nn`` on one nested tree, to 1e-6 (fp32
   elementwise arithmetic in the same order);
 * full-width gcn-cora on the MinHash-reordered Cora: the port's launcher
-  path (``gnn_driver``, fused layer plans on the ``cuda`` backend, which on
-  CPU tensors runs the kernels' plain versions) against the reference's
-  ``fit`` over ``gcn_loss(executor="segment")`` from the same parameters and
-  batch, 10 steps, each loss within 1e-4 (fp32 sums in another order over
-  up to 1433 terms, carried through 10 Adam steps);
-* the launcher's command line on the CPU.
+  path (``gnn_driver`` with ``--executor fused``: the whole-forward DP's
+  plans over the CPU grid) against the reference's ``fit`` over
+  ``gcn_loss(executor="segment")`` from the same parameters and batch, 10
+  steps, each loss within 1e-4 (fp32 sums in another order over up to 1433
+  terms, carried through 10 Adam steps);
+* the launcher's command line on the CPU: the default ``auto`` executor and
+  ``forward`` tune on a temporary cache and print the verdict and the
+  per-layer schedule, a second ``auto`` run reads the cache, and ``fused``
+  prints the reference's cold DP schedule.
 """
 import numpy as np
 import pytest
@@ -33,6 +36,13 @@ from repro_torch.train import (adam, apply_updates, clip_by_global_norm,
                                fit, global_norm)
 
 LOSS_TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _cache(tmp_path, monkeypatch):
+    """The launcher tunes into a fresh cache, never the user's."""
+    monkeypatch.setenv("REPRO_TORCH_EXEC_CACHE", str(tmp_path / "port"))
+    monkeypatch.setenv("REPRO_EXEC_CACHE", str(tmp_path / "ref"))
 
 
 def _tree(seed):
@@ -125,20 +135,38 @@ def test_gcn_cora_training_matches_reference(monkeypatch):
 
     monkeypatch.setattr(GNNBundle, "init_params",
                         lambda self, gen, d, device="cuda": port_params)
-    res = train_launcher.gnn_driver("gcn-cora", 10, device="cpu")
+    res = train_launcher.gnn_driver("gcn-cora", 10, executor="fused",
+                                    device="cpu")
     assert res.steps == 10
     np.testing.assert_allclose(res.losses, ref.losses, atol=LOSS_TOL,
                                rtol=LOSS_TOL)
     assert res.losses[-1] < res.losses[0]
 
 
+def _layer_lines(schedule):
+    """The launcher's per-layer lines for a schedule of layer candidates."""
+    dims = (1433, 16, 7)
+    return [f"layer {i} ({dims[i]}->{dims[i + 1]}): order={c[0]} "
+            f"fuse={c[1]} {c[2]} bm={c[3]} compact={c[4]}"
+            for i, c in enumerate(schedule)]
+
+
 def test_launcher_trains_gcn_cora_on_cpu(capsys):
+    """``--executor fused`` on the CPU prints the schedule the reference's
+    cold whole-forward DP picks over its CPU grid (``jnp`` read as
+    ``torch``) and trains."""
+    from repro.exec import gcn_chain as ref_gcn_chain
+    from repro.exec import plan_forward as ref_plan_forward
+    g = ref_cora_like().permute(ref_minhash(ref_cora_like()))
+    ref = ref_plan_forward(g, ref_gcn_chain([1433, 16, 7]))
+    expected = [tuple({"jnp": "torch"}.get(v, v) if isinstance(v, str)
+                      else v for v in c) for c in ref.configs]
     res = train_launcher.main(["--arch", "gcn-cora", "--steps", "3",
-                               "--device", "cpu"])
+                               "--device", "cpu", "--executor", "fused"])
     out = capsys.readouterr().out
-    assert ("layer 0 (1433->16): order=update_first fuse=False cuda bm=128 "
-            "compact=True") in out
-    assert "layer 1 (16->7): order=update_first" in out
+    for line in _layer_lines(expected):
+        assert line in out
+    assert "forward autotune" not in out
     assert "gcn-cora: 3 steps, loss" in out
     assert res.steps == 3 and all(np.isfinite(res.losses))
     assert res.losses[-1] < res.losses[0]
@@ -149,21 +177,46 @@ def test_launcher_other_executors_agree_with_fused(executor):
     """Step 0 sees the same parameters on every executor, so its loss agrees
     to fp32 rounding."""
     fused = train_launcher.main(["--arch", "gcn-cora", "--steps", "1",
-                                 "--device", "cpu"])
+                                 "--device", "cpu", "--executor", "fused"])
     other = train_launcher.main(["--arch", "gcn-cora", "--steps", "1",
                                  "--device", "cpu", "--executor", executor])
     np.testing.assert_allclose(other.losses, fused.losses, rtol=1e-5)
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--executor", "auto"], "ROADMAP §1 item 5"),
-    (["--executor", "forward"], "ROADMAP §1 item 5"),
+    ([], None),                          # --executor auto, the default
+    (["--executor", "forward"], None),
     (["--dist"], "ROADMAP §1 item 9"),
     (["--ckpt", "ckpts"], "ROADMAP §1 item 6")])
-def test_launcher_refuses_what_is_not_ported(argv, what):
-    with pytest.raises(NotImplementedError, match=what):
-        train_launcher.main(["--arch", "gcn-cora", "--steps", "1",
-                             "--device", "cpu", *argv])
+def test_launcher_refuses_what_is_not_ported(argv, what, capsys):
+    """``--dist`` and ``--ckpt`` raise; ``auto`` and ``forward`` tune the
+    whole forward on the CPU grid into the temporary cache, print the
+    verdict and one line per layer, and train; a second ``auto`` run reads
+    the verdict from the cache and runs no trial."""
+    argv = ["--arch", "gcn-cora", "--steps", "2", "--device", "cpu", *argv]
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            train_launcher.main(argv)
+        return
+    res = train_launcher.main(argv)
+    out = capsys.readouterr().out
+    verdict = [l for l in out.splitlines()
+               if l.startswith("forward autotune: schedule=")]
+    assert len(verdict) == 1 and "per-layer-greedy" in verdict[0]
+    assert "(cached)" not in verdict[0]
+    layers = [l for l in out.splitlines() if l.startswith("layer ")]
+    assert [l.split(":")[0] for l in layers] == ["layer 0 (1433->16)",
+                                                 "layer 1 (16->7)"]
+    # the CPU grid: coo and the plain torch engine, never the kernels
+    assert all(" coo " in l or " torch " in l for l in layers)
+    assert res.losses[-1] < res.losses[0]
+    if "--executor" not in argv:
+        again = train_launcher.main(argv)
+        out2 = capsys.readouterr().out
+        assert verdict[0] + " (cached)" in out2
+        assert [l for l in out2.splitlines() if l.startswith("layer ")] == \
+            layers
+        assert again.losses == res.losses
 
 
 def test_registry_ports_gcn_cora_only():
