@@ -8,7 +8,8 @@
 2. Builds every kernel from ``src/repro_torch/csrc`` with nvcc into
    ``build/`` (one nvcc per source, all started together) and prints the
    build time and ptxas's register and spill report.
-3. Kernel phases, each kernel against its plain PyTorch version on the card
+3. Kernel phases (``sddmm`` and ``embedding_bag`` in 5 and 6), each kernel
+   against its plain PyTorch version on the card
    (tolerances below), timed with CUDA events beside its bound:
    ``spmm_blockell_compact`` on the GCN serving plan of ``cora_like(seed=0)``
    (with ``torch.sparse.mm`` as its yardstick) and at the training shapes
@@ -35,10 +36,22 @@
    launch its 4 compact kernels a step and hold against the plain backend.  Then GIN at its paper width (1433 -> 128 x 5 convs -> 7, 20
    steps of ``fit``) on the port's cold ``plan_forward`` schedule, held
    against the plain backend.  ``kernels.ops.spmm`` (the entry point of
-   ``spmm_blockell``) runs as a path of its own.  Every path runs with each
-   kernel's launch count set to 0 just before it and read just after, and
-   fails if a kernel it needs was not launched.
-6. Writes the full report (every case, trial table and path) to
+   ``spmm_blockell``) and ``kernels.ops.sddmm`` run as paths of their own.
+   Every path runs with each kernel's launch count set to 0 just before it
+   and read just after, and fails if a kernel it needs was not launched.
+6. Wide & deep (``embedding_bag``): ``launch.serve --model wide_deep`` and
+   ``launch.train --arch wide-deep`` (``REDUCED``; 20 losses held against
+   ``lookup="dense"`` within 1e-4, 4 launches a step); then ``CONFIG``
+   (40 fields x 1 M rows, embed 32, MLP 1024-512-256; 5.3 GB of params
+   drawn on the card): the kernel against its plain version and
+   ``F.embedding_bag`` at the deep lookup (``serve_p99``, ``train_batch``),
+   the wide lookup and both backwards over 40 M bags; 200 requests through
+   ``ServeEngine``; ``serve_p99`` / ``serve_bulk`` / ``retrieval_cand``
+   scoring; step 0's loss and gradients at B = 65,536 and 7 train steps
+   (ms per step, busy share, peak memory).  Every ``CONFIG`` result is held
+   against ``lookup="dense"`` on the same params within 1e-5 of its largest
+   entry.
+7. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -67,22 +80,29 @@ ORACLE_TOL = 1e-4
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# name -> (source, the TPU kernel it replaces, the wrapper's module)
 KERNELS = {
     "spmm_blockell": (
         "src/repro_torch/csrc/spmm_blockell.cu",
-        "src/repro/kernels/spmm_blockell.py:95"),
+        "src/repro/kernels/spmm_blockell.py:95", "spmm_blockell"),
     "spmm_blockell_fused": (
         "src/repro_torch/csrc/spmm_blockell_fused.cu",
-        "src/repro/kernels/spmm_blockell.py:154"),
+        "src/repro/kernels/spmm_blockell.py:154", "spmm_blockell"),
     "spmm_blockell_compact": (
         "src/repro_torch/csrc/spmm_blockell_compact.cu",
-        "src/repro/kernels/spmm_blockell.py:229"),
+        "src/repro/kernels/spmm_blockell.py:229", "spmm_blockell"),
     "spmm_blockell_update": (
         "src/repro_torch/csrc/spmm_blockell_update.cu",
-        "src/repro/kernels/spmm_blockell.py:344"),
+        "src/repro/kernels/spmm_blockell.py:344", "spmm_blockell"),
     "spmm_blockell_update_compact": (
         "src/repro_torch/csrc/spmm_blockell_update_compact.cu",
-        "src/repro/kernels/spmm_blockell.py:449"),
+        "src/repro/kernels/spmm_blockell.py:449", "spmm_blockell"),
+    "sddmm": (
+        "src/repro_torch/csrc/sddmm.cu",
+        "src/repro/kernels/sddmm.py:31", "sddmm"),
+    "embedding_bag": (
+        "src/repro_torch/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag.py:36", "embedding_bag"),
 }
 TRAIN_STEPS = 20
 COMPARE_STEPS = 10
@@ -117,22 +137,28 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
 
 
+def wrapper(name):
+    """The launching wrapper of kernel ``name``, from its own module."""
+    import importlib
+    module = importlib.import_module("repro_torch.kernels." + KERNELS[name][2])
+    return getattr(module, name)
+
+
 def reset_launches():
-    from repro_torch.kernels import spmm_blockell as sk
     for name in KERNELS:
-        getattr(sk, name).launches = 0
+        wrapper(name).launches = 0
 
 
 def read_launches(torch) -> dict:
-    from repro_torch.kernels import spmm_blockell as sk
     torch.cuda.synchronize()
-    return {name: getattr(sk, name).launches for name in KERNELS}
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
-def assert_close_scaled(got, ref, tol: float, what: str) -> float:
-    """max |got - ref| <= tol * max(1, max |ref|); returns the error."""
+def assert_close_scaled(got, ref, tol: float, what: str,
+                        floor: float = 1.0) -> float:
+    """max |got - ref| <= tol * max(floor, max |ref|); returns the error."""
     err = float((got - ref).abs().max())
-    scale = max(1.0, float(ref.abs().max()))
+    scale = max(floor, float(ref.abs().max()))
     if not err <= tol * scale:
         raise AssertionError(f"{what}: max_abs_err {err:.3e} > {tol} x "
                              f"{scale:.3g}")
@@ -718,30 +744,30 @@ def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
     return report
 
 
-def step_breakdown(torch, what, loss_fn, params, batch):
-    """Median ms per training step (CUDA events around ``step_fn``, 10 steps
-    after 3 warm-up steps), then ``torch.profiler`` over 3 more steps: the
-    device time per step summed over the kernels the profiler saw, the
-    busy share it makes of the step, and the five kernels that take most."""
+def step_breakdown(torch, what, step_fn, params, state, batch, warmup=3,
+                   timed=10, n_prof=3):
+    """Median ms per training step (CUDA events around ``step_fn``, ``timed``
+    steps after ``warmup`` steps), then ``torch.profiler`` over ``n_prof``
+    more: the device time per step summed over the kernels the profiler
+    saw, the busy share it makes of the step, and the five kernels that
+    take most.  ``step_fn(params, state, batch) -> (params, state, loss)``
+    as ``make_train_step`` builds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.train import adam, make_train_step
 
-    opt = adam(1e-2)
-    step_fn = make_train_step(loss_fn, opt, 1.0)
-    p, state = params, opt.init(params)
-    times = []
-    for i in range(13):
+    p = params
+    times, losses = [], []
+    for i in range(warmup + timed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        p, state, _ = step_fn(p, state, batch)
+        p, state, loss = step_fn(p, state, batch)
         end.record()
         end.synchronize()
-        if i >= 3:                      # the first steps warm the allocator
+        losses.append(float(loss))
+        if i >= warmup:                 # the first steps warm the allocator
             times.append(start.elapsed_time(end))
     step_ms = statistics.median(times)
-    n_prof = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
@@ -751,7 +777,8 @@ def step_breakdown(torch, what, loss_fn, params, batch):
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_prof
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    report = {"step_ms": step_ms, "device_ms_per_step": device_ms,
+    report = {"step_ms": step_ms, "step_ms_all": times, "losses": losses,
+              "device_ms_per_step": device_ms,
               "busy_share": device_ms / step_ms if device_ms else None,
               "top_kernels_ms_per_step": [
                   [e.key[:60], e.self_device_time_total / 1e3 / n_prof,
@@ -893,6 +920,7 @@ def gcn_autotune_phase(torch, dev, g):
                                   gcn_chain, plan_forward)
     from repro_torch.exec.forward import autotune_forward
     from repro_torch.launch.train import gnn_batch
+    from repro_torch.train import adam, make_train_step
     at = importlib.import_module("repro_torch.exec.autotune")
 
     bundle = get("gcn-cora").bundle()
@@ -972,8 +1000,10 @@ def gcn_autotune_phase(torch, dev, g):
                                             make, COMPARE_STEPS,
                                             grad_tol=1e-5, loss_tol=1e-4)
         loss_fn, params, _ = make("cuda")
-        report["breakdown"] = step_breakdown(torch, "gcn-cora (autotuned)",
-                                             loss_fn, params, batch)
+        report["breakdown"] = step_breakdown(
+            torch, "gcn-cora (autotuned)",
+            make_train_step(loss_fn, adam(1e-2), 1.0), params,
+            adam(1e-2).init(params), batch)
 
         # the rerun reads the cache: no trial, the same schedule
         reset_launches()
@@ -1043,7 +1073,7 @@ def gin_training_phase(torch, dev, g):
     from repro_torch.exec import build_forward_plan, gin_chain, plan_forward
     from repro_torch.launch.train import gnn_batch
     from repro_torch.models.sage_gin import gin_init, gin_loss
-    from repro_torch.train import adam, fit
+    from repro_torch.train import adam, fit, make_train_step
 
     batch = gnn_batch(g, 7, dev)
     specs = gin_chain(g.node_feat.shape[1], 128, 5)
@@ -1085,7 +1115,10 @@ def gin_training_phase(torch, dev, g):
                              f"{launches['spmm_blockell_compact']} times; "
                              f"expected >= {6 * TRAIN_STEPS}")
 
-    breakdown = step_breakdown(torch, "GIN", loss_fn, res.params, batch)
+    breakdown = step_breakdown(torch, "GIN",
+                               make_train_step(loss_fn, adam(1e-2), 1.0),
+                               res.params, adam(1e-2).init(res.params),
+                               batch)
 
     def make_for_compare(backend):
         loss_fn_b, params_b, _ = make(backend)
@@ -1119,12 +1152,419 @@ def ops_spmm_phase(torch, dev, g):
 
 
 # ---------------------------------------------------------------------------
+# wide & deep (embedding_bag) and sddmm
+# ---------------------------------------------------------------------------
+def bag_case(torch, dev, name, offsets, ids, weights, table, bag_ids, weight,
+             big=False):
+    """One ``embedding_bag`` case on ids sorted as ``ops.embedding_bag``
+    hands them over: the kernel (raw launch, no Python checks) against
+    ``embedding_bag_ref`` (take + ``index_add``) on the same inputs, a rerun
+    bit-identical, and ``F.embedding_bag`` (the yardstick; the port never
+    calls it) held to the plain version; all three timed.  ``weight``: this
+    case's launches in one full-width training step (0: not in the step)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels.ref import embedding_bag_ref
+
+    num_bags = offsets.numel() - 1
+    d = table.shape[1]
+    L = ids.numel()
+    y = kb.embedding_bag(offsets, ids, weights, table)
+    ref = embedding_bag_ref(ids, bag_ids, weights, table, num_bags)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"embedding_bag output not finite ({name})")
+    err = assert_close_scaled(y, ref, KERNEL_TOL,
+                              f"embedding_bag vs plain {name}")
+    # no atomics: a second run is bit-identical
+    if not torch.equal(kb.embedding_bag(offsets, ids, weights, table), y):
+        raise AssertionError(f"embedding_bag rerun is not bit-identical "
+                             f"({name})")
+
+    def library():
+        return F.embedding_bag(ids, table, offsets[:-1], mode="sum",
+                               per_sample_weights=weights)
+
+    lib_err = assert_close_scaled(library(), ref, KERNEL_TOL,
+                                  f"F.embedding_bag vs plain {name}")
+    fn = kb._kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raw = (offsets.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+           table.data_ptr(), y.data_ptr(), num_bags, d, stream)
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError("embedding_bag launch failed")
+
+    reps = dict(n_inner=5, reps=10) if big else {}
+    ms = gpu_ms(launch, **reps)
+    plain_ms = gpu_ms(lambda: embedding_bag_ref(ids, bag_ids, weights, table,
+                                                num_bags), **reps)
+    library_ms = gpu_ms(library, **reps)
+    # what the data needs: each distinct row looked up read once, 8 B of id
+    # and weight per entry, the offsets, every bag's row written once; an
+    # FMA per entry and column
+    rows = int(torch.unique(ids).numel())
+    nbytes = rows * d * 4 + 8 * L + 4 * (num_bags + 1) + 4 * num_bags * d
+    case = {"kernel": "embedding_bag", "case": name, "num_bags": num_bags,
+            "entries": L, "d": d, "table_rows": table.shape[0],
+            "distinct_rows": rows, "max_abs_err": err,
+            "library_vs_plain_err": lib_err,
+            "ref_max_abs": float(ref.abs().max()), "ms": ms,
+            "plain_ms": plain_ms, **bound(nbytes, 2 * L * d),
+            "library_ms": library_ms, "weight": weight}
+    print("case " + json.dumps(case))
+    return case
+
+
+def embedding_bag_phase(torch, dev, params, cfg, gen):
+    """``embedding_bag`` at the shapes the full-width paths give it, over
+    the ``CONFIG`` tables (40 M rows): the deep lookup (B·F single-id bags,
+    d = 32) at ``serve_p99`` and at ``train_batch``, the wide lookup (B bags
+    of F ids, d = 1) at ``train_batch``, and both backwards, the transposed
+    bag lists with one bag per table row.  The ids are sorted and the
+    offsets built by ``ops``' own ``_sorted_bags``, as the path does."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.kernels.ops import _sorted_bags
+    from repro_torch.models.recsys import _flat_ids
+
+    def lookup_cases(what, B, table, per_bag, backward):
+        sparse = torch.randint(0, cfg.rows_per_field, (B, cfg.n_sparse),
+                               generator=gen, device=dev, dtype=torch.int32)
+        ids = _flat_ids(sparse, cfg)
+        bag_ids = torch.arange(ids.numel() // per_bag, device=dev,
+                               dtype=torch.int32).repeat_interleave(per_bag)
+        num_bags = ids.numel() // per_bag
+        w = torch.ones(ids.numel(), device=dev)
+        order, offsets = _sorted_bags(bag_ids, num_bags)
+        ids_s, bags_s, w_s = ids[order], bag_ids[order], w[order]
+        out = [bag_case(torch, dev, f"{what} B={B}", offsets, ids_s, w_s,
+                        table, bags_s, int(backward))]
+        if backward:
+            V, d = table.shape
+            order_t, offsets_t = _sorted_bags(ids_s, V)
+            grad_out = torch.randn((num_bags, d), generator=gen, device=dev)
+            out.append(bag_case(
+                torch, dev, f"{what} backward B={B} (V={V} bags)", offsets_t,
+                bags_s[order_t], w_s[order_t], grad_out, ids_s[order_t], 1,
+                big=True))
+        return out
+
+    deep, wide = params["table"], params["wide"][:, None]
+    B_serve = RECSYS_SHAPES["serve_p99"]["batch"]
+    B_train = RECSYS_SHAPES["train_batch"]["batch"]
+    cases = lookup_cases("deep lookup d=32, serve_p99", B_serve, deep, 1,
+                         False)
+    cases += lookup_cases("deep lookup d=32, train_batch", B_train, deep, 1,
+                          True)
+    cases += lookup_cases("wide lookup d=1, train_batch", B_train, wide,
+                          cfg.n_sparse, True)
+    return cases
+
+
+def sddmm_phase(torch, dev, g):
+    """``sddmm`` on the reordered Cora's edges against ``sddmm_ref`` at
+    d = 64 (gat-cora's 8 heads x 8; ``ops.sddmm``'s path) and d = 7.  The
+    library call is ``torch.sparse.sampled_addmm`` (cuSPARSE's SDDMM) over
+    the edges' CSR pattern, built once, untimed; its values, taken back to
+    edge order, are held against ``sddmm_ref`` too."""
+    import numpy as np
+    from repro_torch.kernels import sddmm as ks
+    from repro_torch.kernels.ref import sddmm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    src = torch.as_tensor(g.src.astype(np.int32)).to(dev)
+    dst = torch.as_tensor(g.dst.astype(np.int32)).to(dev)
+    E, n = src.numel(), g.num_nodes
+    # CSR entry of each edge: ``inverse`` (repeated edges share one entry)
+    keys, inverse = torch.unique(src.long() * n + dst.long(),
+                                 return_inverse=True)
+    pattern = torch.sparse_coo_tensor(
+        torch.stack([keys // n, keys % n]),
+        torch.ones(keys.numel(), device=dev), (n, n)).coalesce()
+    pattern = pattern.to_sparse_csr()
+    cases = []
+    for d, weight in ((64, 1), (7, 0)):
+        q = torch.randn((n, d), generator=gen, device=dev)
+        k = torch.randn((n, d), generator=gen, device=dev)
+        y = ks.sddmm(src, dst, q, k)
+        ref = sddmm_ref(src, dst, q, k)
+        torch.cuda.synchronize()
+        name = f"reordered Cora E={E} d={d}"
+        err = assert_close_scaled(y, ref, KERNEL_TOL, f"sddmm vs plain {name}")
+        if not torch.equal(ks.sddmm(src, dst, q, k), y):
+            raise AssertionError(f"sddmm rerun is not bit-identical ({name})")
+        fn = ks._kernel_fn()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        raw = (src.data_ptr(), dst.data_ptr(), q.data_ptr(), k.data_ptr(),
+               y.data_ptr(), E, d, stream)
+
+        def launch():
+            if fn(*raw):
+                raise RuntimeError("sddmm launch failed")
+
+        def library():
+            return torch.sparse.sampled_addmm(pattern, q, k.t(), beta=0.0)
+
+        lib_err = assert_close_scaled(library().values()[inverse], ref,
+                                      KERNEL_TOL,
+                                      f"sampled_addmm vs plain {name}")
+        rows = int(torch.unique(src).numel() + torch.unique(dst).numel())
+        case = {"kernel": "sddmm", "case": name, "max_abs_err": err,
+                "ref_max_abs": float(ref.abs().max()), "ms": gpu_ms(launch),
+                "plain_ms": gpu_ms(lambda: sddmm_ref(src, dst, q, k)),
+                **bound(rows * d * 4 + 12 * E, 2 * E * d),
+                "library_ms": gpu_ms(library),
+                "library_max_abs_err": lib_err, "weight": weight}
+        print("case " + json.dumps(case))
+        cases.append(case)
+    return cases
+
+
+def ops_sddmm_phase(torch, dev, g):
+    """``kernels.ops.sddmm`` (the entry point of ``sddmm``; no model of
+    the reference calls it) on the reordered Cora at d = 64, held against
+    ``sddmm_ref``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import sddmm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((g.num_nodes, 64), generator=gen, device=dev)
+    k = torch.randn((g.num_nodes, 64), generator=gen, device=dev)
+    src, dst = (torch.as_tensor(a).to(dev) for a in (g.src, g.dst))
+    reset_launches()
+    y = ops.sddmm(src, dst, q, k)
+    launches = read_launches(torch)
+    err = assert_close_scaled(y, sddmm_ref(src, dst, q, k), KERNEL_TOL,
+                              "ops.sddmm vs sddmm_ref")
+    print(f"ops.sddmm: launches={launches} max_abs_err={err:.3e}")
+    if launches["sddmm"] != 1:
+        raise AssertionError(f"ops.sddmm launched {launches}")
+    return launches
+
+
+def recsys_serving_launcher_phase(torch):
+    """``launch.serve --graph cora --model wide_deep``: the reduced wide &
+    deep session, one user per Cora node, warmed along the MinHash order;
+    the user tower's lookup launches the kernel (the warm's full forward
+    and every oracle check)."""
+    from repro_torch.launch import serve
+
+    argv = ["--graph", "cora", "--model", "wide_deep", "--requests", "200",
+            "--cache-kb", "500", "--warm", "reorder", "--device", "cuda"]
+    reset_launches()
+    rep = serve.main(argv)
+    launches = read_launches(torch)
+    print(f"wide-deep serving (launcher): launches={launches} "
+          f"max_oracle_err={rep.max_oracle_err:.3e} "
+          f"hit_rate={rep.hit_rate:.3f} p50={rep.p50_ms:.3f}ms "
+          f"p99={rep.p99_ms:.3f}ms")
+    if rep.max_oracle_err >= ORACLE_TOL or rep.num_requests != 200:
+        raise AssertionError(f"wide-deep serving: {rep.num_requests} "
+                             f"requests, oracle {rep.max_oracle_err}")
+    if launches["embedding_bag"] < 2:
+        raise AssertionError(f"embedding_bag launched "
+                             f"{launches['embedding_bag']} times on the "
+                             "wide-deep serving path; expected the warm's "
+                             "forward and the oracle checks")
+    return launches
+
+
+def recsys_launcher_phase(torch, dev):
+    """``launch.train --arch wide-deep --steps 20`` (``REDUCED``, batch 256,
+    adam(1e-3)): exactly 4 ``embedding_bag`` launches a step (the deep and
+    wide lookups and their backwards), the losses held against the same run
+    on ``lookup="dense"`` within 1e-4 relative (fp32 sums in another order
+    carried through 20 Adam steps)."""
+    import math
+    from repro_torch.launch import train
+
+    reset_launches()
+    res, _, wall = run_launcher(["--arch", "wide-deep", "--steps",
+                                 str(TRAIN_STEPS)])
+    launches = read_launches(torch)
+    dense = train.recsys_driver("wide-deep", TRAIN_STEPS, device=dev,
+                                lookup="dense")
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(res.losses, dense.losses)]
+    report = {"launches": launches, "wall_s": wall, "losses": res.losses,
+              "dense_losses": dense.losses, "loss_rel_err": max(rel)}
+    print("wide-deep training (launcher): " + json.dumps(report))
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"wide-deep: a loss is not finite {res.losses}")
+    if max(rel) > 1e-4:
+        raise AssertionError(f"wide-deep launcher losses part from the dense "
+                             f"lookup's by {max(rel):.3e} > 1e-4")
+    if launches["embedding_bag"] != 4 * TRAIN_STEPS:
+        raise AssertionError(f"wide-deep training launched embedding_bag "
+                             f"{launches['embedding_bag']} times; expected "
+                             f"{4 * TRAIN_STEPS}")
+    return launches, report
+
+
+def recsys_full_serving_phase(torch, dev, sess):
+    """The ``CONFIG`` session (40 M-row tables) serving 200 Zipf(1.1)
+    requests of Cora's 2708 users through ``ServeEngine`` with a cold 500 KB
+    cache, so misses run the user tower (and its kernel) on the request
+    path; then ``gather`` of every user held against the same params on
+    ``lookup="dense"`` within 1e-5 of the largest entry."""
+    import numpy as np
+    from repro_torch.serve import (EmbeddingCache, MicroBatcher, ServeEngine,
+                                   WideDeepSession, zipfian_trace)
+
+    cache = EmbeddingCache(sess.layer_dims, 500 * 1024,
+                           num_nodes=sess.num_users)
+    eng = ServeEngine(sess, cache, MicroBatcher(max_batch=8, max_wait=1e-3),
+                      oracle_check=True)
+    reset_launches()
+    rep = eng.serve(zipfian_trace(sess.num_users, 200, a=1.1, seed=1))
+    launches = read_launches(torch)
+    dense = WideDeepSession("wide_deep", sess.num_users, cfg=sess.cfg,
+                            device=dev, params=sess.params, lookup="dense")
+    ids = np.arange(sess.num_users)
+    err = assert_close_scaled(torch.as_tensor(sess.gather(ids)),
+                              torch.as_tensor(dense.gather(ids)), 1e-5,
+                              "CONFIG gather bag vs dense", floor=0.0)
+    report = {"launches": launches, "max_oracle_err": rep.max_oracle_err,
+              "hit_rate": rep.hit_rate, "p50_ms": rep.p50_ms,
+              "p99_ms": rep.p99_ms, "req_per_s": rep.req_per_s,
+              "batches": rep.num_batches, "gather_bag_vs_dense_err": err}
+    print("wide-deep serving (CONFIG): " + json.dumps(report))
+    if rep.max_oracle_err >= ORACLE_TOL or rep.num_requests != 200:
+        raise AssertionError(f"CONFIG serving: {rep.num_requests} requests, "
+                             f"oracle {rep.max_oracle_err}")
+    if launches["embedding_bag"] < 1:
+        raise AssertionError("the CONFIG session served without the "
+                             "embedding_bag kernel")
+    return launches, report
+
+
+def recsys_scoring_phase(torch, dev, bundle, params, gen):
+    """``RecsysBundle(CONFIG).step_fn`` at ``serve_p99``, ``serve_bulk``
+    and ``retrieval_cand``: ``lookup="bag"`` against ``"dense"`` on the same
+    batch within 1e-5 of the largest entry, the launches of one call (2:
+    both lookups; 1 for retrieval, the tower's deep lookup), and both
+    timed (CUDA events around whole calls, host gaps included)."""
+    from repro_torch.models.recsys import LOOKUPS
+
+    paths, report = {}, {}
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        batch = bundle.make_batch(shape, gen, dev)
+        fns = {lk: bundle.step_fn(shape, lk) for lk in LOOKUPS}
+        reset_launches()
+        got = fns["bag"](params, batch)
+        launches = read_launches(torch)
+        err = assert_close_scaled(got, fns["dense"](params, batch), 1e-5,
+                                  f"{shape} bag vs dense", floor=0.0)
+        want = 1 if shape == "retrieval_cand" else 2
+        if launches["embedding_bag"] != want:
+            raise AssertionError(f"{shape} launched {launches}; expected "
+                                 f"{want} embedding_bag")
+        report[shape] = {
+            "batch": batch["sparse"].shape[0], "out": list(got.shape),
+            "bag_vs_dense_err": err, "max_abs": float(got.abs().max()),
+            "launches": launches,
+            "bag_ms": gpu_ms(lambda: fns["bag"](params, batch), n_inner=3,
+                             reps=5),
+            "dense_ms": gpu_ms(lambda: fns["dense"](params, batch),
+                               n_inner=3, reps=5)}
+        print(f"wide-deep {shape}: " + json.dumps(report[shape]))
+        paths[f"wide-deep {shape} (CONFIG)"] = launches
+        del batch, got
+    return paths, report
+
+
+def recsys_training_phase(torch, dev, bundle, params, gen):
+    """``RecsysBundle(CONFIG).step_fn("train_batch")`` at B = 65,536: step
+    0's loss and every gradient on ``bag`` against ``dense`` (1e-5 of each
+    array's largest entry), then 5 steps of the train step (ms per step from
+    CUDA events, the median of steps 1-4) and 2 profiled ones (busy share),
+    4 ``embedding_bag`` launches each, and the peak device memory."""
+    import math
+    from repro_torch.models.recsys import LOOKUPS, widedeep_loss
+    from repro_torch.train import tree_leaves, tree_map
+
+    batch = bundle.make_batch("train_batch", gen, dev)
+    step0 = {}
+    for lk in LOOKUPS:
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = widedeep_loss(p, batch["sparse"], batch["dense"],
+                             batch["labels"], bundle.cfg, lk)
+        loss.backward()
+        step0[lk] = (loss.detach(), [leaf.grad for leaf in tree_leaves(p)])
+        del p, loss
+    (l_b, g_b), (l_d, g_d) = step0["bag"], step0["dense"]
+    loss_err = assert_close_scaled(l_b, l_d, 1e-5, "CONFIG step-0 loss",
+                                   floor=0.0)
+    grad_err = max(assert_close_scaled(a, b, 1e-5, f"CONFIG step-0 grad {i}",
+                                       floor=0.0)
+                   for i, (a, b) in enumerate(zip(g_b, g_d)))
+    del step0, g_b, g_d
+    step_fn = bundle.step_fn("train_batch")
+    state = bundle.optimizer().init(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    br = step_breakdown(torch, "wide-deep CONFIG train_batch", step_fn,
+                        params, state, batch, warmup=1, timed=4, n_prof=2)
+    launches = read_launches(torch)
+    report = {"step0_loss": float(l_d), "step0_loss_err": loss_err,
+              "step0_grad_err": grad_err, "launches": launches,
+              "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "breakdown": br}
+    print("wide-deep training (CONFIG): " + json.dumps(
+        {k: v for k, v in report.items() if k != "breakdown"}))
+    if not all(math.isfinite(v) for v in br["losses"]):
+        raise AssertionError(f"CONFIG training: a loss is not finite "
+                             f"{br['losses']}")
+    if launches["embedding_bag"] != 4 * 7:
+        raise AssertionError(f"CONFIG training launched {launches} in 7 "
+                             "steps; expected 4 embedding_bag a step")
+    del state, batch
+    return launches, report
+
+
+def recsys_phases(torch, dev):
+    """Every wide & deep path: the two launchers (``REDUCED``), then the
+    ``CONFIG`` session built on the card (its params, drawn with a
+    generator on the card, are shared by the kernel cases, the serving,
+    scoring and training phases)."""
+    from repro_torch.configs.families import RecsysBundle
+    from repro_torch.configs.wide_deep import CONFIG
+    from repro_torch.serve import make_session
+
+    paths = {"wide-deep serving (launcher)":
+             recsys_serving_launcher_phase(torch)}
+    report = {}
+    paths["wide-deep training (launcher)"], report["launcher"] = \
+        recsys_launcher_phase(torch, dev)
+    t0 = time.perf_counter()
+    sess = make_session("wide_deep", None, num_users=2708, cfg=CONFIG,
+                        device=dev)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    print(f"CONFIG params: {CONFIG.param_count()} "
+          f"({CONFIG.param_count() * 4 / 1e9:.2f} GB), drawn on the card in "
+          f"{report['init_s']:.2f}s")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = embedding_bag_phase(torch, dev, sess.params, CONFIG, gen)
+    paths["wide-deep serving (CONFIG)"], report["serving"] = \
+        recsys_full_serving_phase(torch, dev, sess)
+    bundle = RecsysBundle(CONFIG)
+    score_paths, report["scoring"] = recsys_scoring_phase(
+        torch, dev, bundle, sess.params, gen)
+    paths.update(score_paths)
+    paths["wide-deep training (CONFIG)"], report["training"] = \
+        recsys_training_phase(torch, dev, bundle, sess.params, gen)
+    return cases, paths, report
+
+
+# ---------------------------------------------------------------------------
 def kernel_row(name, cases, launches, work):
     main = [c for c in cases if c["weight"]]
     t_bytes = sum(c["weight"] * c["bound_bytes_ms"] for c in main)
     t_ops = sum(c["weight"] * c["bound_ops_ms"] for c in main)
     lib = [c["library_ms"] for c in main]
-    source, replaces = KERNELS[name]
+    source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1186,6 +1626,10 @@ def main() -> int:
         torch, dev, g_train)
     paths["GIN training"] = gin_launches
     paths["ops.spmm"] = ops_spmm_phase(torch, dev, g_train)
+    sddmm_cases = sddmm_phase(torch, dev, g_train)
+    paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
+    bag_cases, recsys_paths, recsys_report = recsys_phases(torch, dev)
+    paths.update(recsys_paths)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -1220,14 +1664,28 @@ def main() -> int:
                    "w_self is w, 1+eps, bias, ReLU) on the reordered Cora, "
                    "bm=128; library_ms null: no single PyTorch call "
                    "computes aggregation and W epilogue together"),
+        kernel_row("sddmm", sddmm_cases, total["sddmm"],
+                   "per-edge scores on the reordered Cora (10,556 edges, "
+                   "d=64, kernels.ops.sddmm's shape); library: "
+                   "torch.sparse.sampled_addmm(csr_pattern, q, k.T, "
+                   "beta=0)"),
+        kernel_row("embedding_bag", bag_cases, total["embedding_bag"],
+                   "one full-width wide & deep training step's 4 launches "
+                   "at train_batch (B=65,536 x 40 fields, 40M-row tables): "
+                   "the deep lookup (2,621,440 single-id bags, d=32), the "
+                   "wide lookup (65,536 bags of 40 ids, d=1) and both "
+                   "backwards (40M bags, one per table row); library: "
+                   "F.embedding_bag(mode='sum', per_sample_weights)"),
     ]
     # the full report, too long for the end of the output, beside the
     # kernels' builds in the checkout's ignored build/ directory
     (_build.build_dir() / "chip_smoke.json").write_text(json.dumps({
         "card": smi.stdout.strip(), "kernels": kernels, "paths": paths,
         "cases": (spmm_cases + fused_cases + compact_cases
-                  + padded_update_cases + update_cases),
+                  + padded_update_cases + update_cases + sddmm_cases
+                  + bag_cases),
         "gcn_autotune": gcn_report, "gin": gin_report,
+        "wide_deep": recsys_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

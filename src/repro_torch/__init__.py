@@ -8,8 +8,8 @@ for ``sm_90a`` under ``csrc/`` and built on first use; nothing is built or
 loaded when a module is imported.
 
 Ported so far: graph, reorder, block-ELL builder, LRU cache, telemetry,
-the two compact block-ELL kernels (the SpMM and the one-launch layer), the
-execution plans with their backwards, GCN, GIN, the serving engine and
-``launch.serve``, and full-graph training (``train``, ``configs``,
-``launch.train``).
+the five block-ELL kernels, the execution plans with their backwards and
+the autotuner, GCN, GIN, wide & deep with the ``embedding_bag`` kernel,
+the ``sddmm`` kernel (``kernels.ops.sddmm``), the serving engine and
+``launch.serve``, and training (``train``, ``configs``, ``launch.train``).
 """

@@ -1,5 +1,6 @@
-"""Architecture configs (the GNN part of ``repro.configs``)."""
-from .base import GNN_SHAPES, REGISTRY, ArchSpec, get, register
+"""Architecture configs (the GNN and recsys parts of ``repro.configs``)."""
+from .base import (GNN_SHAPES, RECSYS_SHAPES, REGISTRY, ArchSpec, get,
+                   register)
 
 
 def _load_all():

@@ -1,8 +1,9 @@
-"""Architecture registry — port of the GNN part of ``repro/configs/base.py``.
+"""Architecture registry — port of the GNN and recsys parts of
+``repro/configs/base.py``.
 
 Every arch is an ``ArchSpec`` whose ``bundle()`` builds the family's
-bundle.  Only ``gcn-cora`` is ported; asking for another arch of the
-reference raises ``NotImplementedError`` naming the ROADMAP item."""
+bundle.  ``gcn-cora`` and ``wide-deep`` are ported; asking for another arch
+of the reference raises ``NotImplementedError`` naming the ROADMAP item."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +14,7 @@ REGISTRY: Dict[str, "ArchSpec"] = {}
 # the archs of repro.configs.registry that the port has no config for yet
 NOT_PORTED = ("granite-8b", "minitron-8b", "mistral-large-123b",
               "granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "pna",
-              "gat-cora", "nequip", "wide-deep")
+              "gat-cora", "nequip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,4 +49,13 @@ def get(name: str) -> ArchSpec:
 GNN_SHAPES = {
     "full_graph_sm": {"kind": "train", "n_nodes": 2708, "n_edges": 10556,
                       "d_feat": 1433},
+}
+
+RECSYS_SHAPES = {
+    "train_batch":    {"kind": "train", "batch": 65_536},
+    "serve_p99":      {"kind": "serve", "batch": 512},
+    "serve_bulk":     {"kind": "serve", "batch": 262_144},
+    # 1M candidates padded to 2^20, as the reference shards them
+    "retrieval_cand": {"kind": "serve", "batch": 1,
+                       "n_candidates": 1_048_576},
 }

@@ -1,14 +1,22 @@
-"""Family bundles — port of ``GNNBundle`` from
-``repro/configs/families.py`` (GCN only; GAT, PNA and NequIP, and the LM
-and recsys bundles, are not ported yet)."""
+"""Family bundles — port of ``GNNBundle`` (GCN only; GAT, PNA and NequIP
+are not ported yet) and ``RecsysBundle`` from
+``repro/configs/families.py``.  The LM bundle is not ported yet, nor are
+the bundles' ``abstract_state`` and ``shardings`` (mesh work, ROADMAP §1
+item 9)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
+from ..device import resolve_device
 from ..models.gcn import gcn_init, gcn_loss
+from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
+                             widedeep_logits, widedeep_loss)
+from ..train.loop import make_train_step
+from ..train.optimizer import Optimizer, adam
+from .base import RECSYS_SHAPES
 
 
 @dataclasses.dataclass
@@ -50,3 +58,76 @@ class GNNBundle:
                             batch["train_mask"], executor=executor,
                             plans=exec_plan)
         return loss
+
+
+@dataclasses.dataclass
+class RecsysBundle:
+    """Wide & deep at one config over the four ``RECSYS_SHAPES``."""
+    cfg: WideDeepConfig
+    shapes = tuple(RECSYS_SHAPES)
+
+    def init_params(self, generator: torch.Generator, device="cuda"):
+        return widedeep_init(generator, self.cfg, device=device)
+
+    def optimizer(self) -> Optimizer:
+        """The train step's optimizer; ``optimizer().init(params)`` is the
+        state the step takes."""
+        return adam(1e-3)
+
+    def input_specs(self, shape: str
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """name -> (shape, dtype) of each step input."""
+        info = RECSYS_SHAPES[shape]
+        B = info["batch"]
+        specs = {"sparse": ((B, self.cfg.n_sparse), torch.int32),
+                 "dense": ((B, self.cfg.n_dense), torch.float32)}
+        if info["kind"] == "train":
+            specs["labels"] = ((B,), torch.float32)
+        if shape == "retrieval_cand":
+            specs["candidates"] = ((info["n_candidates"],
+                                    self.cfg.mlp_dims[-1]), torch.float32)
+        return specs
+
+    def make_batch(self, shape: str, generator: torch.Generator,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+        """A concrete batch of :meth:`input_specs`, drawn where
+        ``generator`` lives: ids uniform over each field's rows, labels 0/1,
+        dense features and candidates N(0, 1)."""
+        dev = resolve_device(device)
+        kw = dict(generator=generator, device=generator.device)
+        out = {}
+        for name, (shp, dtype) in self.input_specs(shape).items():
+            if name == "sparse":
+                t = torch.randint(0, self.cfg.rows_per_field, shp,
+                                  dtype=dtype, **kw)
+            elif name == "labels":
+                t = torch.randint(0, 2, shp, **kw).to(dtype)
+            else:
+                t = torch.randn(shp, dtype=dtype, **kw)
+            out[name] = t.to(dev)
+        return out
+
+    def step_fn(self, shape: str, lookup: str = "bag"):
+        """``train_batch``: ``(params, opt_state, batch) -> (params,
+        opt_state, loss)``, one Adam(1e-3) step with no clipping, as the
+        reference's; ``retrieval_cand``: ``(params, batch) -> (N,)`` scores;
+        the serve shapes: ``(params, batch) -> (B,)`` logits."""
+        cfg = self.cfg
+        if RECSYS_SHAPES[shape]["kind"] == "train":
+            return make_train_step(
+                lambda p, b: widedeep_loss(p, b["sparse"], b["dense"],
+                                           b["labels"], cfg, lookup),
+                self.optimizer(), clip_norm=None)
+        if shape == "retrieval_cand":
+            @torch.no_grad()
+            def retrieve(params, batch):
+                return retrieval_score(params, batch["sparse"],
+                                       batch["dense"], batch["candidates"],
+                                       cfg, lookup)
+            return retrieve
+
+        @torch.no_grad()
+        def serve(params, batch):
+            return widedeep_logits(params, batch["sparse"], batch["dense"],
+                                   cfg, lookup)
+        return serve

@@ -1,2 +1,2 @@
 """Import every ported arch module to populate the registry."""
-from . import gcn_cora  # noqa: F401
+from . import gcn_cora, wide_deep  # noqa: F401

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}
+# the kernels index rows, entries and bags with int32
+INT32_MAX = 2 ** 31 - 1
 # name -> {"seconds": wall time of its nvcc, "log": nvcc's output (ptxas -v)}
 BUILD_LOG: Dict[str, dict] = {}
 
@@ -104,3 +107,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[name]))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, n_ptr: int, n_int: int):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built and loaded on
+    first use: ``n_ptr`` pointers, ``n_int`` ints, then the stream; it
+    returns a CUDA error code."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(load(name), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn

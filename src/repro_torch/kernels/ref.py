@@ -151,3 +151,20 @@ def spmm_blockell_update_ref(
     if relu:
         y = torch.relu(y)
     return y
+
+
+def embedding_bag_ref(ids: torch.Tensor, bag_ids: torch.Tensor,
+                      weights: torch.Tensor, table: torch.Tensor,
+                      num_bags: int) -> torch.Tensor:
+    """``out[b] = Σ_{i: bag_ids[i] = b} weights[i] · table[ids[i]]``, the
+    take + segment-sum of the reference's ``embedding_bag_ref``; (num_bags,
+    d), an empty bag as zeros.  Any order of the entries."""
+    rows = table[ids.long()] * weights[:, None].to(table.dtype)
+    return torch.zeros((num_bags, table.shape[1]), dtype=table.dtype,
+                       device=table.device).index_add(0, bag_ids.long(), rows)
+
+
+def sddmm_ref(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
+              k: torch.Tensor) -> torch.Tensor:
+    """Per-edge dot products ``s_e = <q[src_e], k[dst_e]>``."""
+    return torch.sum(q[src.long()] * k[dst.long()], dim=-1)

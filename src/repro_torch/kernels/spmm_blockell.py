@@ -23,7 +23,6 @@ plain version does not count).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -33,27 +32,19 @@ from .ref import (spmm_blockell_compact_ref, spmm_blockell_fused_ref,
                   spmm_blockell_ref, spmm_blockell_update_compact_ref,
                   spmm_blockell_update_ref)
 
-_FNS = {}
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
+# name -> (pointer arguments, int arguments) of its C entry point
+_ARITY = {"spmm_blockell_compact": (9, 8),
+          "spmm_blockell_update_compact": (14, 10),
+          "spmm_blockell": (4, 8),
+          "spmm_blockell_fused": (6, 9),
+          "spmm_blockell_update": (10, 11)}
 
 
 def _kernel_fn(name: str):
-    """The ctypes entry point of ``csrc/<name>.cu``: pointers and the stream
-    as ``c_void_p``, every other argument a ``c_int``."""
-    fn = _FNS.get(name)
-    if fn is None:
-        n_ptr, n_int = {"spmm_blockell_compact": (9, 8),
-                        "spmm_blockell_update_compact": (14, 10),
-                        "spmm_blockell": (4, 8),
-                        "spmm_blockell_fused": (6, 9),
-                        "spmm_blockell_update": (10, 11)}[name]
-        fn = getattr(_build.load(name), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    """The ctypes entry point of ``csrc/<name>.cu``."""
+    return _build.entry(name, *_ARITY[name])
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int,

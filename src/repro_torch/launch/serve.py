@@ -1,14 +1,18 @@
-"""Serving launcher: online GCN inference on the port (graph path of
-``repro/launch/serve.py``).
+"""Serving launcher: online GCN and wide & deep inference on the port
+(graph path of ``repro/launch/serve.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --graph cora --model gcn \\
-      --requests 200 --cache-kb 500 --warm reorder [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --graph cora \\
+      --model gcn|wide_deep --requests 200 --cache-kb 500 --warm reorder \\
+      [--device cpu]
 
 Micro-batcher -> reorder-aware embedding cache -> sampled forward, every
-answer checked against the offline full-graph forward (which runs through
-the block-ELL kernel on ``cuda``); exits 1 if they differ by 1e-4 or more.
-Runs on ``cuda`` unless ``--device cpu`` is given.  The LM path, the other
-graphs and models, and ``--metrics-out`` / ``--trace`` are not ported yet.
+answer checked against the offline forward; exits 1 if they differ by 1e-4
+or more.  ``gcn``: the offline full-graph forward runs through the
+block-ELL kernels on ``cuda``.  ``wide_deep``: each of Cora's nodes is a
+user of the reduced wide & deep model, scored by the user tower, whose
+field lookup is the ``embedding_bag`` kernel on ``cuda``.  Runs on
+``cuda`` unless ``--device cpu`` is given.  The LM path, the other graphs
+and models, and ``--metrics-out`` / ``--trace`` are not ported yet.
 """
 import argparse
 
@@ -60,7 +64,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="cora", help="dataset (ported: cora)")
     ap.add_argument("--model", default="gcn",
-                    help="registered serve session (ported: gcn)")
+                    help="registered serve session (ported: gcn, "
+                         "wide_deep)")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--zipf-a", type=float, default=1.1)
     ap.add_argument("--cache-kb", type=int, default=500)

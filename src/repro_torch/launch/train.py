@@ -1,9 +1,11 @@
-"""Training launcher: full-graph GNN training on the port (the GNN path of
-``repro/launch/train.py``).
+"""Training launcher: full-graph GNN training and wide & deep on the port
+(the GNN and recsys paths of ``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
       [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \\
+      --steps 50 [--device cpu]
 
 The graph is ``cora_like()`` permuted by ``minhash_reorder``, as in the
 reference.  ``--executor auto`` (the default, as in the reference) and
@@ -17,8 +19,12 @@ verdict is cached on disk (``$REPRO_TORCH_EXEC_CACHE`` or
 ``~/.cache/repro_torch/exec``; delete it to tune afresh).  ``fused`` trusts
 the DP over the cache or, cold, the FLOP/byte model, without measuring
 (``exec.plan_forward``).  ``blockell`` (one aggregation plan plus a separate
-matmul) and ``segment`` (the edge list) work as in the reference.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+matmul) and ``segment`` (the edge list) work as in the reference.
+
+``--arch wide-deep`` trains the ``REDUCED`` config as the reference does:
+batches of 256 from ``recsys_batches``, ``adam(1e-3)``, both sparse lookups
+through the ``embedding_bag`` kernel (forward and the table's gradient).
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 import argparse
 
@@ -26,11 +32,13 @@ import numpy as np
 import torch
 
 from ..configs import get
+from ..configs.wide_deep import REDUCED
 from ..core import minhash_reorder
 from ..device import resolve_device
 from ..exec import autotune_forward, build_plan, gcn_chain, plan_forward
 from ..graph import cora_like
-from ..train import TrainResult, adam, fit
+from ..models.recsys import widedeep_init, widedeep_loss
+from ..train import TrainResult, adam, fit, recsys_batches
 
 
 def training_graph():
@@ -100,6 +108,22 @@ def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "auto",
                steps=steps, ckpt_dir=ckpt, clip_norm=1.0)
 
 
+def recsys_driver(arch: str, steps: int, ckpt=None, device="cuda",
+                  lookup: str = "bag") -> TrainResult:
+    """The reference's ``recsys_driver``: ``REDUCED``, batch 256, adam(1e-3),
+    seed-0 weights; ``lookup`` as in ``models.recsys``."""
+    cfg = REDUCED
+    dev = resolve_device(device)
+    params = widedeep_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    t = lambda a: torch.as_tensor(a).to(dev)
+
+    def loss_fn(p, b):
+        return widedeep_loss(p, t(b["sparse"]), t(b["dense"]),
+                             t(b["labels"]), cfg, lookup)
+    return fit(loss_fn, adam(1e-3), params, recsys_batches(cfg, 256),
+               steps=steps, ckpt_dir=ckpt)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -131,11 +155,15 @@ def main(argv=None) -> TrainResult:
         raise NotImplementedError("--ckpt is not ported yet (ROADMAP §1 "
                                   "item 6)")
     spec = get(args.arch)
-    if spec.family != "gnn":
+    if spec.family == "gnn":
+        res = gnn_driver(args.arch, args.steps, args.ckpt,
+                         executor=args.executor, device=args.device)
+    elif spec.family == "recsys":
+        res = recsys_driver(args.arch, args.steps, args.ckpt,
+                            device=args.device)
+    else:
         raise NotImplementedError(f"the {spec.family} family is not ported "
                                   "yet (ROADMAP §1 item 8)")
-    res = gnn_driver(args.arch, args.steps, args.ckpt,
-                     executor=args.executor, device=args.device)
     print(f"{args.arch}: {res.steps} steps, loss "
           f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "
           f"{res.wall_time:.1f}s, stragglers={res.straggler_flags}")

@@ -1,2 +1,4 @@
 from .gcn import gcn_init, gcn_apply, gcn_loss, make_graph_inputs
 from .sage_gin import gin_init, gin_apply, gin_loss
+from .recsys import (WideDeepConfig, retrieval_score, user_tower,
+                     widedeep_init, widedeep_logits, widedeep_loss)

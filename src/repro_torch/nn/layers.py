@@ -2,10 +2,11 @@
 dicts of tensors (the port of the ``linear_*``, ``mlp_*`` and
 ``cross_entropy`` parts of ``repro/nn/layers.py``).
 
-``linear_init`` draws from an explicit ``torch.Generator`` on the CPU and
-then moves the parameters to ``device``, so a seed gives the same weights
-on every device.  (JAX's keys give other numbers: parity tests carry the
-reference's parameters over with ``repro_torch.convert.params_from_jax``.)
+``linear_init`` draws from an explicit ``torch.Generator`` where the
+generator lives (the CPU for the GNNs, so a seed gives the same weights on
+every device) and then moves the parameters to ``device``.  (JAX's keys
+give other numbers: parity tests carry the reference's parameters over
+with ``repro_torch.convert.params_from_jax``.)
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
                 device="cuda") -> dict:
     dev = resolve_device(device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator) * scale
+    w = torch.randn((d_in, d_out), generator=generator,
+                    device=generator.device) * scale
     p = {"w": w.to(dev)}
     if bias:
         p["b"] = torch.zeros(d_out, device=dev)

@@ -4,8 +4,8 @@ A session owns the model parameters and turns a batch of node ids into
 embeddings: ``expand`` (one-hop frontier growth), ``gather`` (leaf
 features), ``layer_forward`` (one GCN layer over flat edge lists, on the
 device) and ``layer_values`` (the offline full-graph forward: the oracle
-rows and the ``warm()`` payloads).  Only the ``gcn`` session is ported; the
-``sage_gin`` and ``wide_deep`` sessions raise until they are.
+rows and the ``warm()`` payloads).  The ``gcn`` and ``wide_deep`` sessions
+are ported; ``sage_gin`` raises until it is.
 """
 from __future__ import annotations
 
@@ -14,11 +14,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..configs.wide_deep import REDUCED
 from ..device import resolve_device
 from ..exec import gcn_chain, plan_forward
 from ..graph.structure import Graph
 from ..graph.sampler import FullNeighborhood, NeighborSampler
 from ..models.gcn import gcn_apply, gcn_init, make_graph_inputs
+from ..models.recsys import WideDeepConfig, user_tower, widedeep_init
+from .batcher import pow2_bucket as _pow2
 
 
 def _gcn_layer(w: torch.Tensor, b: torch.Tensor, src_h: torch.Tensor,
@@ -151,22 +154,100 @@ class GNNSession:
         return vals
 
 
+class WideDeepSession:
+    """Recsys scorer session: one level deep, the leaf compute IS the model.
+
+    Each "node id" is a user whose sparse and dense features are a
+    deterministic function of the id (a stand-in for a feature store); the
+    served embedding is the wide & deep user tower, on the device, its
+    field lookup through ``kernels.ops.embedding_bag`` unless ``lookup=
+    "dense"``.  ``num_layers == 0``: the engine's whole job is dedupe,
+    cache and the batched tower.  The seeded init draws on a generator on
+    the session's device (the published width's table is 5.12 GB), so a
+    seed gives other weights on the card than on the CPU; ``params``
+    replaces it, e.g. with the reference's weights carried over by
+    ``params_from_jax``.
+    """
+
+    def __init__(self, name: str, num_users: int,
+                 cfg: Optional[WideDeepConfig] = None, seed: int = 0,
+                 device="cuda", params: Optional[dict] = None,
+                 lookup: str = "bag"):
+        self.name = name
+        self.num_users = num_users
+        self.cfg = cfg or REDUCED
+        self.device = resolve_device(device)
+        self.lookup = lookup
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = widedeep_init(gen, self.cfg, device=self.device)
+        self.params = params
+
+    @property
+    def num_layers(self) -> int:
+        return 0
+
+    @property
+    def layer_dims(self) -> List[int]:
+        return [self.cfg.mlp_dims[-1]]
+
+    def features(self, ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Deterministic per-user feature-store stand-in."""
+        u = np.asarray(ids, dtype=np.int64)[:, None]
+        f = np.arange(self.cfg.n_sparse, dtype=np.int64)[None, :]
+        sparse = ((u * 2654435761 + f * 40503 + 7) %
+                  self.cfg.rows_per_field).astype(np.int32)
+        k = np.arange(self.cfg.n_dense, dtype=np.int64)[None, :]
+        dense = (((u * 97 + k * 31 + 13) % 1000) / 1000.0 - 0.5
+                 ).astype(np.float32)
+        return sparse, dense
+
+    @torch.no_grad()
+    def gather(self, ids: np.ndarray) -> np.ndarray:
+        """The user tower of ``ids``, the batch padded to a power of two
+        (as the reference pads it for its compiled tower)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        Bp = _pow2(max(ids.shape[0], 1))
+        sparse, dense = self.features(
+            np.concatenate([ids, np.zeros(Bp - ids.shape[0], np.int64)]))
+        t = lambda a: torch.as_tensor(a).to(self.device)
+        out = user_tower(self.params, t(sparse), t(dense), self.cfg,
+                         self.lookup)
+        return out.cpu().numpy()[:ids.shape[0]]
+
+    def layer_values(self, l: int) -> np.ndarray:
+        if l != 0:
+            raise ValueError(f"a wide & deep session has layer 0 only, "
+                             f"not {l}")
+        return self.gather(np.arange(self.num_users))
+
+    def oracle(self, ids: np.ndarray) -> np.ndarray:
+        return self.gather(ids)
+
+
+def _build_widedeep(g, **kw):
+    num_users = kw.pop("num_users", g.num_nodes if g is not None else 4096)
+    return WideDeepSession("wide_deep", num_users=num_users, **kw)
+
+
 def _not_ported(model: str) -> Callable[..., object]:
     def build(g, **kw):
         raise NotImplementedError(f"serve model {model!r} is not ported to "
-                                  "repro_torch yet (only 'gcn')")
+                                  "repro_torch yet (ported: gcn, "
+                                  "wide_deep)")
     return build
 
 
 SESSION_BUILDERS: Dict[str, Callable[..., object]] = {
     "gcn": lambda g, **kw: GNNSession("gcn", g, "gcn", **kw),
     "sage_gin": _not_ported("sage_gin"),
-    "wide_deep": _not_ported("wide_deep"),
+    "wide_deep": _build_widedeep,
 }
 
 
 def make_session(model: str, g: Optional[Graph] = None, **kw):
-    """Build a registered serving session (only ``gcn`` is ported)."""
+    """Build a registered serving session (``gcn`` | ``wide_deep``;
+    ``sage_gin`` is not ported yet)."""
     try:
         build = SESSION_BUILDERS[model]
     except KeyError:

@@ -1,4 +1,5 @@
-"""The training loop's straggler flag — the ``StepWatchdog`` of
+"""The training loop's straggler flag and the batch seed — the
+``StepWatchdog`` and ``deterministic_batch_seed`` of
 ``repro/train/fault.py``.  Checkpoint resume and the elastic mesh are not
 ported yet."""
 from __future__ import annotations
@@ -35,3 +36,8 @@ class StepWatchdog:
             self.flagged += 1
             obs.counter("train.straggler_flagged").inc()
         return slow
+
+
+def deterministic_batch_seed(base_seed: int, step: int, shard: int) -> int:
+    """Any worker can regenerate any shard's batch for any step."""
+    return (base_seed * 1_000_003 + step) * 65_537 + shard

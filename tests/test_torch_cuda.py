@@ -1,9 +1,11 @@
 """The port on the card: each CUDA kernel against its plain version (the
 compact kernels at bm 16-512, with and without the bucket overrides; the
 padded kernels ``spmm_blockell``, ``spmm_blockell_fused`` and
-``spmm_blockell_update``), the plans' backwards through the kernels
-(compact, padded and degree-bucketed), a tiny autotune on the card, and the
-serving slice.
+``spmm_blockell_update``; ``embedding_bag`` and ``sddmm``), the plans'
+backwards through the kernels (compact, padded and degree-bucketed) and
+``ops.embedding_bag``'s transposed backward, a tiny autotune on the card,
+the serving slice, and wide & deep's ``bag`` lookup against its ``dense``
+one.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -492,3 +494,153 @@ def test_autotune_layer_races_every_candidate_on_the_card(tmp_path):
                             cache_dir=str(tmp_path), device="cuda")
     assert sorted(tuple(r[:-1]) for r in rec.table) == sorted(cands)
     assert at.device_sig("cuda").startswith("cuda-")
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag and sddmm
+# ---------------------------------------------------------------------------
+def _bag_case(case, d, V=5000, seed=0):
+    """ids sorted by bag and their offsets, on the card: single-id bags
+    (the deep lookup), 40-id bags (the wide one), random bag sizes with a
+    third of the bags empty (runs of empty bags, one at the end too), and
+    a few bags of 1000+ ids."""
+    rng = np.random.default_rng(seed)
+    sizes = {"single": np.ones(3000, np.int64),
+             "fields": np.full(700, 40),
+             "empty": rng.integers(0, 6, 2000) * (rng.random(2000) > 0.33),
+             "long": rng.integers(900, 1300, 9)}[case]
+    if case == "empty":
+        sizes[-1] = 0
+    L = int(sizes.sum())
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
+    offsets = t(np.concatenate([[0], np.cumsum(sizes)]), np.int32)
+    ids = t(rng.integers(0, V, L), np.int32)
+    weights = t(rng.uniform(-1, 2, L), np.float32)
+    table = t(rng.standard_normal((V, d)), np.float32)
+    bag_ids = torch.repeat_interleave(
+        torch.arange(len(sizes), device="cuda"), torch.diff(offsets.long()))
+    return offsets, ids, weights, table, bag_ids, len(sizes)
+
+
+@pytest.mark.parametrize("case", ["single", "fields", "empty", "long"])
+@pytest.mark.parametrize("d", [1, 7, 32, 37, 64])
+def test_embedding_bag_kernel_matches_plain_version(case, d):
+    """Both walks (lanes over ids below d = 32, over columns from 32 on)
+    against ``embedding_bag_ref``; every row written, empty bags zero, and a
+    rerun bit-identical (no atomics)."""
+    _need_cuda()
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels.ref import embedding_bag_ref
+    offsets, ids, weights, table, bag_ids, nb = _bag_case(case, d)
+    before = kb.embedding_bag.launches
+    y = kb.embedding_bag(offsets, ids, weights, table)
+    assert kb.embedding_bag.launches == before + 1
+    ref = embedding_bag_ref(ids, bag_ids, weights, table, nb)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(y, ref, rtol=0, atol=TOL * scale)
+    empty = torch.diff(offsets) == 0
+    assert not y[empty].any()
+    assert torch.equal(kb.embedding_bag(offsets, ids, weights, table), y)
+
+
+@pytest.mark.parametrize("d", [1, 32])
+def test_embedding_bag_backward_on_the_card(d):
+    """``ops.embedding_bag``'s table gradient (the kernel on the transposed
+    bag list) against autograd through ``embedding_bag_ref``; unsorted bag
+    ids, empty bags, untouched table rows."""
+    _need_cuda()
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.kernels.ref import embedding_bag_ref
+    rng = np.random.default_rng(3)
+    V, L, nb = 4000, 6000, 900
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
+    ids = t(rng.integers(0, V - 100, L), np.int32)
+    bags = t(rng.integers(0, nb - 50, L), np.int32)
+    w = t(rng.uniform(-1, 2, L), np.float32)
+    table0 = t(rng.standard_normal((V, d)), np.float32)
+    proj = t(rng.standard_normal((nb, d)), np.float32)
+    grads, outs = {}, {}
+    for name in ("kernel", "plain"):
+        table = table0.clone().requires_grad_()
+        before = kb.embedding_bag.launches
+        if name == "kernel":
+            out = ops.embedding_bag(ids, bags, table, nb, w)
+        else:
+            out = embedding_bag_ref(ids, bags, w, table, nb)
+        (out * proj).sum().backward()
+        if name == "kernel":
+            assert kb.embedding_bag.launches == before + 2   # fwd + bwd
+        grads[name], outs[name] = table.grad, out.detach()
+    for a, b in ((outs["kernel"], outs["plain"]),
+                 (grads["kernel"], grads["plain"])):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TOL * max(1.0, float(b.abs().max())))
+    assert not grads["kernel"][V - 100:].any()
+
+
+@pytest.mark.parametrize("E", [1, 300, 10556])
+@pytest.mark.parametrize("d", [1, 7, 64, 130])
+def test_sddmm_kernel_matches_plain_version(E, d):
+    _need_cuda()
+    from repro_torch.kernels import sddmm as ks
+    from repro_torch.kernels.ref import sddmm_ref
+    rng = np.random.default_rng(E + d)
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
+    src, dst = (t(rng.integers(0, 2708, E), np.int32) for _ in range(2))
+    q, k = (t(rng.standard_normal((2708, d)), np.float32) for _ in range(2))
+    before = ks.sddmm.launches
+    y = ops.sddmm(src, dst, q, k)
+    assert ks.sddmm.launches == before + 1
+    ref = sddmm_ref(src, dst, q, k)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ref, rtol=0,
+                               atol=TOL * max(1.0, float(ref.abs().max())))
+
+
+def test_wide_deep_bag_matches_dense_on_the_card():
+    """The reduced model's logits and every gradient, ``lookup="bag"``
+    (the kernel, 4 launches: two lookups and their backwards) against
+    ``lookup="dense"``."""
+    _need_cuda()
+    from repro_torch.configs.wide_deep import REDUCED
+    from repro_torch.kernels import embedding_bag as kb
+    from repro_torch.models import recsys
+    from repro_torch.train import tree_leaves, tree_map
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = recsys.widedeep_init(gen, REDUCED, device="cuda")
+    B = 300
+    sparse = torch.randint(0, REDUCED.rows_per_field, (B, REDUCED.n_sparse),
+                           device="cuda", generator=gen)
+    dense = torch.randn(B, REDUCED.n_dense, device="cuda", generator=gen)
+    labels = (torch.rand(B, device="cuda", generator=gen) > 0.5).float()
+    out = {}
+    for lookup in recsys.LOOKUPS:
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                        params)
+        before = kb.embedding_bag.launches
+        loss = recsys.widedeep_loss(tree, sparse, dense, labels, REDUCED,
+                                    lookup)
+        loss.backward()
+        launched = kb.embedding_bag.launches - before
+        assert launched == (4 if lookup == "bag" else 0)
+        out[lookup] = (loss.detach(),
+                       [leaf.grad for leaf in tree_leaves(tree)])
+    torch.testing.assert_close(out["bag"][0], out["dense"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(out["bag"][1], out["dense"][1]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TOL * max(1e-30, float(b.abs().max())))
+
+
+def test_widedeep_session_serves_on_the_card():
+    _need_cuda()
+    from repro_torch.kernels import embedding_bag as kb
+    sess = make_session("wide_deep", None, num_users=512, device="cuda")
+    before = kb.embedding_bag.launches
+    cache = EmbeddingCache(sess.layer_dims, capacity_bytes=64_000,
+                           line_size=1, num_nodes=512)
+    eng = ServeEngine(sess, cache, MicroBatcher(max_batch=8, max_wait=1e-3))
+    rep = eng.serve(zipfian_trace(512, 120, a=1.3, seed=4))
+    assert rep.max_oracle_err < 1e-4 and rep.cache.hits > 0
+    assert kb.embedding_bag.launches > before

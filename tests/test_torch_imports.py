@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_reference():
     expected = {"repro_torch.convert", "repro_torch.device",
                 "repro_torch.configs.base", "repro_torch.configs.families",
                 "repro_torch.configs.gcn_cora",
+                "repro_torch.configs.wide_deep",
                 "repro_torch.configs.registry",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
                 "repro_torch.core.cache_model", "repro_torch.exec.plan",
@@ -53,6 +54,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.graph.structure", "repro_torch.kernels._build",
                 "repro_torch.kernels.ref",
                 "repro_torch.kernels.spmm_blockell",
+                "repro_torch.kernels.embedding_bag",
+                "repro_torch.kernels.sddmm",
+                "repro_torch.models.recsys", "repro_torch.nn.embedding",
+                "repro_torch.train.data",
                 "repro_torch.launch.serve", "repro_torch.launch.train",
                 "repro_torch.models.gcn", "repro_torch.models.sage_gin",
                 "repro_torch.nn.layers", "repro_torch.obs.registry",
@@ -70,7 +75,8 @@ def test_port_imports_neither_jax_nor_reference():
 @pytest.mark.parametrize("name", ["spmm_blockell_compact",
                                   "spmm_blockell_update_compact",
                                   "spmm_blockell", "spmm_blockell_fused",
-                                  "spmm_blockell_update"])
+                                  "spmm_blockell_update", "embedding_bag",
+                                  "sddmm"])
 def test_kernel_source_ships_beside_the_package(name):
     from repro_torch.kernels import _build
     src = _build.CSRC / f"{name}.cu"
@@ -78,7 +84,9 @@ def test_kernel_source_ships_beside_the_package(name):
     # a source and the shared headers it may include
     text = "\n".join(p.read_text() for p in
                      [src, *sorted(_build.CSRC.glob("*.cuh"))])
-    assert f"repro/kernels/spmm_blockell.py::{name}" in text
+    reference = ("spmm_blockell" if name.startswith("spmm_blockell")
+                 else name)
+    assert f"repro/kernels/{reference}.py::{name}" in text
     assert f'extern "C" int {name}(' in text
     # the products are written by hand: no library GEMM and no torch
     for banned in ("cublas", "cutlass", "torch", "#include <ATen"):

@@ -197,9 +197,11 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_sessions_and_devices_raise():
     g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
-    for model in ("sage_gin", "wide_deep"):
+    for model in ("sage_gin",):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_session(model, g, device="cpu")
+    # ported since: one user per node of the graph
+    assert make_session("wide_deep", g, device="cpu").num_users == 64
     with pytest.raises(ValueError, match="unknown serve model"):
         make_session("gat", g, device="cpu")
     if not torch.cuda.is_available():
