@@ -8,7 +8,8 @@
 2. Builds every kernel from ``src/repro_torch/csrc`` with nvcc into
    ``build/`` (one nvcc per source, all started together) and prints the
    build time and ptxas's register and spill report.
-3. Kernel phases (``sddmm`` and ``embedding_bag`` in 5 and 6), each kernel
+3. Kernel phases (``sddmm``, ``embedding_bag`` and ``decode_attention`` in
+   5, 6 and 7), each kernel
    against its plain PyTorch version on the card
    (tolerances below), timed with CUDA events beside its bound:
    ``spmm_blockell_compact`` on the GCN serving plan of ``cora_like(seed=0)``
@@ -51,7 +52,18 @@
    (ms per step, busy share, peak memory).  Every ``CONFIG`` result is held
    against ``lookup="dense"`` on the same params within 1e-5 of its largest
    entry.
-7. Writes the full report (every case, trial table and path) to
+7. LM serving (``decode_attention``), once the wide & deep phases have
+   freed the card: the kernel against its plain version (fp32 1e-4, bf16
+   3e-2) and ``F.scaled_dot_product_attention`` at the reference's test
+   shapes, granite-8b's ``decode_32k`` layer (B = 8), one ``long_500k``
+   layer and ragged lengths with G = 1, 4, 12; ``launch.serve --arch
+   granite-8b --tokens 16`` (``REDUCED``; exactly 32 launches, logits within
+   1e-4 of ``attn="plain"``); then ``CONFIG`` (36 layers, 16.5 GB of bf16
+   params drawn on the card): a B = 8 x 512 prefill, a 32,768-long cache,
+   one step on the kernel and the plain path (logits within 3e-2 of the
+   largest), 32 greedy steps (36 launches each; ms per step, tokens/s,
+   busy share, decode_attention's share, peak memory).
+8. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -103,7 +115,22 @@ KERNELS = {
     "embedding_bag": (
         "src/repro_torch/csrc/embedding_bag.cu",
         "src/repro/kernels/embedding_bag.py:36", "embedding_bag"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:59", "decode_attention"),
 }
+# NVIDIA H100 SXM data sheet: bf16 on the tensor cores (the peak for the
+# decode-attention cases whose inputs are bf16)
+PEAK_BF16_FLOPS = 989e12
+# the reference's decode-attention bars (tests/test_kernels.py)
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# granite-8b at full width: decode_32k's batch cut from 128 to 8 (a 38.65 GB
+# cache), a 512-token prompt, then 32 greedy steps at the cache's end
+LM_BATCH = 8
+LM_PROMPT = 512
+LM_STEPS = 32
+LM_WARMUP = 2
+LM_PROFILED = 4
 TRAIN_STEPS = 20
 COMPARE_STEPS = 10
 # (the training tolerances sit beside each phase)
@@ -130,9 +157,9 @@ def gpu_ms(fn, n_inner: int = 20, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, peak_ops: float = PEAK_FP32_FLOPS) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops / peak_ops * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_bytes_ms": t_bytes,
             "bound_ops_ms": t_ops, "bound_ms": max(t_bytes, t_ops)}
 
@@ -163,6 +190,19 @@ def assert_close_scaled(got, ref, tol: float, what: str,
         raise AssertionError(f"{what}: max_abs_err {err:.3e} > {tol} x "
                              f"{scale:.3g}")
     return err
+
+
+def assert_close_rows(got, ref, tol: float, what: str) -> tuple:
+    """|got - ref| <= tol * max |ref| over the last axis, row by row (a zero
+    row must come out exactly zero); returns max |got - ref| and the
+    largest error over its row's max |ref|."""
+    diff = (got - ref).abs()
+    row = ref.abs().amax(-1, keepdim=True)
+    worst = float((diff / row.clamp_min(1e-30)).max())
+    if not bool((diff <= tol * row).all()):
+        raise AssertionError(f"{what}: an error reaches {worst:.3e} x its "
+                             f"row's max |ref| (bar {tol})")
+    return float(diff.max()), worst
 
 
 # ---------------------------------------------------------------------------
@@ -1559,6 +1599,335 @@ def recsys_phases(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# LM serving (decode_attention)
+# ---------------------------------------------------------------------------
+def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
+                weight=0, library=True, big=False):
+    """One ``decode_attention`` case: the kernel (raw launch, no Python
+    checks) against ``decode_attention_ref`` on the same inputs (fp32 1e-4,
+    bf16 3e-2, each times its (b, h) row's largest |entry|: an output's
+    size falls as 1 / sqrt(length), so an absolute bar would pass a lost
+    chunk at 32 k positions), a rerun bit-identical, and, where every row
+    has a valid position, ``F.scaled_dot_product_attention`` with a
+    boolean mask and
+    ``enable_gqa`` (the yardstick; the port never calls it) held to the
+    plain version; all three timed.  The bound counts the K and V rows
+    below each row's length, read once, q read and the output written once;
+    4 operations per head, position and column, at the inputs' peak rate.
+    ``weight``: this case's launches in one full-width decode step."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    H = KV * G
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k, v = r(B, H, d), r(B, S, KV, d), r(B, S, KV, d)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    y = kd.decode_attention(q, k, v, cl)
+    ref = decode_attention_ref(q, k, v, cl)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"decode_attention output not finite ({name})")
+    tname = str(dtype).split(".")[-1]
+    tol = DECODE_TOL[tname]
+    err, rel = assert_close_rows(y.float(), ref.float(), tol,
+                                 f"decode_attention vs plain {name}")
+    if not torch.equal(kd.decode_attention(q, k, v, cl), y):
+        raise AssertionError(f"decode_attention rerun is not bit-identical "
+                             f"({name})")
+    lib_err = lib_rel = lib_fn = None
+    if library:
+        valid = (torch.arange(S, device=dev)[None, :]
+                 < cl[:, None])[:, None, None, :]
+
+        def lib_fn():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=valid, enable_gqa=True)[:, :, 0]
+
+        lib_err, lib_rel = assert_close_rows(lib_fn().float(), ref.float(),
+                                             tol, f"SDPA vs plain {name}")
+    del ref
+    esize = q.element_size()
+    vb = kd._vec_bytes(esize, d, k, v)
+    plan = kd.plan(B, S, KV, G, d, dtype, vb, dev)
+    ws = torch.empty(plan["ws"], dtype=torch.float32, device=dev)
+    fn = kd._kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    raw = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+           y.data_ptr(), ws.data_ptr(), B, S, H, KV, d, kd._DTYPES[dtype],
+           plan["n_split"], plan["chunk"], plan["tile"], vb, *k.stride()[:3],
+           *v.stride()[:3], 1.0 / d ** 0.5, stream)
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError("decode_attention launch failed")
+
+    reps = dict(n_inner=5, reps=10) if big else {}
+    ms = gpu_ms(launch, **reps)
+    plain_ms = gpu_ms(lambda: decode_attention_ref(q, k, v, cl), n_inner=2,
+                      reps=5, warmup=1)
+    library_ms = gpu_ms(lib_fn, **reps) if library else None
+    n_valid = sum(min(max(n, 0), S) for n in lengths)
+    nbytes = (2 * n_valid * KV * d * esize + 2 * B * H * d * esize + 4 * B)
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    case = {"kernel": "decode_attention", "case": name, "B": B, "S": S,
+            "kv_heads": KV, "groups": G, "d": d, "dtype": tname,
+            "lengths": lengths if len(lengths) <= 8 else
+            f"{len(lengths)} rows of {lengths[0]}",
+            "plan": {k: plan[k] for k in ("tile", "n_split", "chunk")},
+            "vec_bytes": vb, "max_abs_err": err, "max_err_over_row_max": rel,
+            "tolerance": tol, "tolerance_of": "each (b, h) row's max |ref|",
+            "library_vs_plain_err": lib_err,
+            "library_vs_plain_over_row_max": lib_rel, "ms": ms,
+            "plain_ms": plain_ms,
+            **bound(nbytes, 4 * H * d * n_valid, peak),
+            "library_ms": library_ms, "weight": weight}
+    print("case " + json.dumps(case))
+    return case
+
+
+def decode_kernel_phase(torch, dev):
+    """``decode_attention`` at (a) the reference's test shapes (fp32, one
+    query head per KV head, and its bf16 case), (b) granite-8b's layer at
+    ``decode_32k`` with B = 8 (q (8, 32, 128), one layer's k/v (8, 32768,
+    8, 128) bf16, cache_len 32,767: the full-width decode step's shape,
+    36 launches a step), (c) one layer at ``long_500k`` (B = 1, S =
+    524,288, 8 KV heads: 2.15 GB), (d) ragged lengths 0 to above S with
+    G = 1, 4 and 12."""
+    import numpy as np
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.configs.granite_8b import CONFIG
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rng = np.random.default_rng(15)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for B, S, H, d in [(1, 256, 2, 64), (2, 1024, 4, 128), (3, 512, 1, 32)]:
+        lengths = rng.integers(1, S + 1, B).tolist()
+        cases.append(decode_case(torch, dev, f"reference shape ({B}, {S}, "
+                                 f"{H}, {d}) fp32", B, S, H, 1, d, f32,
+                                 lengths, gen))
+    cases.append(decode_case(torch, dev, "reference bf16 (2, 512, 2, 64)", 2,
+                             512, 2, 1, 64, bf16, [300, 512], gen))
+    G = CONFIG.n_heads // CONFIG.n_kv
+    S = LM_SHAPES["decode_32k"]["seq"]
+    cases.append(decode_case(
+        torch, dev, f"granite-8b decode_32k layer, B={LM_BATCH}", LM_BATCH,
+        S, CONFIG.n_kv, G, CONFIG.hd, bf16, [S - 1] * LM_BATCH, gen,
+        weight=CONFIG.n_layers, big=True))
+    S = LM_SHAPES["long_500k"]["seq"]
+    cases.append(decode_case(
+        torch, dev, "granite-8b long_500k layer, B=1", 1, S, CONFIG.n_kv, G,
+        CONFIG.hd, bf16, [S - 1], gen, big=True))
+    lengths = [0, 1, 1000, 4095, 4096, 5000]
+    for g in (1, 4, 12):
+        cases.append(decode_case(
+            torch, dev, f"ragged lengths {lengths}, G={g}", len(lengths),
+            4096, 2, g, 128, bf16, lengths, gen, library=False))
+    return cases
+
+
+def lm_launcher_phase(torch):
+    """``launch.serve --arch granite-8b --tokens 16 --batch 2
+    --prompt-len 16`` (``REDUCED``, fp32): exactly 2 x 16 ``decode_attention``
+    launches and no other kernel's; its 16 steps' logits within 1e-4 of the
+    same run on ``attn="plain"``, and the same greedy tokens."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "granite-8b", "--tokens", "16", "--batch", "2",
+            "--prompt-len", "16", "--device", "cuda"]
+    reset_launches()
+    res = serve.main(argv)
+    launches = read_launches(torch)
+    plain = serve.serve_lm(serve.parse_args(argv), attn="plain")
+    err = assert_close_scaled(res.logits, plain.logits, ORACLE_TOL,
+                              "LM launcher kernel vs plain logits")
+    report = {"launches": launches, "logits_err": err,
+              "max_abs_logit": float(plain.logits.abs().max()),
+              "tokens_equal": bool(torch.equal(res.tokens, plain.tokens)),
+              "decode_s": res.seconds, "plain_decode_s": plain.seconds,
+              "tokens": res.tokens[0].tolist()}
+    print("granite-8b serving (launcher): " + json.dumps(report))
+    if not report["tokens_equal"]:
+        raise AssertionError("LM launcher: kernel and plain attention "
+                             "generated other tokens")
+    want = {k: (32 if k == "decode_attention" else 0) for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"LM launcher launched {launches}; expected "
+                             f"{want}")
+    return launches, report
+
+
+def lm_config_phase(torch, dev):
+    """granite-8b's ``CONFIG`` (36 layers, d_model 4096, 32 heads / 8 KV
+    heads, 8.25 G params drawn on the card straight into bf16): prefill of
+    a B = 8 x 512-token prompt; caches of ``decode_32k``'s 32,768 positions
+    (38.65 GB) filled by repeating the prefill's own K/V along the
+    sequence (``LMBundle.make_batch("decode_32k", batch=8)``); one decode
+    step at cache_len 32,767 through ``LMBundle.step_fn("decode_32k")`` on
+    the kernel path and then on the plain path over the same caches (each
+    writes position 32,767 first), logits within 3e-2 of the largest; then
+    32 greedy steps
+    on the kernel path (cache_len 32,735 to 32,766), 36 launches each, with
+    no host synchronisation between steps: ms per step and tokens/s over
+    one CUDA-event window around all timed steps after 2 of warm-up (each
+    step's own events give the median and spread, an extra statistic), and
+    over the last 4 steps, under the profiler, the busy share and
+    decode_attention's share (device time over the same steps' window);
+    peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.configs.granite_8b import CONFIG as cfg
+    from repro_torch.models import transformer as tf
+
+    B, P, S = LM_BATCH, LM_PROMPT, LM_SHAPES["decode_32k"]["seq"]
+    bundle = LMBundle(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    t0 = time.perf_counter()
+    params = bundle.init_params(gen, dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    report = {"params": cfg.param_count(),
+              "param_gb": cfg.param_count() * 2 / 1e9,
+              "cache_gb": cfg.kv_bytes_per_token() * B * S / 1e9,
+              "init_s": time.perf_counter() - t0}
+    print(f"granite-8b CONFIG: {report['params']} params "
+          f"({report['param_gb']:.2f} GB bf16) drawn on the card in "
+          f"{report['init_s']:.2f}s; caches {report['cache_gb']:.2f} GB")
+    paths = {}
+    with torch.inference_mode():
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                               device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, pre = tf.lm_prefill(params, prompt, cfg)
+        torch.cuda.synchronize()
+        report["prefill_s"] = time.perf_counter() - t0
+        paths["granite-8b CONFIG prefill"] = read_launches(torch)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("CONFIG prefill logits not finite")
+        # decode_32k's batch at B = 8: zero caches, cache_len S - 1
+        batch = bundle.make_batch("decode_32k", gen, dev, batch=B)
+        caches = batch["caches"]
+        for buf, c in zip(caches["dense"], pre["dense"]):
+            L, _, _, KV, hd = buf.shape
+            buf.view(L, B, S // P, P, KV, hd).copy_(c[:, :, None])
+        del pre
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        batch["token"] = tok
+        reset_launches()
+        lk, _ = bundle.step_fn("decode_32k")(params, batch)
+        check = read_launches(torch)
+        paths["granite-8b CONFIG decode (check step)"] = check
+        lp, _ = bundle.step_fn("decode_32k", attn="plain")(params, batch)
+        err = assert_close_scaled(lk.float(), lp.float(), DECODE_TOL[
+            "bfloat16"], "CONFIG decode step kernel vs plain", floor=0.0)
+        report.update({
+            "check_logits_err": err,
+            "check_max_abs_logit": float(lp.float().abs().max()),
+            "check_argmax_agree": float((lk.argmax(-1) == lp.argmax(-1))
+                                        .float().mean()),
+            "check_launches": check})
+        del lk, lp
+        torch.cuda.synchronize()
+        start = S - 1 - LM_STEPS
+        timed = LM_STEPS - LM_PROFILED
+        tokens = [tok]
+        event = lambda: torch.cuda.Event(enable_timing=True)
+        marks = [event() for _ in range(timed + 1)]
+        reset_launches()
+        for i in range(timed):
+            marks[i].record()
+            lg, caches = tf.lm_decode_step(params, tok, caches, start + i,
+                                           cfg, S)
+            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            tokens.append(tok)
+        marks[timed].record()
+        marks[timed].synchronize()
+        times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        window_ms = marks[LM_WARMUP].elapsed_time(marks[timed])
+        p0, p1 = event(), event()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0.record()
+            for i in range(timed, LM_STEPS):
+                lg, caches = tf.lm_decode_step(params, tok, caches,
+                                               start + i, cfg, S)
+                tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+                tokens.append(tok)
+            p1.record()
+            torch.cuda.synchronize()
+        profiled_ms = p0.elapsed_time(p1) / LM_PROFILED
+        launches = read_launches(torch)
+        paths[f"granite-8b CONFIG decode ({LM_STEPS} steps)"] = launches
+        if not torch.isfinite(lg).all():
+            raise AssertionError("CONFIG decode logits not finite")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / LM_PROFILED
+    attn_ms = sum(e.self_device_time_total for e in kernels
+                  if "decode_split_kernel" in e.key
+                  or "decode_merge_kernel" in e.key) / 1e3 / LM_PROFILED
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    n_window = timed - LM_WARMUP
+    step_ms = window_ms / n_window
+    report.update({
+        "step_ms": step_ms, "window_steps": n_window,
+        "window_ms": window_ms, "tokens_per_s": B * n_window / window_ms
+        * 1e3, "step_ms_median": statistics.median(times[LM_WARMUP:]),
+        "step_ms_all": times,
+        "device_ms_per_step": device_ms,
+        "profiled_ms_per_step": profiled_ms,
+        "busy_share": device_ms / profiled_ms if device_ms else None,
+        "decode_attention_ms_per_step": attn_ms,
+        "decode_attention_share": attn_ms / profiled_ms if device_ms
+        else None,
+        "top_kernels_ms_per_step": [
+            [e.key[:60], e.self_device_time_total / 1e3 / LM_PROFILED,
+             e.count // LM_PROFILED] for e in top],
+        "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "tokens": torch.cat(tokens, dim=1)[0].tolist()})
+    print("granite-8b decode (CONFIG): " + json.dumps(report))
+    if not device_ms:
+        print("granite-8b decode: the profiler saw no device time; busy "
+              "share not measured")
+    for what, got, steps in (("check step", check, 1),
+                             (f"{LM_STEPS} steps", launches, LM_STEPS)):
+        want = {k: (cfg.n_layers * steps if k == "decode_attention" else 0)
+                for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"CONFIG decode {what} launched {got}; "
+                                 f"expected {want}")
+    del params, caches
+    return paths, report
+
+
+def lm_phases(torch, dev):
+    """Every LM path, after the wide & deep phases have freed the card: the
+    kernel cases, the launcher (``REDUCED``), then ``CONFIG``."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"LM phases: {left:.2f} GB still allocated")
+    if left > 4:
+        raise AssertionError(f"{left:.2f} GB left allocated before the LM "
+                             "phases; the 38.65 GB cache will not fit")
+    cases = decode_kernel_phase(torch, dev)
+    torch.cuda.empty_cache()
+    paths = {}
+    paths["granite-8b serving (launcher)"], report = lm_launcher_phase(torch)
+    config_paths, config_report = lm_config_phase(torch, dev)
+    paths.update(config_paths)
+    return cases, paths, {"launcher": report, "config": config_report}
+
+
+# ---------------------------------------------------------------------------
 def kernel_row(name, cases, launches, work):
     main = [c for c in cases if c["weight"]]
     t_bytes = sum(c["weight"] * c["bound_bytes_ms"] for c in main)
@@ -1630,6 +1999,8 @@ def main() -> int:
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
     bag_cases, recsys_paths, recsys_report = recsys_phases(torch, dev)
     paths.update(recsys_paths)
+    decode_cases, lm_paths, lm_report = lm_phases(torch, dev)
+    paths.update(lm_paths)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -1676,16 +2047,25 @@ def main() -> int:
                    "wide lookup (65,536 bags of 40 ids, d=1) and both "
                    "backwards (40M bags, one per table row); library: "
                    "F.embedding_bag(mode='sum', per_sample_weights)"),
+        kernel_row("decode_attention", decode_cases,
+                   total["decode_attention"],
+                   "one full-width granite-8b decode step's 36 launches at "
+                   "decode_32k with B=8 (q (8, 32, 128), one layer's k/v "
+                   "(8, 32768, 8, 128) bf16, cache_len 32,767); library: "
+                   "F.scaled_dot_product_attention(q, k, v, bool mask, "
+                   "enable_gqa=True)"),
     ]
+    kernels[-1]["peaks"] = ("H100 SXM data sheet: 989 TFLOP/s bf16 (the "
+                            "main case's inputs), 3.35 TB/s")
     # the full report, too long for the end of the output, beside the
     # kernels' builds in the checkout's ignored build/ directory
     (_build.build_dir() / "chip_smoke.json").write_text(json.dumps({
         "card": smi.stdout.strip(), "kernels": kernels, "paths": paths,
         "cases": (spmm_cases + fused_cases + compact_cases
                   + padded_update_cases + update_cases + sddmm_cases
-                  + bag_cases),
+                  + bag_cases + decode_cases),
         "gcn_autotune": gcn_report, "gin": gin_report,
-        "wide_deep": recsys_report,
+        "wide_deep": recsys_report, "lm": lm_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -11,5 +11,7 @@ Ported so far: graph, reorder, block-ELL builder, LRU cache, telemetry,
 the five block-ELL kernels, the execution plans with their backwards and
 the autotuner, GCN, GIN, wide & deep with the ``embedding_bag`` kernel,
 the ``sddmm`` kernel (``kernels.ops.sddmm``), the serving engine and
-``launch.serve``, and training (``train``, ``configs``, ``launch.train``).
+``launch.serve``, training (``train``, ``configs``, ``launch.train``), and
+dense LM serving (``nn.attention``, ``models.transformer``, the LM configs,
+``launch.serve --arch``) with the ``decode_attention`` kernel.
 """

@@ -1,9 +1,10 @@
-"""Architecture registry — port of the GNN and recsys parts of
-``repro/configs/base.py``.
+"""Architecture registry — port of ``repro/configs/base.py``.
 
 Every arch is an ``ArchSpec`` whose ``bundle()`` builds the family's
-bundle.  ``gcn-cora`` and ``wide-deep`` are ported; asking for another arch
-of the reference raises ``NotImplementedError`` naming the ROADMAP item."""
+bundle.  ``gcn-cora``, ``wide-deep`` and the dense LMs (``granite-8b``,
+``minitron-8b``, ``mistral-large-123b``) are ported; asking for another
+arch of the reference raises ``NotImplementedError`` naming the ROADMAP
+item."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +13,7 @@ from typing import Any, Callable, Dict, Tuple
 REGISTRY: Dict[str, "ArchSpec"] = {}
 
 # the archs of repro.configs.registry that the port has no config for yet
-NOT_PORTED = ("granite-8b", "minitron-8b", "mistral-large-123b",
-              "granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "pna",
+NOT_PORTED = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "pna",
               "gat-cora", "nequip")
 
 
@@ -45,6 +45,14 @@ def get(name: str) -> ArchSpec:
                                   f"{sorted(REGISTRY)}")
     raise KeyError(f"unknown arch {name!r}")
 
+
+# the reference's 4 LM cells
+LM_SHAPES = {
+    "train_4k":    {"kind": "train",   "seq": 4096,    "batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq": 32768,   "batch": 32},
+    "decode_32k":  {"kind": "decode",  "seq": 32768,   "batch": 128},
+    "long_500k":   {"kind": "decode",  "seq": 524288,  "batch": 1},
+}
 
 GNN_SHAPES = {
     "full_graph_sm": {"kind": "train", "n_nodes": 2708, "n_edges": 10556,

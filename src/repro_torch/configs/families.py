@@ -1,12 +1,12 @@
-"""Family bundles — port of ``GNNBundle`` (GCN only; GAT, PNA and NequIP
-are not ported yet) and ``RecsysBundle`` from
-``repro/configs/families.py``.  The LM bundle is not ported yet, nor are
-the bundles' ``abstract_state`` and ``shardings`` (mesh work, ROADMAP §1
-item 9)."""
+"""Family bundles — port of ``LMBundle`` (serving; its train step waits
+for LM training), ``GNNBundle`` (GCN only; GAT, PNA and NequIP are not
+ported yet) and ``RecsysBundle`` from ``repro/configs/families.py``.  The
+bundles' ``abstract_state`` and ``shardings`` are not ported (mesh work,
+ROADMAP §1 item 9)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -14,9 +14,87 @@ from ..device import resolve_device
 from ..models.gcn import gcn_init, gcn_loss
 from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
                              widedeep_logits, widedeep_loss)
+from ..models.transformer import (LMConfig, lm_decode_step, lm_init,
+                                  lm_prefill, make_kv_caches)
 from ..train.loop import make_train_step
 from ..train.optimizer import Optimizer, adam
-from .base import RECSYS_SHAPES
+from .base import LM_SHAPES, RECSYS_SHAPES
+
+
+@dataclasses.dataclass
+class LMBundle:
+    """A dense LM at one config over the four ``LM_SHAPES``: ``prefill``
+    and ``decode`` steps (``train`` raises until LM training is ported,
+    ROADMAP §1 item 8)."""
+    cfg: LMConfig
+    shapes = tuple(LM_SHAPES)
+
+    def init_params(self, generator: torch.Generator, device="cuda",
+                    dtype=None):
+        """``lm_init``'s stacked tree in ``dtype`` (``cfg.param_dtype`` by
+        default; bf16 for serving at full width)."""
+        return lm_init(generator, self.cfg, device=device, dtype=dtype)
+
+    def _info(self, shape: str, batch: Optional[int]):
+        info = LM_SHAPES[shape]
+        if info["kind"] == "train":
+            raise NotImplementedError("LM training is not ported yet "
+                                      "(ROADMAP §1 item 8)")
+        return info, batch or info["batch"]
+
+    def input_specs(self, shape: str, batch: Optional[int] = None
+                    ) -> Dict[str, Any]:
+        """name -> (shape, dtype) of each step input; the decode caches as
+        their ``{"dense": (k, v)}`` tree.  ``batch`` overrides the cell's
+        batch (``decode_32k``'s 128 x 32,768 cache is 618 GB at
+        granite-8b)."""
+        info, B = self._info(shape, batch)
+        S = info["seq"]
+        if info["kind"] == "prefill":
+            return {"tokens": ((B, S), torch.int32)}
+        c = self.cfg
+        kv = ((c.n_layers, B, S, c.n_kv, c.hd), c.dtype)
+        return {"token": ((B, 1), torch.int32),
+                "caches": {"dense": (kv, kv)},
+                "cache_len": ((), torch.int32)}
+
+    def make_batch(self, shape: str, generator: torch.Generator,
+                   device="cuda", batch: Optional[int] = None
+                   ) -> Dict[str, Any]:
+        """A concrete batch of :meth:`input_specs`: tokens uniform over the
+        vocabulary, drawn where ``generator`` lives; for ``decode``, zero
+        caches (``make_kv_caches``) and ``cache_len`` S - 1, the last
+        position a step may write."""
+        info, B = self._info(shape, batch)
+        dev = resolve_device(device)
+        S = info["seq"]
+        draw = lambda shp: torch.randint(
+            0, self.cfg.vocab, shp, generator=generator,
+            device=generator.device, dtype=torch.int32).to(dev)
+        if info["kind"] == "prefill":
+            return {"tokens": draw((B, S))}
+        return {"token": draw((B, 1)),
+                "caches": make_kv_caches(self.cfg, B, S, device=dev),
+                "cache_len": S - 1}
+
+    def step_fn(self, shape: str, attn: str = "kernel"):
+        """``prefill``: ``(params, batch) -> (logits, caches)``; ``decode``:
+        one ``lm_decode_step`` at the cell's sequence length, writing the
+        batch's caches in place."""
+        info, _ = self._info(shape, None)
+        cfg = self.cfg
+        if info["kind"] == "prefill":
+            @torch.inference_mode()
+            def prefill_step(params, batch):
+                return lm_prefill(params, batch["tokens"], cfg)
+            return prefill_step
+
+        @torch.inference_mode()
+        def decode_step(params, batch):
+            return lm_decode_step(params, batch["token"], batch["caches"],
+                                  batch["cache_len"], cfg, info["seq"],
+                                  attn=attn)
+        return decode_step
 
 
 @dataclasses.dataclass

@@ -1,2 +1,3 @@
 """Import every ported arch module to populate the registry."""
-from . import gcn_cora, wide_deep  # noqa: F401
+from . import (gcn_cora, granite_8b, minitron_8b,  # noqa: F401
+               mistral_large_123b, wide_deep)

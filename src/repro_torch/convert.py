@@ -15,9 +15,11 @@ from .device import resolve_device
 
 def params_from_jax(tree, device="cuda"):
     """Any nested dict / list / tuple tree of numpy (or array-like) leaves
-    -> the same tree of float32 tensors on ``device``: GCN's
-    ``{"layers": [{"w", "b"}, ...]}``, GIN's ``convs[i].mlp[j].{w, b}``
-    with its 0-d ``eps``, ``lin1`` and ``lin2``."""
+    -> the same tree (tuples stay tuples) of float32 tensors on ``device``,
+    bfloat16 leaves as bfloat16: GCN's ``{"layers": [{"w", "b"}, ...]}``,
+    GIN's ``convs[i].mlp[j].{w, b}`` with its 0-d ``eps``, ``lin1`` and
+    ``lin2``, an LM's stacked ``dense_layers`` and its KV caches
+    ``{"dense": (k, v)}``."""
     dev = resolve_device(device)
 
     def walk(t):
@@ -25,5 +27,7 @@ def params_from_jax(tree, device="cuda"):
             return {k: walk(v) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(walk(v) for v in t)
-        return torch.tensor(np.asarray(t, np.float32), device=dev)
+        a = np.asarray(t)
+        out = torch.tensor(a.astype(np.float32), device=dev)
+        return out.to(torch.bfloat16) if a.dtype.name == "bfloat16" else out
     return walk(tree)

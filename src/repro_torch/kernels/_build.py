@@ -109,15 +109,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, n_ptr: int, n_int: int):
+def entry(name: str, n_ptr: int, n_int: int, tail=()):
     """The C entry point ``name`` of ``csrc/<name>.cu``, built and loaded on
-    first use: ``n_ptr`` pointers, ``n_int`` ints, then the stream; it
-    returns a CUDA error code."""
+    first use: ``n_ptr`` pointers, ``n_int`` ints, then arguments of the
+    ctypes types in ``tail``, then the stream; it returns a CUDA error
+    code."""
     fn = _ENTRIES.get(name)
     if fn is None:
         fn = getattr(load(name), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + list(tail) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn

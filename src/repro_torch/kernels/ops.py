@@ -1,5 +1,4 @@
-"""Public entry points of the kernels (the port of ``repro/kernels/ops.py``;
-``decode_attention`` waits for its kernel).
+"""Public entry points of the kernels (the port of ``repro/kernels/ops.py``).
 
 On a CUDA tensor each launches its hand-written kernel, on a CPU tensor the
 kernel's plain version.  The reference pads every operand for the TPU (x to
@@ -11,7 +10,9 @@ a block); the port hands them over at their own shapes.
 ``embedding_bag`` keeps the reference's contract (a stable sort by bag,
 weights defaulting to ones, empty bags giving zeros), builds the bag
 offsets on the device and differentiates with respect to the table.
-``sddmm`` is the per-edge dot product.
+``sddmm`` is the per-edge dot product.  ``decode_attention`` is
+flash-decode over a KV cache, taken GQA-native or expanded, at any length
+(the reference pads S to a multiple of its block).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import decode_attention as _decode
 from . import embedding_bag as _bag
 from . import sddmm as _sddmm
 from .ref import spmm_blockell_ref
@@ -134,3 +136,14 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
     src, dst = _check_indices(("src", src, q.shape[0]),
                               ("dst", dst, k.shape[0]))
     return _sddmm.sddmm(src, dst, q.contiguous(), k.contiguous())
+
+
+# --------------------------------------------------------- decode attention
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """Flash-decode: ``softmax(q kᵀ / sqrt(d)) v`` over each row's first
+    ``cache_len[b]`` positions.  q: (B, H, d); k/v: (B, S, KV, d) with
+    ``H % KV == 0``, the reference's expanded ``KV == H`` or GQA-native;
+    cache_len: (B,) integers.  float32 or bfloat16; returns (B, H, d)."""
+    return _decode.decode_attention(q.contiguous(), k, v,
+                                     cache_len.to(q.device, torch.int32))

@@ -168,3 +168,34 @@ def sddmm_ref(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
               k: torch.Tensor) -> torch.Tensor:
     """Per-edge dot products ``s_e = <q[src_e], k[dst_e]>``."""
     return torch.sum(q[src.long()] * k[dst.long()], dim=-1)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cache_len: torch.Tensor) -> torch.Tensor:
+    """One query per (b, h) against an S-long KV cache, masked by
+    ``cache_len``: ``softmax(q kᵀ / sqrt(d)) v`` over positions
+    ``< cache_len[b]``.
+
+    q: (B, H, d); k, v: (B, S, KV, d) with ``H % KV == 0`` (query head h
+    reads KV head ``h // (H / KV)``; ``KV == H`` is the reference's
+    contract); cache_len: (B,) integers.  Scores, softmax and products in
+    fp32; returns (B, H, d) in q's dtype.  A row with ``cache_len <= 0``
+    gives zeros, as the Pallas kernel does through its ``max(l, 1e-30)``
+    (the reference's ``decode_attention_ref`` gives NaN there); a
+    ``cache_len`` above S takes every position.
+    """
+    B, H, d = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    # each query head's KV head, expanded here so that a cache given
+    # GQA-native and the same cache given expanded run the same arithmetic
+    kx = k.to(torch.float32).repeat_interleave(H // KV, dim=2)
+    vx = v.to(torch.float32).repeat_interleave(H // KV, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kx)
+    scores = scores / (d ** 0.5)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < cache_len.to(q.device)[:, None])            # (B, S)
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(valid.any(dim=1)[:, None, None], probs,
+                        torch.zeros_like(probs))
+    return torch.einsum("bhs,bshd->bhd", probs, vx).to(q.dtype)

@@ -1,5 +1,19 @@
-"""Serving launcher: online GCN and wide & deep inference on the port
-(graph path of ``repro/launch/serve.py``).
+"""Serving launcher: an LM's prefill + decode loop, or online GCN and wide
+& deep inference on the port (``repro/launch/serve.py``).
+
+LM path (the ``REDUCED`` config, as the reference runs it), taken when
+``--graph`` is absent:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+      --tokens 16 --batch 2 --prompt-len 16 [--device cpu]
+
+Parameters and the prompt come from a generator seeded 0 (on the CPU, so
+every device gets the same ones); ``lm_prefill`` fills caches padded to
+``max(64, prompt + tokens + 1)`` positions, then ``--tokens`` greedy
+``lm_decode_step``s run, each layer's attention through the flash-decode
+kernel on ``cuda``.  Prints the generated ids and tokens/s.
+
+Graph path:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --graph cora \\
       --model gcn|wide_deep --requests 200 --cache-kb 500 --warm reorder \\
@@ -11,16 +25,73 @@ or more.  ``gcn``: the offline full-graph forward runs through the
 block-ELL kernels on ``cuda``.  ``wide_deep``: each of Cora's nodes is a
 user of the reduced wide & deep model, scored by the user tower, whose
 field lookup is the ``embedding_bag`` kernel on ``cuda``.  Runs on
-``cuda`` unless ``--device cpu`` is given.  The LM path, the other graphs
+``cuda`` unless ``--device cpu`` is given.  The MoE LMs, the other graphs
 and models, and ``--metrics-out`` / ``--trace`` are not ported yet.
 """
 import argparse
+import dataclasses
+import importlib
+import time
 
+import torch
+
+from ..configs import get
 from ..core import identity_order, minhash_reorder
 from ..device import resolve_device
 from ..graph import cora_like
+from ..models.transformer import (lm_decode_step, lm_init, lm_prefill,
+                                  make_kv_caches)
 from ..serve import (EmbeddingCache, MicroBatcher, ServeEngine, ServeReport,
                      make_session, zipfian_trace)
+
+
+@dataclasses.dataclass
+class LMServeResult:
+    tokens: torch.Tensor      # (batch, tokens + 1): prefill's, then steps'
+    logits: torch.Tensor      # (tokens, batch, vocab): each decode step's
+    seconds: float            # the decode loop, synchronised
+
+
+def serve_lm(args, attn: str = "kernel") -> LMServeResult:
+    """The reference's ``serve_lm`` at ``REDUCED``; ``attn`` picks the
+    decode attention (``"plain"``: the reference's einsums)."""
+    dev = resolve_device(args.device)
+    get(args.arch)                      # raises for an arch not ported
+    mod = importlib.import_module(
+        "repro_torch.configs." + args.arch.replace("-", "_"))
+    cfg = mod.REDUCED
+    prompt_len = args.prompt_len
+    max_seq = max(64, prompt_len + args.tokens + 1)
+    gen = torch.Generator().manual_seed(0)
+    params = lm_init(gen, cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (args.batch, prompt_len),
+                           generator=gen).to(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.inference_mode():
+        logits, caches = lm_prefill(params, prompt, cfg)
+        full = make_kv_caches(cfg, args.batch, max_seq, device=dev)
+        for buf, c in zip(full["dense"], caches["dense"]):
+            buf[:, :, :prompt_len] = c
+        del caches
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out_tokens, out_logits = [tok], []
+        sync()
+        t0 = time.perf_counter()
+        for i in range(args.tokens):
+            logits, full = lm_decode_step(params, tok, full, prompt_len + i,
+                                          cfg, max_seq, attn=attn)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            out_tokens.append(tok)
+            out_logits.append(logits[:, 0])
+        sync()
+        dt = time.perf_counter() - t0
+    seq = torch.cat(out_tokens, dim=1).cpu()
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "CPU")
+    print("generated:", seq[0].tolist())
+    print(f"{args.tokens} tokens x {args.batch} batch in {dt:.2f}s "
+          f"({args.tokens * args.batch / dt:.1f} tok/s on {where})")
+    return LMServeResult(seq, torch.stack(out_logits), dt)
 
 
 def serve_graph(args) -> ServeReport:
@@ -62,7 +133,16 @@ def serve_graph(args) -> ServeReport:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--graph", default="cora", help="dataset (ported: cora)")
+    # LM path
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="prompt length (also the decode cache offset)")
+    # graph path
+    ap.add_argument("--graph", default=None,
+                    help="serve a GNN/recsys session over this dataset "
+                         "(ported: cora) instead of the LM")
     ap.add_argument("--model", default="gcn",
                     help="registered serve session (ported: gcn, "
                          "wide_deep)")
@@ -79,8 +159,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> ServeReport:
-    return serve_graph(parse_args(argv))
+def main(argv=None):
+    """The graph path's ``ServeReport``, or the LM path's
+    ``LMServeResult``."""
+    args = parse_args(argv)
+    if args.graph is not None:
+        return serve_graph(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

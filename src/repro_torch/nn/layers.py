@@ -1,6 +1,7 @@
-"""Linear layers, MLPs and the masked cross-entropy as plain functions on
-dicts of tensors (the port of the ``linear_*``, ``mlp_*`` and
-``cross_entropy`` parts of ``repro/nn/layers.py``).
+"""Linear layers, MLPs, RMSNorm, SwiGLU and the masked cross-entropy as
+plain functions on dicts of tensors (the port of the ``linear_*``,
+``mlp_*``, ``rmsnorm_*``, ``swiglu`` and ``cross_entropy`` parts of
+``repro/nn/layers.py``).
 
 ``linear_init`` draws from an explicit ``torch.Generator`` where the
 generator lives (the CPU for the GNNs, so a seed gives the same weights on
@@ -31,10 +32,15 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+def linear_apply(p: dict, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x @ w (+ b)`` with the parameters cast to ``dtype`` (x's dtype by
+    default), as the reference casts them, and the product in the type
+    JAX promotes the two to (fp32 x with bf16 weights: fp32)."""
+    dtype = dtype or x.dtype
+    ct = torch.promote_types(x.dtype, dtype)
+    y = x.to(ct) @ p["w"].to(dtype).to(ct)
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(dtype).to(ct)
     return y
 
 
@@ -55,6 +61,25 @@ def mlp_apply(params: Sequence[dict], x: torch.Tensor,
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+def rmsnorm_init(d: int, device="cuda") -> dict:
+    return {"scale": torch.ones(d, device=resolve_device(device))}
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale``: the sum of squares in fp32,
+    its inverse root cast to x's dtype before the products, as the
+    reference computes it."""
+    xf = x.to(torch.float32)
+    sq = torch.einsum("...d,...d->...", xf, xf)
+    inv = torch.rsqrt(sq[..., None] / x.shape[-1] + eps)
+    return (x * inv.to(x.dtype)) * p["scale"].to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate) * up
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,11 +1,12 @@
 """The port on the card: each CUDA kernel against its plain version (the
 compact kernels at bm 16-512, with and without the bucket overrides; the
 padded kernels ``spmm_blockell``, ``spmm_blockell_fused`` and
-``spmm_blockell_update``; ``embedding_bag`` and ``sddmm``), the plans'
-backwards through the kernels (compact, padded and degree-bucketed) and
-``ops.embedding_bag``'s transposed backward, a tiny autotune on the card,
-the serving slice, and wide & deep's ``bag`` lookup against its ``dense``
-one.
+``spmm_blockell_update``; ``embedding_bag``, ``sddmm`` and
+``decode_attention``), the plans' backwards through the kernels (compact,
+padded and degree-bucketed) and ``ops.embedding_bag``'s transposed
+backward, a tiny autotune on the card, the serving slice, wide & deep's
+``bag`` lookup against its ``dense`` one, and an LM decode step with the
+kernel against the plain attention.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -19,7 +20,10 @@ terms in another order); the layer kernel at d_in = 1433 sums 1433 products
 more per output, so it is held to 1e-4 there.  Plans on the ``cuda``
 backend against the ``torch`` backend, values and gradients: 1e-4 (sums of
 up to 1433 terms, then a second product).  Served answers against the
-kernel-computed oracle: 1e-4, the launcher's own bar.
+kernel-computed oracle: 1e-4, the launcher's own bar.  Decode attention
+against its plain version: fp32 1e-4 and bf16 3e-2, the reference's bars
+(``tests/test_kernels.py``), each times the largest |entry| of its (b, h)
+row.
 """
 
 import numpy as np
@@ -644,3 +648,151 @@ def test_widedeep_session_serves_on_the_card():
     rep = eng.serve(zipfian_trace(512, 120, a=1.3, seed=4))
     assert rep.max_oracle_err < 1e-4 and rep.cache.hits > 0
     assert kb.embedding_bag.launches > before
+
+
+# ------------------------------------------------------ decode attention
+def _decode_inputs(B, S, H, KV, d, dtype, seed=0):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                   ).to(dtype)
+    return r(B, H, d), r(B, S, KV, d), r(B, S, KV, d)
+
+
+def _decode_check(q, k, v, cl, dtype):
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels.ref import decode_attention_ref
+    before = kd.decode_attention.launches
+    y = kd.decode_attention(q, k, v, cl)
+    assert kd.decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, k, v, cl)
+    torch.cuda.synchronize()
+    assert y.dtype == q.dtype and y.shape == q.shape
+    # each (b, h) row to tol x its own largest |entry| (a zero row exactly):
+    # an output's size falls as 1 / sqrt(length), so no absolute bar holds
+    # a long row
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    ref = ref.float()
+    bar = tol * ref.abs().amax(-1, keepdim=True)
+    err = (y.float() - ref).abs()
+    assert (err <= bar).all(), \
+        f"error / row bar up to {float((err / bar.clamp_min(1e-30)).max())}"
+    assert torch.equal(kd.decode_attention(q, k, v, cl), y)   # rerun
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,d", [
+    (1, 256, 2, 2, 64), (2, 1024, 4, 4, 128), (3, 512, 1, 1, 32),
+    (2, 4096, 8, 2, 128), (1, 20000, 12, 1, 64), (2, 37, 8, 2, 36),
+    (2, 300, 4, 4, 33), (2, 5, 24, 2, 256), (1, 1, 4, 1, 128)])
+def test_decode_attention_kernel_matches_plain_version(dtype, B, S, H, KV,
+                                                       d):
+    """The reference's shapes, GQA (G = 4, 12), one and many chunks, d not
+    a multiple of 8 (narrower loads) and up to 256, S = 1; ragged
+    lengths."""
+    _need_cuda()
+    q, k, v = _decode_inputs(B, S, H, KV, d, dtype, seed=S + d)
+    gen = torch.Generator("cuda").manual_seed(S)
+    cl = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    _decode_check(q, k, v, cl, dtype)
+
+
+@pytest.mark.parametrize("S", [64, 5000])
+def test_decode_attention_kernel_edge_lengths(S):
+    """cache_len 0 (zeros), 1, S and above S, in one batch; one chunk and
+    many."""
+    _need_cuda()
+    q, k, v = _decode_inputs(4, S, 8, 2, 128, torch.bfloat16)
+    cl = torch.tensor([0, 1, S, S + 100], dtype=torch.int32, device="cuda")
+    y = _decode_check(q, k, v, cl, torch.bfloat16)
+    assert not y[0].any()
+
+
+def test_decode_attention_kernel_on_a_stacked_cache_view():
+    """A layer's view of the stacked cache (strided over b and s) and a
+    cache whose head axis is strided, as given, with no copy."""
+    _need_cuda()
+    q, _, _ = _decode_inputs(2, 1, 8, 2, 64, torch.bfloat16)
+    stack = torch.randn(3, 2, 700, 2, 64, device="cuda").to(torch.bfloat16)
+    cl = torch.tensor([700, 333], dtype=torch.int32, device="cuda")
+    _decode_check(q, stack[1], stack[2], cl, torch.bfloat16)
+    wide = torch.randn(2, 700, 4, 64, device="cuda")
+    _decode_check(q.float(), wide[:, :, ::2], wide[:, :, 1::2], cl,
+                  torch.float32)
+
+
+def test_launch_plan_splits_long_caches():
+    """One chunk (one pass) for a short cache; at granite-8b's decode_32k
+    layer shape (B = 8, 8 KV heads, G = 4, d = 128, bf16), chunks of whole
+    tiles that cover S, one wave of the CTAs an SM holds (3 on an H100:
+    the double-buffered tiles take 74 KB of shared memory); the tile
+    shrinks where a CTA's shared memory would not fit, and a shape that
+    fits at no tile raises."""
+    _need_cuda()
+    from repro_torch.kernels import decode_attention as kd
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16, f32 = torch.bfloat16, torch.float32
+    short = kd.plan(2, 64, 2, 4, 16, f32, 16, dev)
+    assert short["n_split"] == 1 and short["ws"] == 1
+    p = kd.plan(8, 32768, 8, 4, 128, bf16, 16, dev)
+    assert p["tile"] == 64 and p["chunk"] % p["tile"] == 0
+    assert (p["n_split"] - 1) * p["chunk"] < 32768 <= p["n_split"] * p["chunk"]
+    assert 2 * sms < 8 * 8 * p["n_split"] <= 3 * sms
+    assert p["ws"] == 8 * 8 * p["n_split"] * 4 * (128 + 2)
+    long = kd.plan(1, 524288, 8, 4, 128, bf16, 16, dev)
+    assert long["n_split"] * long["chunk"] >= 524288
+    assert 2 * sms < 8 * long["n_split"] <= 3 * sms
+    big = kd.plan(1, 4096, 1, 24, 256, f32, 16, dev)
+    assert big["tile"] < p["tile"]
+    with pytest.raises(ValueError, match="shared memory"):
+        kd.plan(1, 4096, 1, 96, 256, f32, 16, dev)
+
+
+def test_decode_attention_wrapper_raises_on_the_card():
+    _need_cuda()
+    from repro_torch.kernels import decode_attention as kd
+    q, k, v = _decode_inputs(2, 16, 4, 2, 8, torch.float32)
+    cl = torch.tensor([3, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="is on"):
+        kd.decode_attention(q, k.cpu(), v, cl)
+    with pytest.raises(TypeError, match="int32"):
+        kd.decode_attention(q, k, v, cl.cpu())
+    with pytest.raises(NotImplementedError, match="backward"):
+        kd.decode_attention(q.requires_grad_(), k, v, cl)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_decode_kernel_matches_plain_attention(dtype):
+    """``REDUCED`` granite-8b: prefill, then 4 decode steps with the
+    kernel (2 launches a step, one per layer) against the same steps on
+    ``attn="plain"`` (the reference's einsums), logits within 1e-4 (fp32)
+    or 3e-2 (bf16) of their largest entry."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.configs.granite_8b import REDUCED
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(REDUCED, dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    params = tf.lm_init(gen, cfg, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen).cuda()
+    steps = torch.randint(0, cfg.vocab, (2, 4), generator=gen).cuda()
+    out = {}
+    with torch.inference_mode():
+        _, caches = tf.lm_prefill(params, prompt, cfg)
+        for attn in ("kernel", "plain"):
+            full = tf.make_kv_caches(cfg, 2, 64, device="cuda")
+            for buf, c in zip(full["dense"], caches["dense"]):
+                buf[:, :, :16] = c
+            before = kd.decode_attention.launches
+            out[attn] = torch.stack([
+                tf.lm_decode_step(params, steps[:, i:i + 1], full, 16 + i,
+                                  cfg, 64, attn=attn)[0] for i in range(4)])
+            launched = kd.decode_attention.launches - before
+            assert launched == (8 if attn == "kernel" else 0)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    ref = out["plain"].float()
+    torch.testing.assert_close(out["kernel"].float(), ref, rtol=0,
+                               atol=tol * float(ref.abs().max()))

@@ -44,6 +44,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.configs.base", "repro_torch.configs.families",
                 "repro_torch.configs.gcn_cora",
                 "repro_torch.configs.wide_deep",
+                "repro_torch.configs.granite_8b",
+                "repro_torch.configs.minitron_8b",
+                "repro_torch.configs.mistral_large_123b",
                 "repro_torch.configs.registry",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
                 "repro_torch.core.cache_model", "repro_torch.exec.plan",
@@ -56,6 +59,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.kernels.spmm_blockell",
                 "repro_torch.kernels.embedding_bag",
                 "repro_torch.kernels.sddmm",
+                "repro_torch.kernels.decode_attention",
+                "repro_torch.nn.attention", "repro_torch.models.transformer",
                 "repro_torch.models.recsys", "repro_torch.nn.embedding",
                 "repro_torch.train.data",
                 "repro_torch.launch.serve", "repro_torch.launch.train",
@@ -76,7 +81,7 @@ def test_port_imports_neither_jax_nor_reference():
                                   "spmm_blockell_update_compact",
                                   "spmm_blockell", "spmm_blockell_fused",
                                   "spmm_blockell_update", "embedding_bag",
-                                  "sddmm"])
+                                  "sddmm", "decode_attention"])
 def test_kernel_source_ships_beside_the_package(name):
     from repro_torch.kernels import _build
     src = _build.CSRC / f"{name}.cu"
