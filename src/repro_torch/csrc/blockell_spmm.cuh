@@ -11,29 +11,48 @@
 // table of a BlockEll.  A_s is a (bm, bk) tile, uint8 0/1 (the exact
 // bitmask) or fp32.
 //
-// Translation.  The Pallas grid runs its slots in order and keeps one output
-// block resident across a row's consecutive slots (first/last predicates).
-// CUDA blocks run in parallel and in no order, so a block per slot would race
-// on the output.  Here each CUDA block owns one (destination block r, 32-row
-// strip, 32-column strip) of y and walks the slots of r in a loop,
-// accumulating in fp32 registers: the self term first, every slot next,
-// s_out last, then one store.  No atomics, so a run is bit-reproducible.  The
-// walk steps a (slot, depth chunk) pair and loads the next chunk into
-// registers before the current chunk's FMAs, so their latency overlaps the
-// arithmetic; tiles are converted to fp32 and x is pre-scaled by s_in while a
-// 32-deep chunk is staged in shared memory, so the inner loop is one
-// broadcast shared load per FMA row and one conflict-free load per column.
-// The 128-lane padding of d, the zero-padded x of C*bk rows and the 2-D
-// scales of the TPU plan are gone: x keeps (n_src, d), the scales are 1-D,
-// and the kernel masks every ragged edge itself.
+// Translation.  The Pallas grid runs its slots in order, keeps one output
+// block resident across a row's consecutive slots (first/last predicates)
+// and multiplies every dense tile on the MXU.  On Cora's plans the tiles
+// are 0.13% full (~22 set entries in 16,384), so here no tile is
+// multiplied.  A warp owns one destination row (and a strip of up to 128
+// feature columns).  It reads that row's stripe of every slot's tile, the
+// slots flattened into one run of count * bk entries, 16 bytes a lane (16
+// uint8 entries or 4 fp32; 4 uint8 stripes of bk = 128 a warp load), kDepth
+// loads in flight and none waiting on an index.  A warp ballot and prefix
+// sum list the set entries, in slot-then-k order, in the warp's shared
+// memory as (x row, coefficient) pairs.  The lanes then gather only those
+// rows of x: lane groups as narrow as the strip allows (4 lanes, a float4
+// each, at d = 16: 8 entries at once) take every G-th entry, kBatch rows in
+// flight a lane, and add their partial sums in a fixed butterfly at the
+// end.  Where a strip needs all 32 lanes for one entry and one row's list
+// is far longer than its CUDA block's mean (a hub of a transposed plan),
+// the block's warps cut the block's lists into equal ranges and each row
+// adds the warps' partial sums in warp order.  The self term comes first,
+// s_out last, then one store.  No atomics, and the order of every sum is
+// fixed by the data alone, so a rerun is bit-identical.  The 128-lane
+// padding of d, the zero-padded x of C*bk rows and the 2-D scales of the
+// TPU plan are gone: x keeps (n_src, d), the scales are 1-D, and the kernel
+// masks every ragged edge itself.
 //
-// What bounds it on an H100.  On Cora at bm = bk = 128 (~460-480 active
-// slots) one launch streams ~7.6-7.9 MB of uint8 tiles, ~2.3 us of HBM time;
-// the dense-tile products are 2*n_active*128^2*d FLOP (~1 GFLOP at d = 64,
-// ~15 us at 67 TFLOP/s fp32) while the edges need only 2*nnz*d.  As written
-// the kernel is bound by neither but by the latency of its serial walk
-// (~22 slots x 4 staged chunks, two barriers each, per CUDA block).  Plain
-// fp32 FMA, no TF32: the port's parity bar is 1e-5.
+// Why skipping zeros leaves the sum unchanged.  The dense product adds
+// fmaf(a, v, acc) for every entry a of a row.  For a zero entry and finite
+// v that is fmaf(0, v, acc) == acc exactly, so a walk over the set entries
+// alone, in the same order, gives the same fp32 sum bit for bit, for 0/1
+// tiles and for the zeros of fp32 tiles alike (only a non-finite x under a
+// zero entry, which the dense chain turns into NaN, is dropped).  Within a
+// lane group this kernel keeps that order; where groups or warps split a
+// row, it adds their partial sums in a fixed order: the same products,
+// reassociated, within the port's 1e-5 fp32 bar.  Plain fp32 FMA, no TF32.
+//
+// What bounds it on an H100.  Arithmetic is 2*nnz*d FLOP, nothing.  On Cora
+// at bm = bk = 128 (~460-480 active slots) a launch must read ~7.6-7.9 MB of
+// uint8 tiles (~2.3 us at 3.35 TB/s) and one d-wide row of x per edge.  It
+// takes ~8 us (chip_smoke.py): the launch and its first loads, then the
+// scan's six dependent steps of 16-byte loads a row, with a whole card's
+// worth of them in flight, then one or two rounds of gathers.  A transposed
+// launch adds its hub's rounds: 337 entries on Cora, ~6 rounds at d = 16 in
+// lane groups, ~11 at d = 128 in a shared block.
 
 #pragma once
 
@@ -45,118 +64,347 @@
 namespace blockell {
 namespace spmm {
 
-constexpr int TM = 32;        // destination rows per CUDA block
-constexpr int TN = 32;        // feature columns per CUDA block (one per lane)
-constexpr int KC = 32;        // source rows per staged chunk
-constexpr int NT = 256;       // threads: 8 warps x 32 lanes
-constexpr int RPT = TM / (NT / TN);      // rows per thread = 4
-constexpr int A_PER_T = TM * KC / NT;    // staged tile elements per thread = 4
-constexpr int X_PER_T = KC * TN / NT;    // staged x elements per thread = 4
+constexpr int kWarps = 4;              // destination rows per CUDA block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 128;             // feature columns per warp, 4 a lane
+constexpr int kCap = 512;              // listed entries per warp: one step's most
+constexpr int kDepth = 2;              // tile chunks in flight per lane
+constexpr int kBatch = 8;              // x rows in flight per lane
+constexpr int kMinBlocks = 5;          // CUDA blocks resident per SM
+constexpr int kShare = 64;             // a longer list than this, and than
+                                       // twice the block's mean, is shared
+constexpr unsigned kAll = 0xffffffffu;
 
-// SCALED: s_in, s_out and the optional self term (kernels 2 and 3); without
-// it, y = A x (kernel 1).  The self term reads rows < n_diag of x_diag.
-template <typename Slots, typename TileT, bool SCALED>
-__global__ void __launch_bounds__(NT)
+// E consecutive entries of a tile row as raw bits: 16 bytes, or one entry
+// in .x where bk or the pointer does not allow 16-byte loads.
+template <typename TileT, int E>
+__device__ __forceinline__ uint4 load_chunk(const TileT* p) {
+  if constexpr (E * sizeof(TileT) == 16) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    static_assert(E == 1, "a chunk is 16 bytes or one entry");
+    if constexpr (sizeof(TileT) == 1)
+      return make_uint4(__ldg(p), 0u, 0u, 0u);
+    else
+      return make_uint4(__float_as_uint(__ldg(p)), 0u, 0u, 0u);
+  }
+}
+
+// bit i set: entry i of the chunk is nonzero (for fp32, +0 and -0 are zero)
+template <typename TileT, int E>
+__device__ __forceinline__ unsigned nonzero_mask(uint4 c) {
+  const unsigned w[4] = {c.x, c.y, c.z, c.w};
+  unsigned m = 0;
+  if constexpr (sizeof(TileT) == 1) {
+#pragma unroll
+    for (int q = 0; q < (E + 3) / 4; ++q) {
+      unsigned t = w[q] | (w[q] >> 4);
+      t |= t >> 2;
+      t |= t >> 1;                     // bit 8j: byte j is nonzero
+      m |= ((t & 1u) | ((t >> 7) & 2u) | ((t >> 14) & 4u)
+            | ((t >> 21) & 8u)) << (4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < E; ++q) m |= unsigned((w[q] << 1) != 0u) << q;
+  }
+  return m;
+}
+
+template <typename TileT>
+__device__ __forceinline__ float entry(uint4 c, int i) {
+  if constexpr (sizeof(TileT) == 1) {
+    const unsigned w = i < 8 ? (i < 4 ? c.x : c.y) : (i < 12 ? c.z : c.w);
+    return static_cast<float>((w >> (8 * (i & 3))) & 0xffu);
+  } else {
+    return __uint_as_float(i < 2 ? (i == 0 ? c.x : c.y)
+                                 : (i == 2 ? c.z : c.w));
+  }
+}
+
+// This lane's place in the gathers: entries e = g, g + G, g + 2G, ... of
+// the list go to lane group g of G groups of lg = 32 / G lanes; lane j of
+// a group holds 4 feature columns of the warp's strip, as one float4 (V =
+// 4: columns c0 + 4j .. c0 + 4j + 3) or 4 floats lg apart (V = 1: c0 + j +
+// lg*q).  G = 32 / lg with lg the fewest lanes (a power of 2) that cover
+// the strip, so narrow rows keep every lane busy.
+template <int V>
+struct Lanes {
+  int g, G, j, lg, c0;
+
+  __device__ __forceinline__ Lanes(int lane, int d, int strip) {
+    const int w = min(d - strip * kCols, kCols);      // columns in the strip
+    const int need = (w + 3) / 4;                    // 4 columns a lane
+    lg = 1;
+    while (lg < need) lg <<= 1;
+    G = 32 / lg;
+    g = lane / lg;
+    j = lane % lg;
+    c0 = strip * kCols;
+  }
+  __device__ __forceinline__ int col(int q) const {
+    return V == 4 ? c0 + 4 * j + q : c0 + j + lg * q;
+  }
+  // this lane's 4 columns of row i of base (0 past d)
+  __device__ __forceinline__ void load(const float* __restrict__ base,
+                                       long long i, int d,
+                                       float (&v)[4]) const {
+    const float* p = base + i * d;
+    if constexpr (V == 4) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (col(0) < d) t = __ldg(reinterpret_cast<const float4*>(p + col(0)));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = col(q) < d ? __ldg(p + col(q)) : 0.f;
+    }
+  }
+};
+
+// Add the lane groups' partial sums, in a fixed order; every group ends
+// with the total.
+template <int V>
+__device__ __forceinline__ void reduce_groups(const Lanes<V>& ln,
+                                              float (&acc)[4]) {
+  for (int o = 16; o >= ln.lg; o >>= 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += __shfl_xor_sync(kAll, acc[q], o);
+  }
+}
+
+// Accumulate this lane group's share of the n listed entries: kBatch rows
+// of x in flight per lane, their loads issued before any of their FMAs (an
+// index past n reads entry n - 1 and adds nothing), the FMAs in list order.
+template <int V, bool SCALED>
+__device__ __forceinline__ void gather(const int* list_src,
+                                       const float* list_a, int n,
+                                       const Lanes<V>& ln,
+                                       const float* __restrict__ x,
+                                       const float* __restrict__ s_in, int d,
+                                       float (&acc)[4]) {
+  __syncwarp();
+  for (int e0 = ln.g; e0 < n; e0 += kBatch * ln.G) {
+    float xv[kBatch][4], sv[kBatch], av[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = min(e0 + u * ln.G, n - 1);
+      const int src = list_src[e];
+      av[u] = list_a[e];
+      sv[u] = SCALED ? __ldg(s_in + src) : 1.0f;
+      ln.load(x, src, d, xv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (e0 + u * ln.G < n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[q] = fmaf(av[u], SCALED ? xv[u][q] * sv[u] : xv[u][q], acc[q]);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// E: tile entries a lane loads at once; V: see Lanes.  SCALED: s_in, s_out
+// and the optional self term (kernels 2 and 3); without it, y = A x
+// (kernel 1).  The self term reads rows < n_diag of x_diag.
+template <typename Slots, typename TileT, int E, int V, bool SCALED>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 kernel(Slots slots, const TileT* __restrict__ blocks,
        const float* __restrict__ x, const float* __restrict__ s_in,
        const float* __restrict__ s_out, const float* __restrict__ x_diag,
        const float* __restrict__ s_in_diag, float* __restrict__ y, int n_src,
        int n_dst, int n_diag, int bm, int bk, int d, int add_diag) {
-  const int r = blockIdx.x;
-  const int end = slots.end(r);
-  int s = slots.first(r);
-  if (!Slots::kEveryRow && s == end) return;   // rows left to the caller
+  __shared__ int list_src[kWarps][kCap];
+  __shared__ float list_a[kWarps][kCap];
+  __shared__ int list_n[kWarps];
+  __shared__ float part[kWarps][kWarps][kCols];   // [warp][row][column]
 
-  const int m0 = blockIdx.y * TM;         // strip of rows inside block r
-  const int j0 = blockIdx.z * TN;         // strip of feature columns
-  const int tx = threadIdx.x % TN;        // this thread's column
-  const int ty = threadIdx.x / TN;        // this thread's first row
-  const int j = j0 + tx;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strips = (bm + kWarps - 1) / kWarps;
+  const int r = blockIdx.x / strips;
+  const int m = (blockIdx.x % strips) * kWarps + warp;   // row inside r
+  const long long row = (long long)r * bm + m;
+  // a warp past the block's rows or n_dst reads nothing and writes
+  // nothing, but joins the block's barriers
+  const bool live = m < bm && row < n_dst;
+  const SlotRange slots_r = slots.range(r);
+  if (!Slots::kEveryRow && slots_r.count == 0) return;  // left to the caller
+  const Lanes<V> ln(lane, d, blockIdx.y);
 
-  __shared__ float a_s[TM][KC];
-  __shared__ float x_s[KC][TN];
+  const float so = SCALED && live ? s_out[row] : 1.0f;  // read early
 
-  // self term first (the Pallas kernel's first step)
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int m = m0 + ty + i * (NT / TN);
-    const long long row = (long long)r * bm + m;
-    acc[i] = 0.0f;
-    if (SCALED && add_diag && m < bm && row < n_dst && row < n_diag && j < d)
-      acc[i] = x_diag[row * d + j] * s_in_diag[row];
-  }
-
-  const int nk = (bk + KC - 1) / KC;
-  float ra[A_PER_T], rx[X_PER_T];
-
-  // global -> registers for depth chunk kc of slot sl
-  auto load_chunk = [&](int sl, int kc) {
-    const int k0 = kc * KC;
-    const TileT* tile = blocks + slots.tile(r, sl) * bm * bk;
-    const long long src0 = (long long)slots.col(r, sl) * bk + k0;
-#pragma unroll
-    for (int t = 0; t < A_PER_T; ++t) {
-      const int e = threadIdx.x + t * NT;
-      const int m = m0 + e / KC, k = k0 + e % KC;
-      ra[t] = (m < bm && k < bk) ? static_cast<float>(tile[(long long)m * bk + k])
-                                 : 0.0f;
+  // the row's slots as one run of count * bk entries, 32 * E a step; this
+  // lane's next chunk starts at entry k0 of slot pos, and moves by dpos
+  // slots and dk entries a step
+  const int per_step = 32 * E;
+  const int n_steps =
+      live ? (slots_r.count * bk + per_step - 1) / per_step : 0;
+  const int dpos = per_step / bk, dk = per_step - dpos * bk;
+  int pos = lane * E / bk, k0 = lane * E - pos * bk;
+  if (!live) pos = slots_r.count;                 // nothing to read
+  const long long tile_elems = (long long)bm * bk;
+  const int32_t* cols = slots.slot_cols() + slots_r.first;
+  const TileT* tiles = blocks + slots_r.first * tile_elems + (long long)m * bk;
+  // the next chunk's bits, source block and first entry; nothing here
+  // waits on a load, so kDepth chunks stay in flight
+  auto fetch = [&](uint4& c, int& cb, int& k) {
+    c = make_uint4(0u, 0u, 0u, 0u);
+    cb = -1;
+    k = k0;
+    if (pos < slots_r.count) {
+      cb = cols[pos];
+      c = load_chunk<TileT, E>(tiles + pos * tile_elems + k0);
     }
-#pragma unroll
-    for (int t = 0; t < X_PER_T; ++t) {
-      const int e = threadIdx.x + t * NT;
-      const int kk = e / TN, col = j0 + e % TN;
-      const long long src = src0 + kk;
-      float v = 0.0f;
-      if (k0 + kk < bk && src < n_src && col < d) {
-        v = x[src * d + col];
-        if (SCALED) v *= s_in[src];
-      }
-      rx[t] = v;
+    pos += dpos;
+    k0 += dk;
+    if (k0 >= bk) {
+      k0 -= bk;
+      ++pos;
     }
   };
 
-  int kc = 0;
-  if (s < end) load_chunk(s, 0);
-  while (s < end) {
+  int* my_src = list_src[warp];
+  float* my_a = list_a[warp];
+  uint4 ring[kDepth];
+  int ring_cb[kDepth], ring_k[kDepth];
 #pragma unroll
-    for (int t = 0; t < A_PER_T; ++t) {
-      const int e = threadIdx.x + t * NT;
-      a_s[e / KC][e % KC] = ra[t];
-    }
+  for (int i = 0; i < kDepth; ++i) fetch(ring[i], ring_cb[i], ring_k[i]);
+
+  // self term first (the Pallas kernel's first step), in group 0's sum
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (SCALED && add_diag && live && row < n_diag && ln.g == 0) {
+    const float sd = s_in_diag[row];
+    ln.load(x_diag, row, d, acc);
 #pragma unroll
-    for (int t = 0; t < X_PER_T; ++t) {
-      const int e = threadIdx.x + t * NT;
-      x_s[e / TN][e % TN] = rx[t];
-    }
-    __syncthreads();
-    // the next chunk: the next depth of this slot, or the next slot
-    int ns = s, nkc = kc + 1;
-    if (nkc == nk) {
-      nkc = 0;
-      ns = slots.next(r, s);
-    }
-    if (ns < end) load_chunk(ns, nkc);      // in flight during the FMAs
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      const float xv = x_s[kk][tx];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        acc[i] = fmaf(a_s[ty + i * (NT / TN)][kk], xv, acc[i]);
-    }
-    __syncthreads();
-    s = ns;
-    kc = nkc;
+    for (int q = 0; q < 4; ++q) acc[q] *= sd;
   }
 
-  // s_out last (the Pallas kernel's last step), then the one store
+  int listed = 0;
+  for (int step = 0; step < n_steps; ++step) {
+    const uint4 c = ring[0];
+    const int cb = ring_cb[0], k = ring_k[0];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int m = m0 + ty + i * (NT / TN);
-    const long long row = (long long)r * bm + m;
-    if (m < bm && row < n_dst && j < d)
-      y[row * d + j] = SCALED ? acc[i] * s_out[row] : acc[i];
+    for (int i = 0; i + 1 < kDepth; ++i) {
+      ring[i] = ring[i + 1];
+      ring_cb[i] = ring_cb[i + 1];
+      ring_k[i] = ring_k[i + 1];
+    }
+    fetch(ring[kDepth - 1], ring_cb[kDepth - 1], ring_k[kDepth - 1]);
+
+    // the set entries of this lane's chunk (padding slots and source rows
+    // past n_src have none)
+    unsigned mask = 0;
+    const int src0 = cb * bk + k;
+    if ((c.x | c.y | c.z | c.w) != 0u && (!Slots::kPadding || cb >= 0)) {
+      mask = nonzero_mask<TileT, E>(c);
+      const int room = n_src - src0;
+      if (room < E) mask &= room > 0 ? (1u << room) - 1u : 0u;
+    }
+    const int cnt = __popc(mask);
+    if (!__any_sync(kAll, cnt)) continue;
+    int incl = cnt;                      // inclusive prefix sum over lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += t;
+    }
+    const int total = __shfl_sync(kAll, incl, 31);
+    if (listed + total > kCap) {
+      gather<V, SCALED>(my_src, my_a, listed, ln, x, s_in, d, acc);
+      listed = 0;
+    }
+    int at = listed + incl - cnt;
+    while (mask) {                       // this lane's entries, in k order
+      const int i = __ffs(mask) - 1;
+      mask &= mask - 1;
+      my_src[at] = src0 + i;
+      my_a[at] = entry<TileT>(c, i);
+      ++at;
+    }
+    listed += total;
   }
+  // Each warp gathers its own list, unless a strip needs every lane for
+  // one entry (G = 1) and one list (a hub row) is much longer than the
+  // block's mean: then the block's entries are cut into kWarps equal
+  // ranges, one a warp, and each row adds its partial sums in warp order.
+  // Either way the order is fixed by the data alone.
+  bool share = false;
+  int total = 0;
+  if (ln.G == 1) {                     // the same in every warp of the block
+    if (lane == 0) list_n[warp] = listed;
+    __syncthreads();
+    int longest = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      total += list_n[w];
+      longest = max(longest, list_n[w]);
+    }
+    share = longest > kShare && longest * kWarps > 2 * total;
+  }
+  if (!share) gather<V, SCALED>(my_src, my_a, listed, ln, x, s_in, d, acc);
+  reduce_groups(ln, acc);
+  // warp w's range of row rho's list: [a, b)
+  auto range = [&](int w, int rho, int& a, int& b) {
+    int first = 0;
+    for (int i = 0; i < rho; ++i) first += list_n[i];
+    a = max(w * total / kWarps - first, 0);
+    b = min((w + 1) * total / kWarps - first, list_n[rho]);
+  };
+  if (share) {
+    for (int rho = 0; rho < kWarps; ++rho) {
+      int a, b;
+      range(warp, rho, a, b);
+      if (a >= b) continue;
+      float p[4] = {0.f, 0.f, 0.f, 0.f};
+      gather<V, SCALED>(list_src[rho] + a, list_a[rho] + a, b - a, ln, x,
+                        s_in, d, p);
+      reduce_groups(ln, p);
+      if (ln.g == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[warp][rho][ln.col(q) - ln.c0] = p[q];
+      }
+    }
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) {
+      int a, b;
+      range(w, warp, a, b);
+      if (a >= b) continue;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += part[w][warp][ln.col(q) - ln.c0];
+    }
+  }
+  if (!live || ln.g != 0) return;
+
+  // s_out last (the Pallas kernel's last step), then the one store
+  float* out = y + row * d;
+  if constexpr (V == 4) {
+    if (ln.col(0) < d)
+      *reinterpret_cast<float4*>(out + ln.col(0)) =
+          SCALED ? make_float4(acc[0] * so, acc[1] * so, acc[2] * so,
+                               acc[3] * so)
+                 : make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (ln.col(q) < d) out[ln.col(q)] = SCALED ? acc[q] * so : acc[q];
+  }
+}
+
+template <typename Slots, typename TileT, int E, bool SCALED>
+void launch_typed(dim3 grid, cudaStream_t st, bool float4_cols, Slots slots,
+                  const TileT* blocks, const float* x, const float* s_in,
+                  const float* s_out, const float* x_diag,
+                  const float* s_in_diag, float* y, int n_src, int n_dst,
+                  int n_diag, int bm, int bk, int d, int add_diag) {
+  if (float4_cols)
+    kernel<Slots, TileT, E, 4, SCALED><<<grid, kThreads, 0, st>>>(
+        slots, blocks, x, s_in, s_out, x_diag, s_in_diag, y, n_src, n_dst,
+        n_diag, bm, bk, d, add_diag);
+  else
+    kernel<Slots, TileT, E, 1, SCALED><<<grid, kThreads, 0, st>>>(
+        slots, blocks, x, s_in, s_out, x_diag, s_in_diag, y, n_src, n_dst,
+        n_diag, bm, bk, d, add_diag);
 }
 
 template <bool SCALED, typename Slots>
@@ -165,16 +413,35 @@ int launch(Slots slots, int n_row_blocks, const void* blocks, int tile_is_u8,
            const float* x_diag, const float* s_in_diag, float* y, int n_src,
            int n_dst, int n_diag, int bm, int bk, int d, int add_diag,
            void* stream) {
-  const dim3 grid(n_row_blocks, (bm + TM - 1) / TM, (d + TN - 1) / TN);
+  const dim3 grid(n_row_blocks * ((bm + kWarps - 1) / kWarps),
+                  (d + kCols - 1) / kCols);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile_is_u8)
-    kernel<Slots, uint8_t, SCALED><<<grid, NT, 0, st>>>(
-        slots, static_cast<const uint8_t*>(blocks), x, s_in, s_out, x_diag,
-        s_in_diag, y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
-  else
-    kernel<Slots, float, SCALED><<<grid, NT, 0, st>>>(
-        slots, static_cast<const float*>(blocks), x, s_in, s_out, x_diag,
-        s_in_diag, y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool float4_cols = d % 4 == 0 && aligned(x) && aligned(y)
+                           && !(SCALED && add_diag && !aligned(x_diag));
+  if (tile_is_u8) {
+    const auto* b = static_cast<const uint8_t*>(blocks);
+    if (bk % 16 == 0 && aligned(b))
+      launch_typed<Slots, uint8_t, 16, SCALED>(
+          grid, st, float4_cols, slots, b, x, s_in, s_out, x_diag, s_in_diag,
+          y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
+    else
+      launch_typed<Slots, uint8_t, 1, SCALED>(
+          grid, st, float4_cols, slots, b, x, s_in, s_out, x_diag, s_in_diag,
+          y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
+  } else {
+    const auto* b = static_cast<const float*>(blocks);
+    if (bk % 4 == 0 && aligned(b))
+      launch_typed<Slots, float, 4, SCALED>(
+          grid, st, float4_cols, slots, b, x, s_in, s_out, x_diag, s_in_diag,
+          y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
+    else
+      launch_typed<Slots, float, 1, SCALED>(
+          grid, st, float4_cols, slots, b, x, s_in, s_out, x_diag, s_in_diag,
+          y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

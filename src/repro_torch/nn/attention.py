@@ -173,7 +173,16 @@ def insert_kv(cache: torch.Tensor, new: torch.Tensor, pos: int
               ) -> torch.Tensor:
     """cache: (B, L, n_kv, D); new: (B, 1, n_kv, D); pos: the step.  Writes
     ``new`` at ``pos`` **in place** and returns ``cache`` (the reference
-    returns an updated copy and donates the old one)."""
+    returns an updated copy and donates the old one).
+
+    Raises ``IndexError`` for ``pos`` outside [0, L): the reference's
+    dynamic slice clamps such a position (and wraps -1 to L - 1), which
+    would silently overwrite a cached token.
+    """
+    L = cache.shape[1]
+    if not 0 <= pos < L:
+        raise IndexError(f"cache position {pos} is outside the cache's "
+                         f"{L} rows")
     cache[:, pos:pos + 1] = new.to(cache.dtype)
     return cache
 

@@ -353,6 +353,153 @@ def test_padded_kernels_match_plain_versions(bm, tiles, d, add_diag):
     assert torch.equal(sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out,
                                               bm=bm, bk=bm,
                                               add_diag=add_diag), y)
+    assert torch.equal(sk.spmm_blockell(cols, blocks, x, bm=bm, bk=bm,
+                                        n_dst=g.num_nodes), z)
+
+
+# ---------------------------------------------------------------------------
+# the zero-skipping walk of blockell_spmm.cuh at its worst
+# ---------------------------------------------------------------------------
+def _worst_case_graph(weighted, n=768, bm=128, seed=0):
+    """Row 5 takes an edge from every node (a tile row of ones in each of
+    the 6 source blocks: 768 listed entries, more than one warp's list);
+    destination block 1 takes every edge of source block 1 (a fully dense
+    tile); 2000 random edges land in rows < 512, so blocks 4 and 5 have no
+    active slot."""
+    rng = np.random.default_rng(seed)
+    blk = np.arange(bm, 2 * bm)
+    src = np.concatenate([np.arange(n), np.tile(blk, bm),
+                          rng.integers(0, n, 2000)])
+    dst = np.concatenate([np.full(n, 5), np.repeat(blk, bm),
+                          rng.integers(0, 4 * bm, 2000)])
+    _, keep = np.unique(dst * n + src, return_index=True)
+    w = rng.uniform(0.1, 1, keep.size).astype(np.float32)
+    return Graph(src=src[keep].astype(np.int32), dst=dst[keep].astype(np.int32),
+                 num_nodes=n, edge_weight=w if weighted else None)
+
+
+def _close_rows(got, ref):
+    """|got - ref| <= 1e-5 of each row's largest |entry| (at least 1e-5):
+    the hub row sums 768 products in another order than the plain
+    version's, so its entries, and their rounding, are ~5x a mean row's."""
+    bar = TOL * ref.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    worst = float(((got - ref).abs() / bar).max())
+    assert worst <= 1.0, f"error {worst:.3g} x the bar"
+
+
+@pytest.mark.parametrize("walk", ["compact", "padded"])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("d", [1, 7, 16, 33, 128, 129])
+def test_zero_skipping_walk_at_dense_rows_and_hubs(walk, tiles, d):
+    """All-ones tile rows, a fully dense tile and a hub row of degree 768
+    (the mean is ~26) through both walks, at widths on and off the float4
+    path (d = 129 takes two column strips): the kernels against their
+    plain versions, one launch a call, bit-identical reruns; the compact
+    walk leaves the rows of empty blocks unwritten (NaN kept), the padded
+    walks write them (self term, or zero for y = A x)."""
+    _need_cuda()
+    g = _worst_case_graph(weighted=tiles == "f32")
+    n, bm = g.num_nodes, 128
+    gen = torch.Generator("cuda").manual_seed(d)
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    s_in = torch.rand(n, device="cuda", generator=gen) + 0.2
+    s_out = torch.rand(n, device="cuda", generator=gen) + 0.2
+    empty = torch.arange(n, device="cuda") >= 4 * bm
+    if walk == "compact":
+        args, written = _case(g, bm, d, tiles, False)
+        ro, cols, blocks = args[:3]
+        assert bool((written == ~empty).all())
+        kw = dict(bm=bm, bk=bm, add_diag=True)
+        ref = spmm_blockell_compact_ref(ro, cols, blocks, x, s_in, s_out,
+                                        **kw)
+        before = sk.spmm_blockell_compact.launches
+        y = sk.spmm_blockell_compact(ro, cols, blocks, x, s_in, s_out, **kw)
+        torch.cuda.synchronize()
+        assert sk.spmm_blockell_compact.launches == before + 1
+        _close_rows(y[written], ref[written])
+        again = sk.spmm_blockell_compact(ro, cols, blocks, x, s_in, s_out,
+                                         **kw)
+        assert torch.equal(again[written], y[written])
+        # the raw entry point into a NaN-filled y: empty blocks stay NaN
+        raw = torch.full((n, d), float("nan"), device="cuda")
+        err = sk._kernel_fn("spmm_blockell_compact")(
+            ro.data_ptr(), cols.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+            s_in.data_ptr(), s_out.data_ptr(), x.data_ptr(), s_in.data_ptr(),
+            raw.data_ptr(), int(tiles == "u8"), ro.numel() - 1, n, n, bm, bm,
+            d, 1, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(raw[written], y[written])
+        assert bool(raw[empty].isnan().all())
+        return
+    _, (cols, blocks), _ = _padded(g, bm, tiles)
+    before = (sk.spmm_blockell_fused.launches, sk.spmm_blockell.launches)
+    y = sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out, bm=bm, bk=bm,
+                               add_diag=True)
+    z = sk.spmm_blockell(cols, blocks, x, bm=bm, bk=bm, n_dst=n)
+    torch.cuda.synchronize()
+    assert (sk.spmm_blockell_fused.launches,
+            sk.spmm_blockell.launches) == (before[0] + 1, before[1] + 1)
+    _close_rows(y, spmm_blockell_fused_ref(cols, blocks, x, s_in, s_out,
+                                           bm=bm, bk=bm, add_diag=True))
+    _close_rows(z, spmm_blockell_ref(cols, blocks, x, bm=bm, bk=bm, n_dst=n))
+    torch.testing.assert_close(y[empty], x[empty] * (s_in * s_out)[empty,
+                                                                    None],
+                               atol=TOL, rtol=TOL)
+    assert not z[empty].any()
+    assert torch.equal(sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out,
+                                              bm=bm, bk=bm, add_diag=True), y)
+    assert torch.equal(sk.spmm_blockell(cols, blocks, x, bm=bm, bk=bm,
+                                        n_dst=n), z)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("walk", ["compact", "padded"])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("ragged", ["bk=18", "offset"])
+def test_zero_skipping_walk_off_16_byte_chunks(walk, tiles, ragged):
+    """Where a tile row cannot be read 16 bytes at a time (bm = bk = 18 is
+    no multiple of 16 uint8 or 4 fp32 entries; or tiles and x that start
+    off a 16-byte boundary, which also keeps x off the float4 path), the
+    walk reads one entry a lane, with the same results."""
+    _need_cuda()
+    g = _random_graph(n=200, e=1500, seed=3, weighted=tiles == "f32")
+    bm, d = (18, 9) if ragged == "bk=18" else (16, 8)
+    if walk == "compact":
+        args, written = _case(g, bm, d, tiles, False)
+        if ragged == "offset":
+            args = (*args[:2], _offset(args[2]), _offset(args[3]), *args[4:])
+        kw = dict(bm=bm, bk=bm, add_diag=True)
+        y = sk.spmm_blockell_compact(*args, **kw)
+        ref = spmm_blockell_compact_ref(*args, **kw)
+        torch.testing.assert_close(y[written], ref[written], atol=TOL,
+                                   rtol=TOL)
+        assert torch.equal(sk.spmm_blockell_compact(*args, **kw)[written],
+                           y[written])
+        return
+    _, (cols, blocks), (s_in, s_out) = _padded(g, bm, tiles)
+    x = torch.randn(g.num_nodes, d, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    if ragged == "offset":
+        blocks, x = _offset(blocks), _offset(x)
+    torch.testing.assert_close(
+        sk.spmm_blockell(cols, blocks, x, bm=bm, bk=bm, n_dst=g.num_nodes),
+        spmm_blockell_ref(cols, blocks, x, bm=bm, bk=bm, n_dst=g.num_nodes),
+        atol=TOL, rtol=TOL)
+    torch.testing.assert_close(
+        sk.spmm_blockell_fused(cols, blocks, x, s_in, s_out, bm=bm, bk=bm,
+                               add_diag=True),
+        spmm_blockell_fused_ref(cols, blocks, x, s_in, s_out, bm=bm, bk=bm,
+                                add_diag=True), atol=TOL, rtol=TOL)
 
 
 def test_padded_kernels_write_rows_of_empty_blocks():

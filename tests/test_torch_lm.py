@@ -236,6 +236,64 @@ def test_bf16_decode_matches_reference(attn):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("pos", [4, 7, -1, -2])
+def test_insert_kv_raises_outside_the_cache(pos):
+    """The reference's dynamic slice clamps a position past the end (and
+    wraps -1 to L - 1); the port refuses it instead of overwriting a cached
+    token, and leaves the cache untouched."""
+    cache = torch.zeros(2, 4, 1, 3)
+    with pytest.raises(IndexError, match="outside the cache"):
+        attention.insert_kv(cache, torch.ones(2, 1, 1, 3), pos)
+    assert not cache.any()
+    attention.insert_kv(cache, torch.ones(2, 1, 1, 3), 3)
+    assert cache[:, 3].all() and not cache[:, :3].any()
+
+
+def _edge_of_cache(attn, cache_len, B=2, max_seq=8):
+    """granite-8b ``REDUCED`` on the reference's ``lm_init`` parameters,
+    caches drawn from ``default_rng(0)``: one decode step at ``cache_len``
+    on both sides; returns (port logits, port caches, reference logits,
+    reference caches), the reference's None where the port raised."""
+    ref_cfg, cfg = ref_granite.REDUCED, granite_8b.REDUCED
+    ref_params = ref_tf.lm_init(jax.random.PRNGKey(0), ref_cfg)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params),
+                             device="cpu")
+    rng = np.random.default_rng(0)
+    shape = (cfg.n_layers, B, max_seq, cfg.n_kv, cfg.hd)
+    kv = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    token = np.ones((B, 1), np.int32)
+    caches = {"dense": tuple(torch.as_tensor(a.copy()) for a in kv)}
+    with torch.inference_mode():
+        logits, caches = tf.lm_decode_step(params, torch.as_tensor(token),
+                                           caches, cache_len, cfg, max_seq,
+                                           attn=attn)
+    r_logits, r_caches = ref_tf.lm_decode_step(
+        ref_params, jnp.asarray(token),
+        {"dense": tuple(jnp.asarray(a) for a in kv)}, jnp.int32(cache_len),
+        ref_cfg, max_seq)
+    return logits, caches, r_logits, r_caches
+
+
+@pytest.mark.parametrize("attn", ["kernel", "plain"])
+@pytest.mark.parametrize("cache_len", [8, -1])
+def test_decode_step_raises_outside_the_cache(attn, cache_len):
+    """``lm_decode_step`` at ``cache_len = max_seq`` (or -1) raises on both
+    attention paths, where the reference would write row L - 1 and return
+    other logits with no error."""
+    with pytest.raises(IndexError, match="outside the cache"):
+        _edge_of_cache(attn, cache_len)
+
+
+@pytest.mark.parametrize("attn", ["kernel", "plain"])
+def test_decode_step_at_the_last_cache_row_matches_reference(attn):
+    """At ``cache_len = max_seq - 1`` the step writes the last row and
+    still matches the reference: logits and both caches within 1e-5."""
+    logits, caches, r_logits, r_caches = _edge_of_cache(attn, 7)
+    _close(logits, r_logits, TOL, f"logits at the last row ({attn})")
+    for i, (a, b) in enumerate(zip(caches["dense"], r_caches["dense"])):
+        _close(a, b, TOL, f"cache {'kv'[i]} at the last row ({attn})")
+
+
 def test_kv_cache_structure_matches_reference():
     for ref_cfg, cfg in ARCHS.values():
         ref = ref_tf.make_kv_caches(ref_cfg, 3, 40)
