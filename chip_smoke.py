@@ -16,7 +16,8 @@
    (with ``torch.sparse.mm`` as its yardstick) and at the training shapes
    (forward and transpose plans of the MinHash-reordered Cora);
    ``spmm_blockell_update_compact`` in four cases on the reordered Cora,
-   with a bit-identical rerun of the main-path case; both compact kernels
+   with a bit-identical rerun of the main-path case (the update kernels
+   also beside ``composed_update``, two PyTorch calls); both compact kernels
    at the bucketed tiles (bm 256 and 512, with the destination overrides);
    the padded kernels ``spmm_blockell_fused`` (gcn-cora's padded plans at
    bm 128, forward and transposed, and bm 256), ``spmm_blockell`` (the same
@@ -209,11 +210,13 @@ def assert_close_rows(got, ref, tol: float, what: str) -> tuple:
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
-def library_matrix(torch, dev, g, mode, transposed):
+def library_matrix(torch, dev, g, mode, transposed, self_coeff=None):
     """The aggregation one plan side computes, as a CSR matrix for
     ``torch.sparse.mm`` (the yardstick; the port never calls it):
     ``M[v, u] = s_out[v] s_in[u]`` per edge u -> v, plus ``s_out s_in`` on
-    the diagonal in gcn mode; the transposed side is ``Mᵀ``."""
+    the diagonal in gcn mode; the transposed side is ``Mᵀ``.  With
+    ``self_coeff`` c, the update layer's unscaled self term ``c x_v`` is
+    added on the diagonal (GIN's ``(1 + eps) x_v``)."""
     import numpy as np
     from repro_torch.exec.plan import _mode_scales
 
@@ -221,11 +224,15 @@ def library_matrix(torch, dev, g, mode, transposed):
     n = g.num_nodes
     rows, cols = g.dst.astype(np.int64), g.src.astype(np.int64)
     val = s_out[rows] * s_in[cols]
+    loops = np.arange(n)
     if add_diag:
-        loops = np.arange(n)
         rows, cols = np.concatenate([rows, loops]), np.concatenate([cols,
                                                                     loops])
         val = np.concatenate([val, s_out * s_in])
+    if self_coeff is not None:
+        rows, cols = np.concatenate([rows, loops]), np.concatenate([cols,
+                                                                    loops])
+        val = np.concatenate([val, np.full(n, self_coeff)])
     if transposed:
         rows, cols = cols, rows
     idx = torch.as_tensor(np.stack([rows, cols])).to(dev)
@@ -234,6 +241,20 @@ def library_matrix(torch, dev, g, mode, transposed):
         return torch.sparse_coo_tensor(
             idx, torch.as_tensor(val.astype(np.float32)).to(dev), (n, n),
             check_invariants=True).coalesce().to_sparse_csr()
+
+
+COMPOSED = ("two PyTorch calls: torch.sparse.mm over the scaled adjacency "
+            "(self terms on its diagonal), then torch.addmm with the bias; "
+            "ReLU in place")
+
+
+def composed_update(torch, matrix, x, w, bias, relu):
+    """The update kernels' yardstick (``COMPOSED``; no single PyTorch call
+    computes aggregation and W epilogue together, and the port never calls
+    this): ``act(M x @ W + b)`` with ``M`` from :func:`library_matrix`."""
+    agg = torch.sparse.mm(matrix, x)
+    y = agg @ w if bias is None else torch.addmm(bias, agg, w)
+    return y.relu_() if relu else y
 
 
 def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
@@ -466,6 +487,17 @@ def update_phase(torch, dev, g):
         plain_ms = gpu_ms(
             lambda: spmm_blockell_update_compact_ref(*args, **kw),
             n_inner=5 if big else 20)
+        # the two-call yardstick where one matrix holds the whole
+        # aggregation and self term (one W, no overrides)
+        composed_ms = composed_err = None
+        if epi != "two_w" and not override:
+            mat = library_matrix(torch, dev, g, mode, False,
+                                 None if c is None else float(c))
+            composed = lambda: composed_update(torch, mat, x, w, b, relu)
+            composed_err = assert_close_scaled(
+                composed()[active], ref[active], tol,
+                f"two-call yardstick vs plain {name}")
+            composed_ms = gpu_ms(composed, n_inner=5 if big else 20)
         # what the data needs: each input read once, the output written
         # once; the aggregation's sparse products, the scales, the self
         # term and the dense epilogue product(s) on the written rows
@@ -487,7 +519,10 @@ def update_phase(torch, dev, g):
                 "tolerance": tol, "tolerance_why": why, "max_abs_err": err,
                 "ref_max_abs": ref_scale, "ms": ms, "plain_ms": plain_ms,
                 **bound(nbytes, ops),
-                "library_ms": None, "weight": 4 if main else 0}
+                "library_ms": None, "composed_ms": composed_ms,
+                "composed": COMPOSED if composed_ms is not None else None,
+                "composed_vs_plain_err": composed_err,
+                "weight": 4 if main else 0}
         print("case " + json.dumps(case))
         cases.append(case)
     return cases
@@ -557,14 +592,15 @@ def bucket_tile_phase(torch, dev, g):
 
 def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
                 bm, weight, add_diag=False, plan_side=None, library=None,
-                update=None):
+                update=None, composed=None):
     """One padded-kernel case on the side arrays ``a`` of a padded plan:
     the kernel (raw launch, no Python checks) and its plain version, timed,
     held to each other on every row (the padded kernels write them all).
     ``kernel`` is spmm_blockell (y = A x), spmm_blockell_fused or, with
     ``update = (w, bias, w_self, coeff, relu)``, spmm_blockell_update.
     With ``plan_side`` and ``library`` the plan's output is held against
-    ``torch.sparse.mm`` and the library call is timed."""
+    ``torch.sparse.mm`` and the library call is timed; with ``composed``
+    (a :func:`library_matrix`) the update kernel's two-call yardstick."""
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels import spmm_blockell as sk
 
@@ -640,11 +676,13 @@ def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
             "ref_max_abs": float(ref.abs().max()), "tolerance": tol,
             "ms": ms, "plain_ms": plain_ms, **bound(nbytes, ops),
             "library_ms": None, "ms_over_library": None, "weight": weight}
-    if update is not None:
-        # the update body still multiplies every tile entry: what that
-        # design needs at the fp32 peak, beside the bound of the data
-        case["dense_tile_ops_ms"] = (2 * n_active * bm * bm * d
-                                     / PEAK_FP32_FLOPS * 1e3)
+    if composed is not None:
+        w, b, ws, c, relu = update
+        fn2 = lambda: composed_update(torch, composed, x, w, b, relu)
+        case["composed"] = COMPOSED
+        case["composed_vs_plain_err"] = assert_close_scaled(
+            fn2(), ref, tol, f"two-call yardstick vs plain {name}")
+        case["composed_ms"] = gpu_ms(fn2, n_inner=5 if big else 20)
     if library is not None:
         side = plan_side(x) if plan_side is not None else got
         case["plan_vs_library_err"] = assert_close_scaled(
@@ -708,7 +746,9 @@ def padded_phase(torch, dev, g):
         update.append(padded_case(
             torch, dev, "spmm_blockell_update", plan._fwd, nnz,
             plan.ell.n_active, d_in, gen, name, bm=BM, weight=weight,
-            add_diag=plan.add_diag, update=(w, r(d_out), ws, c, True)))
+            add_diag=plan.add_diag, update=(w, r(d_out), ws, c, True),
+            composed=library_matrix(torch, dev, g, mode, False,
+                                    None if c is None else float(c))))
     return spmm, fused, update
 
 
@@ -1874,7 +1914,7 @@ def lm_config_phase(torch, dev):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
         / LM_PROFILED
     attn_ms = sum(e.self_device_time_total for e in kernels
-                  if "decode_split_kernel" in e.key
+                  if "decode_split" in e.key
                   or "decode_merge_kernel" in e.key) / 1e3 / LM_PROFILED
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     n_window = timed - LM_WARMUP
@@ -1955,7 +1995,14 @@ def kernel_row(name, cases, launches, work):
     t_ops = sum(c["weight"] * c["bound_ops_ms"] for c in main)
     lib = [c["library_ms"] for c in main]
     source, replaces, _ = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
+    extra = {}
+    if any("composed_ms" in c for c in main):
+        comp = [c.get("composed_ms") for c in main]
+        extra = {"composed_ms": (None if any(v is None for v in comp) else
+                                 sum(c["weight"] * c["composed_ms"]
+                                     for c in main)),
+                 "composed": COMPOSED}
+    return {**extra, "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "work": work,
@@ -2048,13 +2095,15 @@ def main() -> int:
                    "one padded GIN conv launch (sum 128->128, w_self is w, "
                    "1+eps, bias, ReLU) on the reordered Cora, bm=128; "
                    "library_ms null: no single PyTorch call computes "
-                   "aggregation and W epilogue together"),
+                   "aggregation and W epilogue together (composed_ms: "
+                   "two PyTorch calls)"),
         kernel_row("spmm_blockell_update_compact", update_cases,
                    total["spmm_blockell_update_compact"],
                    "one GIN training step's 4 fused convs (sum 128->128, "
                    "w_self is w, 1+eps, bias, ReLU) on the reordered Cora, "
                    "bm=128; library_ms null: no single PyTorch call "
-                   "computes aggregation and W epilogue together"),
+                   "computes aggregation and W epilogue together "
+                   "(composed_ms: two PyTorch calls)"),
         kernel_row("sddmm", sddmm_cases, total["sddmm"],
                    "per-edge scores on the reordered Cora (10,556 edges, "
                    "d=64, kernels.ops.sddmm's shape); library: "

@@ -13,76 +13,83 @@
 // self term and ReLU are each optional; c is read from device memory (a
 // trained parameter, 1 + eps for GIN), so the host never waits for it.
 //
-// Translation.  The Pallas grid walks the slots in order and keeps a
-// (bm, d_in) fp32 accumulator and the whole (d_in, d_out) W resident in
-// VMEM, running the W product when a row's last slot is done.  On the card
-// a block has at most 227 KB of shared memory, and at d_in = 1433 the
-// accumulator alone is 733 KB.  So here each CUDA block owns one
-// (destination block r, 32-row strip, 128-column strip of d_out) and loops
-// over d_in in chunks of 128 columns.  For each chunk it walks the slots of
-// r, accumulating the chunk of the aggregation in fp32 registers; then it
-// scales the chunk by s_out, stages it in shared memory and multiplies it by
-// the matching 128 rows of W (and of W_self), 32 rows at a time, into a
-// (32 x 128) output tile held in registers.  Bias, ReLU and one store follow
-// the last chunk.  No atomics: reruns are bit-identical.  When W_self is W
-// (GIN passes the same tensor), the self term c * x_self is added to the
-// scaled chunk before the one product, which is the same function; the
-// kernel never assumes the two differ.  The TPU padding (128-lane d_in and
-// d_out, C*bk rows of x, 2-D scales) is gone: the kernel masks every ragged
-// edge itself.
+// Translation.  The Pallas grid walks the slots in order, multiplies every
+// dense tile on the MXU into a (bm, d_in) fp32 accumulator, and keeps the
+// whole (d_in, d_out) W resident in VMEM for the product after a row's last
+// slot.  On the card a block has at most 227 KB of shared memory (at d_in =
+// 1433 the accumulator alone is 733 KB), and on Cora's plans the tiles are
+// 0.13% full, so here no tile is multiplied.  Each CUDA block owns one
+// (destination block r, 8-row strip, strip of d_out: 128 columns, or 32
+// where d_out <= 32); each of its 8 warps owns one row of the strip.
+//
+// - Aggregation, skipping zeros (the helpers of blockell_scan.cuh, as in
+//   blockell_spmm.cuh).  A warp reads its row's stripes of every slot's
+//   tile once, as one run of count x bk entries, 16 bytes a lane with
+//   kDepth chunks in flight, and lists the set entries (x row, coefficient)
+//   in its shared list, in slot-then-k order.  Then, for each 128-column
+//   chunk of d_in, it gathers only those rows of x (scaled by s_in) into
+//   the row's chunk accumulator after the self term, in lane groups as
+//   narrow as the chunk allows; at d_in = 1433 the 12 chunks reuse one
+//   list.  A row with more entries than the list holds (a hub) is gathered
+//   whenever the list fills and scanned again for every chunk.
+// - Epilogue.  The chunk, scaled by s_out (plus c * x_self when W_self is
+//   W: GIN passes one tensor, the same function with one product), and
+//   c * x_self beside it for a separate W_self, is multiplied in shared
+//   memory by the matching rows of W (and W_self), 32 at a time (W's first
+//   slice loading during the aggregation, each next one during the
+//   product), into an output strip held in registers (4 or 1 columns a
+//   thread): plain fp32 FMA, no TF32 (the port's parity bar is 1e-5).
+//   Bias, ReLU and one store follow the last chunk.
+//
+// No atomics, and the order of every sum is fixed by the data alone, so a
+// rerun is bit-identical.  The TPU padding (128-lane d_in and d_out, C*bk
+// rows of x, 2-D scales) is gone: the kernel masks every ragged edge.
 //
 // What bounds it on an H100.  At GIN's conv shapes (reordered Cora, bm = bk
-// = 128, 461 active slots, d_in = d_out = 128) one launch reads 7.6 MB of
-// uint8 tiles, x (1.4 MB) and W (64 KB) and writes 1.4 MB: about 3 us of HBM
-// time.  The dense-tile aggregation is 2*461*128^2*128 = 1.9 GFLOP, ~29 us
-// at 67 TFLOP/s fp32, while the tiles hold only 10556 edges.  As written the
-// kernel is bound by neither: each block walks its row's ~21 slots x 4 tile
-// steps in sequence per d_in chunk, with two barriers per step, and the grid
-// has only 22 x 4 = 88 blocks for 132 SMs, so it is bound by the latency of
-// that serial walk.  What the design does about it: one staged step is a
-// whole 32 x 32 tile slab against 32 source rows of a 128-wide chunk (16
-// FMAs per thread per pair of shared loads), the next step's global loads
-// are issued into registers before the current step's FMAs, and the tiles
-// are read once per d_in chunk, not once per output column strip.  Plain
-// fp32 FMA, no TF32: the port's parity bar is 1e-5.
+// = 128, 461 active slots, 10,556 edges, d_in = d_out = 128) one launch
+// must read 7.6 MB of uint8 tiles, x (1.4 MB) and W (64 KB) and write 1.4
+// MB: ~3.1 us of HBM time.  Its arithmetic is the edges' 2.7 MFLOP plus the
+// W product's 89 MFLOP (~1.3 us at 67 TFLOP/s fp32).  Here it is bound by
+// latency and shared memory: a warp's scan is ~6 dependent steps of
+// 16-byte loads and ballots, its gathers a round or two of x rows from L2,
+// and its W product reads each staged W element for one FMA (the 352
+// blocks, 22 x 16, of that grid each stage all of W).
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blockell_scan.cuh"
 #include "blockell_walk.cuh"
 
 namespace blockell {
 namespace update {
 
+using namespace scan;   // kCols, kCap, kBatch, kAll and the scan helpers
+
 constexpr int NT = 256;                  // threads: 8 warps x 32 lanes
-constexpr int WARPS = NT / 32;
-constexpr int TM = 32;                   // destination rows per CUDA block
-constexpr int KC = 128;                  // d_in columns per chunk
-constexpr int TN = 128;                  // d_out columns per CUDA block
-constexpr int KS = 32;                   // tile depth (source rows) per step
+constexpr int TM = NT / 32;              // destination rows: a warp each
+constexpr int KC = kCols;                // d_in columns per chunk (128)
+constexpr int TN_MAX = 128;              // d_out columns per CUDA block
 constexpr int WK = 32;                   // W rows per staged slice
-constexpr int RPT = TM / WARPS;          // rows per thread = 4
-constexpr int CPT = KC / 32;             // columns per thread = 4
-constexpr int A_PER_T = TM * KS / NT;    // staged tile elements per thread
-constexpr int X_PER_T = KS * KC / NT;    // staged x elements per thread
-constexpr int W_PER_T = WK * TN / NT;    // staged W elements per thread
-static_assert(KC == TN, "the thread layout serves both the chunk and the "
-                        "output tile");
+constexpr int kDepth = 2;                // tile chunks in flight per lane
 
 struct Smem {
-  float a[TM][KS];      // one tile step, converted to fp32
-  float x[KS][KC];      // s_in-scaled source rows of the chunk
   float g[TM][KC];      // s_out * acc (+ c * x_self when W_self is W)
   float h[TM][KC];      // c * x_self (separate W_self only)
-  float w[WK][TN];      // W slice
-  float v[WK][TN];      // W_self slice (separate W_self only)
+  float w[WK][TN_MAX];  // W slice
+  float v[WK][TN_MAX];  // W_self slice (separate W_self only)
+  int list_src[TM][kCap];      // each warp's listed entries: x row
+  float list_a[TM][kCap];      // ... and coefficient
 };
-constexpr int SMEM_BYTES = sizeof(Smem);   // 86,016: dynamic, above 48 KB
+constexpr int SMEM_BYTES = sizeof(Smem);   // 73,728: dynamic, above 48 KB
 
-template <typename Slots, typename TileT>
-__global__ void __launch_bounds__(NT)
+// E: tile entries a lane loads at once; V: see Lanes (float4 columns or
+// scalar ones); CPT: output columns a thread holds (4: a 128-wide strip of
+// d_out a CUDA block; 1: 32, for narrow layers).
+template <typename Slots, typename TileT, int E, int V, int CPT>
+__global__ void __launch_bounds__(NT, 2)
 kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
        const float* s_in, const float* __restrict__ s_out, const float* w,
        const float* __restrict__ bias, const float* w_self,
@@ -90,160 +97,223 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
        const float* x_diag, const float* s_in_diag, float* __restrict__ y,
        int n_src, int n_dst, int bm, int bk, int d_in, int d_out,
        int add_diag, int relu) {
+  constexpr int TN = 32 * CPT;
+  constexpr int W_PER_T = WK * TN / NT;  // staged W elements per thread
   const int r = blockIdx.x;
-  const int end = slots.end(r);
-  const int first = slots.first(r);
-  if (!Slots::kEveryRow && first == end) return;   // rows left to the caller
+  const SlotRange rng = slots.range(r);
+  if (!Slots::kEveryRow && rng.count == 0) return;   // rows left to caller
 
   extern __shared__ float4 smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
 
-  const int m0 = blockIdx.y * TM;         // strip of rows inside block r
-  const int j0 = blockIdx.z * TN;         // strip of output columns
   const int lane = threadIdx.x % 32;
-  const int wy = threadIdx.x / 32;        // this thread's first row
+  const int warp = threadIdx.x / 32;
+  const int m = blockIdx.y * TM + warp;   // this warp's row inside block r
+  const long long row = (long long)r * bm + m;
+  const int j0 = blockIdx.z * TN;         // strip of output columns
+  // a warp past the block's rows or n_dst reads and writes nothing, but
+  // joins the block's barriers
+  const bool live = m < bm && row < n_dst;
   const bool has_self = w_self != nullptr;
   const bool fold = has_self && w_self == w;
   const bool two_w = has_self && !fold;
   const float c = self_coeff != nullptr ? *self_coeff : 1.0f;
-  const int nk = (bk + KS - 1) / KS;
+  const float so = live ? s_out[row] : 0.0f;
 
-  float out[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) out[i][j] = 0.0f;
+  // the row's slots as one run of count * bk entries, 32 * E a step; this
+  // lane's next chunk starts at entry k0 of slot pos, and moves by dpos
+  // slots and dk entries a step
+  const int count = live ? rng.count : 0;
+  const int per_step = 32 * E;
+  const int n_steps = (count * bk + per_step - 1) / per_step;
+  const int dpos = per_step / bk, dk = per_step - dpos * bk;
+  const long long tile_elems = (long long)bm * bk;
+  const int32_t* cols = slots.slot_cols() + rng.first;
+  const TileT* tiles = blocks + rng.first * tile_elems + (long long)m * bk;
+  int pos = 0, k0 = 0;
+  // the next chunk's bits, source block and first entry; nothing here
+  // waits on a load, so kDepth chunks stay in flight
+  auto fetch = [&](uint4& cc, int& cb, int& k) {
+    cc = make_uint4(0u, 0u, 0u, 0u);
+    cb = -1;
+    k = k0;
+    if (pos < count) {
+      cb = cols[pos];
+      cc = load_chunk<TileT, E>(tiles + pos * tile_elems + k0);
+    }
+    pos += dpos;
+    k0 += dk;
+    if (k0 >= bk) {
+      k0 -= bk;
+      ++pos;
+    }
+  };
 
-  for (int c0 = 0; c0 < d_in; c0 += KC) {
-    // this chunk of the aggregation: the self term first
-    float acc[RPT][CPT];
+  int* my_src = s.list_src[warp];
+  float* my_a = s.list_a[warp];
+  int listed = 0;          // the row's entries in the list
+  bool overflow = false;   // the row's entries did not all fit the list
+
+  // scan the run and list the set entries; where the list fills, gather
+  // what it holds and start it again (it then no longer holds every entry)
+  auto scan_row = [&](const Lanes<V>& ln, float (&acc)[4]) {
+    listed = 0;
+    pos = lane * E / bk;
+    k0 = lane * E - pos * bk;
+    uint4 ring[kDepth];
+    int ring_cb[kDepth], ring_k[kDepth];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int m = m0 + wy + i * WARPS;
-      const long long row = (long long)r * bm + m;
+    for (int i = 0; i < kDepth; ++i) fetch(ring[i], ring_cb[i], ring_k[i]);
+    for (int step = 0; step < n_steps; ++step) {
+      const uint4 cc = ring[0];
+      const int cb = ring_cb[0], k = ring_k[0];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + lane + 32 * j;
-        acc[i][j] = (add_diag && m < bm && row < n_dst && col < d_in)
-                        ? x_diag[row * d_in + col] * s_in_diag[row]
-                        : 0.0f;
+      for (int i = 0; i + 1 < kDepth; ++i) {
+        ring[i] = ring[i + 1];
+        ring_cb[i] = ring_cb[i + 1];
+        ring_k[i] = ring_k[i + 1];
+      }
+      fetch(ring[kDepth - 1], ring_cb[kDepth - 1], ring_k[kDepth - 1]);
+
+      // the set entries of this lane's chunk (padding slots and source rows
+      // past n_src have none)
+      unsigned mask = 0;
+      const int src0 = cb * bk + k;
+      if ((cc.x | cc.y | cc.z | cc.w) != 0u
+          && (!Slots::kPadding || cb >= 0)) {
+        mask = nonzero_mask<TileT, E>(cc);
+        const int room = n_src - src0;
+        if (room < E) mask &= room > 0 ? (1u << room) - 1u : 0u;
+      }
+      const int cnt = __popc(mask);
+      if (!__any_sync(kAll, cnt)) continue;
+      int incl = cnt;                    // inclusive prefix sum over lanes
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(kAll, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int total = __shfl_sync(kAll, incl, 31);
+      if (listed + total > kCap) {
+        gather<V, true>(my_src, my_a, listed, ln, x, s_in, d_in, acc);
+        listed = 0;
+        overflow = true;
+      }
+      int at = listed + incl - cnt;
+      while (mask) {                     // this lane's entries, in k order
+        const int i = __ffs(mask) - 1;
+        mask &= mask - 1;
+        my_src[at] = src0 + i;
+        my_a[at] = entry<TileT>(cc, i);
+        ++at;
+      }
+      listed += total;
+    }
+  };
+
+  // the W slice of rows kw .. kw + WK of chunk c0, staged through
+  // registers so that its loads overlap other work; a separate W_self
+  // slice is copied when it is stored (registers kept for the common case)
+  float wr[W_PER_T];
+  auto w_at = [&](int c0, int kc_end, int kw, int t, long long& at) {
+    const int e = threadIdx.x + t * NT;
+    const int kk = e / TN, col = e % TN;
+    at = (long long)(c0 + kw + kk) * d_out + j0 + col;
+    return kw + kk < kc_end && j0 + col < d_out;
+  };
+  auto load_w = [&](int c0, int kc_end, int kw) {
+#pragma unroll
+    for (int t = 0; t < W_PER_T; ++t) {
+      long long at;
+      wr[t] = w_at(c0, kc_end, kw, t, at) ? w[at] : 0.0f;
+    }
+  };
+  auto store_w = [&](int c0, int kc_end, int kw) {
+#pragma unroll
+    for (int t = 0; t < W_PER_T; ++t) {
+      const int e = threadIdx.x + t * NT;
+      s.w[e / TN][e % TN] = wr[t];
+      if (two_w) {
+        long long at;
+        s.v[e / TN][e % TN] =
+            w_at(c0, kc_end, kw, t, at) ? w_self[at] : 0.0f;
+      }
+    }
+  };
+
+  float out[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) out[j] = 0.0f;
+
+  for (int c0 = 0, ci = 0; c0 < d_in; c0 += KC, ++ci) {
+    const Lanes<V> ln(lane, d_in, ci);
+    const int kc_end = d_in - c0 < KC ? d_in - c0 : KC;
+    load_w(c0, kc_end, 0);       // in flight during the aggregation
+    // this chunk of the aggregation: the self term first, in group 0's
+    // sum (the Pallas kernel's first step); the self term of the epilogue
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live && ln.g == 0) {
+      if (add_diag) {
+        const float sd = s_in_diag[row];
+        ln.load(x_diag, row, d_in, acc);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] *= sd;
+      }
+      if (has_self) {
+        ln.load(x_self, row, d_in, hv);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) hv[q] *= c;
+      }
+    }
+    // scan once (again for every chunk where the row's entries overflowed
+    // the list), gather every chunk
+    if (ci == 0 || overflow) scan_row(ln, acc);
+    gather<V, true>(my_src, my_a, listed, ln, x, s_in, d_in, acc);
+    reduce_groups(ln, acc);
+
+    // s_out, then the self term, into the product's left operand (zero
+    // past d_in and on a row that is not live)
+    for (int col = lane; col < KC; col += 32) {
+      s.g[warp][col] = 0.0f;
+      if (two_w) s.h[warp][col] = 0.0f;
+    }
+    __syncwarp();
+    if (live && ln.g == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = ln.col(q);
+        if (col >= d_in) continue;
+        float gv = acc[q] * so;
+        if (fold) gv += hv[q];
+        s.g[warp][col - c0] = gv;
+        if (two_w) s.h[warp][col - c0] = hv[q];
       }
     }
 
-    float ra[A_PER_T], rx[X_PER_T];
-    // global -> registers for tile depth kc of slot sl
-    auto load_step = [&](int sl, int kc) {
-      const int k0 = kc * KS;
-      const TileT* tile = blocks + slots.tile(r, sl) * bm * bk;
-      const long long src0 = (long long)slots.col(r, sl) * bk + k0;
-#pragma unroll
-      for (int t = 0; t < A_PER_T; ++t) {
-        const int e = threadIdx.x + t * NT;
-        const int m = m0 + e / KS, k = k0 + e % KS;
-        ra[t] = (m < bm && k < bk)
-                    ? static_cast<float>(tile[(long long)m * bk + k])
-                    : 0.0f;
-      }
-#pragma unroll
-      for (int t = 0; t < X_PER_T; ++t) {
-        const int e = threadIdx.x + t * NT;
-        const int kk = e / KC, col = c0 + e % KC;
-        const long long src = src0 + kk;
-        rx[t] = (k0 + kk < bk && src < n_src && col < d_in)
-                    ? x[src * d_in + col] * s_in[src]
-                    : 0.0f;
-      }
-    };
-
-    int sl = first, kc = 0;
-    if (sl < end) load_step(sl, 0);
-    while (sl < end) {
-#pragma unroll
-      for (int t = 0; t < A_PER_T; ++t) {
-        const int e = threadIdx.x + t * NT;
-        s.a[e / KS][e % KS] = ra[t];
-      }
-#pragma unroll
-      for (int t = 0; t < X_PER_T; ++t) {
-        const int e = threadIdx.x + t * NT;
-        s.x[e / KC][e % KC] = rx[t];
-      }
+    // out += g @ W[c0 : c0 + KC] (+ h @ W_self[...]), WK rows of W at a
+    // time (the next slice's loads in flight), 4 of them a step (g and h
+    // read as float4; past kc_end g, h and the staged W are zero)
+    for (int kw = 0; kw < kc_end; kw += WK) {
+      store_w(c0, kc_end, kw);
       __syncthreads();
-      // the next step: the next depth of this slot, or the next slot
-      int nsl = sl, nkc = kc + 1;
-      if (nkc == nk) {
-        nkc = 0;
-        nsl = slots.next(r, sl);
-      }
-      if (nsl < end) load_step(nsl, nkc);  // in flight during the FMAs
-#pragma unroll 8
-      for (int kk = 0; kk < KS; ++kk) {
-        float xv[CPT];
+      if (kw + WK < kc_end) load_w(c0, kc_end, kw + WK);
+#pragma unroll 2
+      for (int kk = 0; kk < WK; kk += 4) {
+        const float4 gv = *reinterpret_cast<const float4*>(&s.g[warp][kw + kk]);
+        const float4 hv4 = two_w
+            ? *reinterpret_cast<const float4*>(&s.h[warp][kw + kk])
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) xv[j] = s.x[kk][lane + 32 * j];
+        for (int u = 0; u < 4; ++u) {
+          const float gi = (&gv.x)[u];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float av = s.a[wy + i * WARPS][kk];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(av, xv[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-      sl = nsl;
-      kc = nkc;
-    }
-
-    // s_out, then the self term, into the product's left operand
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int m = m0 + wy + i * WARPS;
-      const long long row = (long long)r * bm + m;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + lane + 32 * j;
-        const bool ok = m < bm && row < n_dst && col < d_in;
-        float gv = ok ? acc[i][j] * s_out[row] : 0.0f;
-        const float hv = (has_self && ok) ? c * x_self[row * d_in + col]
-                                          : 0.0f;
-        if (fold) gv += hv;
-        s.g[wy + i * WARPS][lane + 32 * j] = gv;
-        if (two_w) s.h[wy + i * WARPS][lane + 32 * j] = hv;
-      }
-    }
-
-    // out += g @ W[c0 : c0 + KC] (+ h @ W_self[...]), WK rows of W at a time
-    const int kw_end = d_in - c0 < KC ? d_in - c0 : KC;
-    for (int kw = 0; kw < kw_end; kw += WK) {
-#pragma unroll
-      for (int t = 0; t < W_PER_T; ++t) {
-        const int e = threadIdx.x + t * NT;
-        const int kk = e / TN, col = e % TN;
-        const bool ok = kw + kk < kw_end && j0 + col < d_out;
-        const long long at = (long long)(c0 + kw + kk) * d_out + j0 + col;
-        s.w[kk][col] = ok ? w[at] : 0.0f;
-        if (two_w) s.v[kk][col] = ok ? w_self[at] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < WK; ++kk) {
-        float wv[CPT];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) wv[j] = s.w[kk][lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float gv = s.g[wy + i * WARPS][kw + kk];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) out[i][j] = fmaf(gv, wv[j], out[i][j]);
-        }
-        if (two_w) {
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) wv[j] = s.v[kk][lane + 32 * j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float hv = s.h[wy + i * WARPS][kw + kk];
+          for (int j = 0; j < CPT; ++j)
+            out[j] = fmaf(gi, s.w[kk + u][lane + 32 * j], out[j]);
+          if (two_w) {
+            const float hi = (&hv4.x)[u];
 #pragma unroll
             for (int j = 0; j < CPT; ++j)
-              out[i][j] = fmaf(hv, wv[j], out[i][j]);
+              out[j] = fmaf(hi, s.v[kk + u][lane + 32 * j], out[j]);
           }
         }
       }
@@ -252,41 +322,79 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
   }
 
   // bias, ReLU, then the one store
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int m = m0 + wy + i * WARPS;
-    const long long row = (long long)r * bm + m;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = j0 + lane + 32 * j;
-      if (m < bm && row < n_dst && col < d_out) {
-        float v = out[i][j] + (bias != nullptr ? bias[col] : 0.0f);
-        if (relu) v = fmaxf(v, 0.0f);
-        y[row * d_out + col] = v;
-      }
+  for (int j = 0; j < CPT; ++j) {
+    const int col = j0 + lane + 32 * j;
+    if (col < d_out) {
+      float v = out[j] + (bias != nullptr ? bias[col] : 0.0f);
+      if (relu) v = fmaxf(v, 0.0f);
+      y[row * d_out + col] = v;
     }
   }
 }
 
-template <typename Slots, typename TileT>
-int launch_typed(Slots slots, int n_row_blocks, const TileT* blocks,
-                 const float* x, const float* s_in, const float* s_out,
-                 const float* w, const float* bias, const float* w_self,
-                 const float* self_coeff, const float* x_self,
-                 const float* x_diag, const float* s_in_diag, float* y,
-                 int n_src, int n_dst, int bm, int bk, int d_in, int d_out,
-                 int add_diag, int relu, cudaStream_t stream) {
+template <typename Slots, typename TileT, int E, int V, int CPT>
+int launch_kernel(cudaStream_t st, int n_row_blocks, Slots slots,
+                  const TileT* blocks, const float* x, const float* s_in,
+                  const float* s_out, const float* w, const float* bias,
+                  const float* w_self, const float* self_coeff,
+                  const float* x_self, const float* x_diag,
+                  const float* s_in_diag, float* y, int n_src, int n_dst,
+                  int bm, int bk, int d_in, int d_out, int add_diag,
+                  int relu) {
+  auto kern = kernel<Slots, TileT, E, V, CPT>;
   // above 48 KB of shared memory only on request; set for the current device
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel<Slots, TileT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_row_blocks, (bm + TM - 1) / TM, (d_out + TN - 1) / TN);
-  kernel<Slots, TileT><<<grid, NT, SMEM_BYTES, stream>>>(
+  const dim3 grid(n_row_blocks, (bm + TM - 1) / TM,
+                  (d_out + 32 * CPT - 1) / (32 * CPT));
+  kern<<<grid, NT, SMEM_BYTES, st>>>(
       slots, blocks, x, s_in, s_out, w, bias, w_self, self_coeff, x_self,
       x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in, d_out, add_diag,
       relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Slots, typename TileT, int E, int V>
+int launch_width(cudaStream_t st, int n_row_blocks, Slots slots,
+                const TileT* blocks, const float* x, const float* s_in,
+                const float* s_out, const float* w, const float* bias,
+                const float* w_self, const float* self_coeff,
+                const float* x_self, const float* x_diag,
+                const float* s_in_diag, float* y, int n_src, int n_dst,
+                int bm, int bk, int d_in, int d_out, int add_diag, int relu) {
+  // a narrow layer (d_out <= 32) takes 32 output columns a CUDA block
+  if (d_out <= 32)
+    return launch_kernel<Slots, TileT, E, V, 1>(
+        st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
+        self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
+        d_out, add_diag, relu);
+  return launch_kernel<Slots, TileT, E, V, 4>(
+      st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
+      self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
+      d_out, add_diag, relu);
+}
+
+template <typename Slots, typename TileT, int E>
+int launch_cols(bool float4_cols, cudaStream_t st, int n_row_blocks,
+                Slots slots, const TileT* blocks, const float* x,
+                const float* s_in, const float* s_out, const float* w,
+                const float* bias, const float* w_self,
+                const float* self_coeff, const float* x_self,
+                const float* x_diag, const float* s_in_diag, float* y,
+                int n_src, int n_dst, int bm, int bk, int d_in, int d_out,
+                int add_diag, int relu) {
+  if (float4_cols)
+    return launch_width<Slots, TileT, E, 4>(
+        st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
+        self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
+        d_out, add_diag, relu);
+  return launch_width<Slots, TileT, E, 1>(
+      st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
+      self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
+      d_out, add_diag, relu);
 }
 
 // Returns 0 or the CUDA error of the attribute call or the launch.
@@ -298,17 +406,36 @@ int launch(Slots slots, int n_row_blocks, const void* blocks, int tile_is_u8,
            const float* s_in_diag, float* y, int n_src, int n_dst, int bm,
            int bk, int d_in, int d_out, int add_diag, int relu,
            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile_is_u8)
-    return launch_typed(slots, n_row_blocks,
-                        static_cast<const uint8_t*>(blocks), x, s_in, s_out,
-                        w, bias, w_self, self_coeff, x_self, x_diag,
-                        s_in_diag, y, n_src, n_dst, bm, bk, d_in, d_out,
-                        add_diag, relu, st);
-  return launch_typed(slots, n_row_blocks, static_cast<const float*>(blocks),
-                      x, s_in, s_out, w, bias, w_self, self_coeff, x_self,
-                      x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in, d_out,
-                      add_diag, relu, st);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  // x, and the self and diagonal rows where they are read, as float4s
+  const bool float4_cols = d_in % 4 == 0 && aligned(x)
+                           && !(add_diag && !aligned(x_diag))
+                           && !(w_self != nullptr && !aligned(x_self));
+  if (tile_is_u8) {
+    const auto* b = static_cast<const uint8_t*>(blocks);
+    if (bk % 16 == 0 && aligned(b))
+      return launch_cols<Slots, uint8_t, 16>(
+          float4_cols, st, n_row_blocks, slots, b, x, s_in, s_out, w, bias,
+          w_self, self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm,
+          bk, d_in, d_out, add_diag, relu);
+    return launch_cols<Slots, uint8_t, 1>(
+        float4_cols, st, n_row_blocks, slots, b, x, s_in, s_out, w, bias,
+        w_self, self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk,
+        d_in, d_out, add_diag, relu);
+  }
+  const auto* b = static_cast<const float*>(blocks);
+  if (bk % 4 == 0 && aligned(b))
+    return launch_cols<Slots, float, 4>(
+        float4_cols, st, n_row_blocks, slots, b, x, s_in, s_out, w, bias,
+        w_self, self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk,
+        d_in, d_out, add_diag, relu);
+  return launch_cols<Slots, float, 1>(
+      float4_cols, st, n_row_blocks, slots, b, x, s_in, s_out, w, bias, w_self,
+      self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
+      d_out, add_diag, relu);
 }
 
 }  // namespace update

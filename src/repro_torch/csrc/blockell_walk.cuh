@@ -9,13 +9,10 @@
 // rows of a destination block with no active slot are written (the
 // epilogue runs on the self term or zero) or left to the caller.
 //
-// Two ways to walk them:
-// - blockell_spmm.cuh flattens a destination row's slots into one run of
-//   count * bk tile entries (slot-major, then k) and lets the lanes of a
-//   warp read it 16 bytes at a time, all of a row's chunks independent of
-//   one another: range() and slot_cols();
-// - blockell_update.cuh steps s = first(r), next(r, s), ... while s <
-//   end(r), one (bm, bk) tile after another: first/next/end/tile/col.
+// Both bodies flatten a destination row's slots into one run of count * bk
+// tile entries (slot-major, then k) and let the lanes of a warp read it 16
+// bytes at a time, all of a row's chunks independent of one another:
+// range() and slot_cols().
 
 #pragma once
 
@@ -44,20 +41,13 @@ struct CompactSlots {
     return {a, row_offsets[r + 1] - a};
   }
   __device__ __forceinline__ const int32_t* slot_cols() const { return cols; }
-
-  __device__ __forceinline__ int first(int r) const { return row_offsets[r]; }
-  __device__ __forceinline__ int end(int r) const { return row_offsets[r + 1]; }
-  __device__ __forceinline__ int next(int, int s) const { return s + 1; }
-  __device__ __forceinline__ long long tile(int, int s) const { return s; }
-  __device__ __forceinline__ int col(int, int s) const { return cols[s]; }
 };
 
 // Padded (a BlockEll): the (R, W) slot table, block_cols[r, w] = -1 for a
-// padding slot.  The update walk skips one at the cost of one index load
-// and no tile traffic; the SpMM walk reads its (zero) tile stripe with the
-// others, so that no load waits on an index, and masks it.  Row r's slots
-// are ids r * W .. r * W + W - 1, so the table's own row-major order is the
-// slot order.  Every row is written, as the Pallas grid does, so padded
+// padding slot.  The walks read its (zero) tile stripe with the others, so
+// that no load waits on an index, and mask it.  Row r's slots are ids
+// r * W .. r * W + W - 1, so the table's own row-major order is the slot
+// order.  Every row is written, as the Pallas grid does, so padded
 // plans need no patch.
 struct PaddedSlots {
   static constexpr bool kEveryRow = true;
@@ -70,23 +60,6 @@ struct PaddedSlots {
   }
   __device__ __forceinline__ const int32_t* slot_cols() const {
     return block_cols;
-  }
-
-  __device__ __forceinline__ int skip(int r, int w) const {
-    const int32_t* row = block_cols + (long long)r * width;
-    while (w < width && row[w] < 0) ++w;
-    return w;
-  }
-  __device__ __forceinline__ int first(int r) const { return skip(r, 0); }
-  __device__ __forceinline__ int end(int) const { return width; }
-  __device__ __forceinline__ int next(int r, int w) const {
-    return skip(r, w + 1);
-  }
-  __device__ __forceinline__ long long tile(int r, int w) const {
-    return (long long)r * width + w;
-  }
-  __device__ __forceinline__ int col(int r, int w) const {
-    return block_cols[(long long)r * width + w];
   }
 };
 

@@ -554,6 +554,97 @@ def test_padded_update_kernel_matches_plain_version(bm, tiles, d_in, d_out,
     assert torch.equal(sk.spmm_blockell_update(*args, **kw), y)
 
 
+# ---------------------------------------------------------------------------
+# the zero-skipping update body (blockell_update.cuh) at its worst
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("walk", ["compact", "padded"])
+@pytest.mark.parametrize("tiles", ["u8", "f32"])
+@pytest.mark.parametrize("d_in,d_out,add_diag,epilogue", [
+    (16, 7, False, "two_w"), (130, 128, False, "self_coeff"),
+    (1433, 130, True, "none")])
+def test_update_walk_at_dense_rows_and_hubs(walk, tiles, d_in, d_out,
+                                            add_diag, epilogue):
+    """The worst-case graph through both update walks: a row of 768 set
+    entries (more than one warp's list of 512 holds: the warp gathers as
+    the list fills and scans again for every 128-column chunk of d_in), a
+    fully dense tile, and two blocks with no active slot, at d_in 16 (lane
+    groups), 130 (two chunks, off the float4 path) and 1433 (12 chunks),
+    against the plain versions row by row; one launch a call, reruns
+    bit-identical; the padded walk writes the empty blocks' rows."""
+    _need_cuda()
+    g = _worst_case_graph(weighted=tiles == "f32")
+    n, bm = g.num_nodes, 128
+    empty = torch.arange(n, device="cuda") >= 4 * bm
+    tol = 1e-4 if d_in > 128 else TOL
+    if walk == "compact":
+        args, kw, opts, written = _update_case(g, bm, tiles, d_in, d_out,
+                                               add_diag, epilogue, False)
+        assert bool((written == ~empty).all())
+        kernel, ref_fn = (sk.spmm_blockell_update_compact,
+                          spmm_blockell_update_compact_ref)
+    else:
+        _, (cols, blocks), (s_in, s_out) = _padded(g, bm, tiles)
+        rng = np.random.default_rng(7)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).cuda()
+        mat = lambda a, b: t(rng.standard_normal((a, b)) / np.sqrt(a))
+        w = mat(d_in, d_out)
+        ws, c = ((mat(d_in, d_out), None) if epilogue == "two_w" else
+                 (w, t(1.3)) if epilogue == "self_coeff" else (None, None))
+        args = (cols, blocks, t(rng.standard_normal((n, d_in))), s_in, s_out,
+                w)
+        kw = dict(bias=t(rng.standard_normal(d_out)), w_self=ws,
+                  self_coeff=c)
+        opts = dict(bm=bm, bk=bm, add_diag=add_diag, relu=True)
+        written = torch.ones(n, dtype=torch.bool, device="cuda")
+        kernel, ref_fn = sk.spmm_blockell_update, spmm_blockell_update_ref
+    before = kernel.launches
+    y = kernel(*args, **kw, **opts)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = ref_fn(*args, **kw, **opts)
+    bar = tol * ref.abs().amax(-1, keepdim=True).clamp_min(1.0)
+    worst = float(((y - ref).abs() / bar)[written].max())
+    assert worst <= 1.0, f"error {worst:.3g} x the bar"
+    assert torch.equal(kernel(*args, **kw, **opts)[written], y[written])
+    if walk == "padded":
+        assert bool(torch.isfinite(y[empty]).all())
+
+
+@pytest.mark.parametrize("walk", ["compact", "padded"])
+def test_update_kernels_on_a_transposed_hub(walk):
+    """The transposed plan of the MinHash-reordered Cora (the GIN and
+    gcn-cora backwards' side) lists its hub's out-edges in one destination
+    row: the update kernels there, 128 -> 128 with GIN's epilogue."""
+    _need_cuda()
+    from repro_torch.launch.train import training_graph
+    g = training_graph()
+    assert int(np.bincount(g.src).max()) == 337      # the hub's list
+    plan = build_plan(g, "sum", bm=128, backend="cuda",
+                      compact=walk == "compact", device="cuda")
+    a = plan._bwd
+    n = g.num_nodes
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn(n, 128, device="cuda", generator=gen)
+    w = torch.randn(128, 128, device="cuda", generator=gen) / 128 ** 0.5
+    b = torch.randn(128, device="cuda", generator=gen)
+    c = torch.tensor(1.3, device="cuda")
+    kw = dict(bm=128, bk=128, add_diag=False, relu=True)
+    if walk == "compact":
+        args = (a["row_offsets"], a["cols"], a["blocks"], x, a["s_in"],
+                a["s_out"], w, b, w, c)
+        y = sk.spmm_blockell_update_compact(*args, **kw)
+        ref = spmm_blockell_update_compact_ref(*args, **kw)
+        rows = a["node_active"]
+    else:
+        args = (a["block_cols"], a["blocks"], x, a["s_in"], a["s_out"], w, b,
+                w, c)
+        y = sk.spmm_blockell_update(*args, **kw)
+        ref = spmm_blockell_update_ref(*args, **kw)
+        rows = torch.ones(n, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    _close_rows(y[rows], ref[rows])
+
+
 def test_ops_spmm_on_the_card():
     _need_cuda()
     g = cora_like(seed=0)
@@ -869,13 +960,31 @@ def test_decode_attention_kernel_on_a_stacked_cache_view():
                   torch.float32)
 
 
+@pytest.mark.parametrize("G", [1, 4, 12, 24, 40])
+@pytest.mark.parametrize("d", [33, 36, 64, 128, 256])
+def test_decode_attention_tensor_cores_at_every_group_and_width(G, d):
+    """The bf16 tensor-core body at G = 1 (7 of 8 MMA columns idle), 4
+    (granite-8b), 12, 24 (three n-tiles of 8 heads: 6 of 8 warps busy) and
+    40 (two CTAs a KV head), d off the 16-deep k-step (33, 36) and up to 256 (the wide
+    instantiation), four chunks merged by pass 2, with lengths 0, 1, S and
+    above S in one batch."""
+    _need_cuda()
+    S = 777
+    q, k, v = _decode_inputs(4, S, 2 * G, 2, d, torch.bfloat16, seed=G + d)
+    cl = torch.tensor([0, 1, S, S + 123], dtype=torch.int32, device="cuda")
+    y = _decode_check(q, k, v, cl, torch.bfloat16)
+    assert not y[0].any()
+
+
 def test_launch_plan_splits_long_caches():
     """One chunk (one pass) for a short cache; at granite-8b's decode_32k
-    layer shape (B = 8, 8 KV heads, G = 4, d = 128, bf16), chunks of whole
-    tiles that cover S, one wave of the CTAs an SM holds (3 on an H100:
-    the double-buffered tiles take 74 KB of shared memory); the tile
-    shrinks where a CTA's shared memory would not fit, and a shape that
-    fits at no tile raises."""
+    layer shape (B = 8, 8 KV heads, G = 4, d = 128, bf16), 128-position
+    tiles and chunks of whole tiles that cover S, one wave of one CTA an SM
+    (the tensor-core body's double buffer takes 136 KB of shared memory);
+    the same at long_500k; at d = 256 the bf16 tile halves to fit, and
+    heads beyond 32 a KV head take more CTAs; the fp32 body's tile shrinks
+    where a CTA's shared memory would not fit, and a shape that fits at no
+    tile raises."""
     _need_cuda()
     from repro_torch.kernels import decode_attention as kd
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -883,16 +992,19 @@ def test_launch_plan_splits_long_caches():
     bf16, f32 = torch.bfloat16, torch.float32
     short = kd.plan(2, 64, 2, 4, 16, f32, 16, dev)
     assert short["n_split"] == 1 and short["ws"] == 1
+    assert kd.plan(2, 200, 2, 4, 128, bf16, 16, dev)["n_split"] == 1
     p = kd.plan(8, 32768, 8, 4, 128, bf16, 16, dev)
-    assert p["tile"] == 64 and p["chunk"] % p["tile"] == 0
+    assert p["tile"] == 128 and p["chunk"] % p["tile"] == 0
     assert (p["n_split"] - 1) * p["chunk"] < 32768 <= p["n_split"] * p["chunk"]
-    assert 2 * sms < 8 * 8 * p["n_split"] <= 3 * sms
+    assert sms // 2 < 8 * 8 * p["n_split"] <= sms
     assert p["ws"] == 8 * 8 * p["n_split"] * 4 * (128 + 2)
     long = kd.plan(1, 524288, 8, 4, 128, bf16, 16, dev)
     assert long["n_split"] * long["chunk"] >= 524288
-    assert 2 * sms < 8 * long["n_split"] <= 3 * sms
+    assert sms // 2 < 8 * long["n_split"] <= sms
+    many = kd.plan(1, 65536, 1, 96, 256, bf16, 16, dev)
+    assert many["tile"] == 64 and sms // 2 < 3 * many["n_split"] <= sms
     big = kd.plan(1, 4096, 1, 24, 256, f32, 16, dev)
-    assert big["tile"] < p["tile"]
+    assert big["tile"] < 64
     with pytest.raises(ValueError, match="shared memory"):
         kd.plan(1, 4096, 1, 96, 256, f32, 16, dev)
 
