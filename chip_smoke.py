@@ -47,7 +47,11 @@
    (40 fields x 1 M rows, embed 32, MLP 1024-512-256; 5.3 GB of params
    drawn on the card): the kernel against its plain version and
    ``F.embedding_bag`` at the deep lookup (``serve_p99``, ``train_batch``),
-   the wide lookup and both backwards over 40 M bags; 200 requests through
+   the wide lookup and both backwards over 40 M bags (with the mapping each
+   took); ``zero_`` of the 5.12 GB table gradient and ``torch.take`` of
+   the wide lookup's 2.6 M random floats (the access patterns' floors);
+   ``ops.embedding_bag`` forward + backward at ``train_batch`` as the step
+   calls it; 200 requests through
    ``ServeEngine``; ``serve_p99`` / ``serve_bulk`` / ``retrieval_cand``
    scoring; step 0's loss and gradients at B = 65,536 and 7 train steps
    (ms per step, busy share, peak memory).  Every ``CONFIG`` result is held
@@ -829,13 +833,15 @@ def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
 
 
 def step_breakdown(torch, what, step_fn, params, state, batch, warmup=3,
-                   timed=10, n_prof=3):
+                   timed=10, n_prof=3, watch=None):
     """Median ms per training step (CUDA events around ``step_fn``, ``timed``
     steps after ``warmup`` steps), then ``torch.profiler`` over ``n_prof``
     more: the device time per step summed over the kernels the profiler
-    saw, the busy share it makes of the step, and the five kernels that
-    take most.  ``step_fn(params, state, batch) -> (params, state, loss)``
-    as ``make_train_step`` builds it."""
+    saw, the busy share it makes of the step, the five kernels that take
+    most, and for each ``watch`` label the device time per step of the
+    kernels whose name holds its substring (any case).  ``step_fn(params,
+    state, batch) -> (params, state, loss)`` as ``make_train_step`` builds
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -867,6 +873,10 @@ def step_breakdown(torch, what, step_fn, params, state, batch, warmup=3,
               "top_kernels_ms_per_step": [
                   [e.key[:60], e.self_device_time_total / 1e3 / n_prof,
                    e.count // n_prof] for e in top]}
+    for label, part in (watch or {}).items():
+        report[f"{label}_ms_per_step"] = sum(
+            e.self_device_time_total for e in kernels
+            if part.lower() in e.key.lower()) / 1e3 / n_prof
     if not device_ms:
         print(f"{what}: the profiler saw no device time; busy share not "
               "measured")
@@ -1238,22 +1248,23 @@ def ops_spmm_phase(torch, dev, g):
 # ---------------------------------------------------------------------------
 # wide & deep (embedding_bag) and sddmm
 # ---------------------------------------------------------------------------
-def bag_case(torch, dev, name, offsets, ids, weights, table, bag_ids, weight,
-             big=False):
-    """One ``embedding_bag`` case on ids sorted as ``ops.embedding_bag``
-    hands them over: the kernel (raw launch, no Python checks) against
-    ``embedding_bag_ref`` (take + ``index_add``) on the same inputs, a rerun
-    bit-identical, and ``F.embedding_bag`` (the yardstick; the port never
-    calls it) held to the plain version; all three timed.  ``weight``: this
-    case's launches in one full-width training step (0: not in the step)."""
+def bag_case(torch, dev, name, ids, bag_ids, weights, table, num_bags,
+             weight, big=False):
+    """One ``embedding_bag`` case on entries sorted by bag as
+    ``ops.embedding_bag`` hands them over: the kernel (raw launch, no Python
+    checks) against ``embedding_bag_ref`` (take + ``index_add``) on the same
+    inputs, a rerun bit-identical, and ``F.embedding_bag`` (the yardstick;
+    the port never calls it; its offsets are built once, untimed) held to
+    the plain version; all three timed, and the mapping the kernel took.
+    ``weight``: this case's launches in one full-width training step (0:
+    not in the step)."""
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as kb
     from repro_torch.kernels.ref import embedding_bag_ref
 
-    num_bags = offsets.numel() - 1
     d = table.shape[1]
     L = ids.numel()
-    y = kb.embedding_bag(offsets, ids, weights, table)
+    y = kb.embedding_bag(ids, bag_ids, weights, table, num_bags)
     ref = embedding_bag_ref(ids, bag_ids, weights, table, num_bags)
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
@@ -1261,20 +1272,24 @@ def bag_case(torch, dev, name, offsets, ids, weights, table, bag_ids, weight,
     err = assert_close_scaled(y, ref, KERNEL_TOL,
                               f"embedding_bag vs plain {name}")
     # no atomics: a second run is bit-identical
-    if not torch.equal(kb.embedding_bag(offsets, ids, weights, table), y):
+    if not torch.equal(kb.embedding_bag(ids, bag_ids, weights, table,
+                                        num_bags), y):
         raise AssertionError(f"embedding_bag rerun is not bit-identical "
                              f"({name})")
+    offsets = torch.searchsorted(
+        bag_ids, torch.arange(num_bags, dtype=torch.int32, device=dev),
+        out_int32=True)
 
     def library():
-        return F.embedding_bag(ids, table, offsets[:-1], mode="sum",
+        return F.embedding_bag(ids, table, offsets, mode="sum",
                                per_sample_weights=weights)
 
     lib_err = assert_close_scaled(library(), ref, KERNEL_TOL,
                                   f"F.embedding_bag vs plain {name}")
     fn = kb._kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    raw = (offsets.data_ptr(), ids.data_ptr(), weights.data_ptr(),
-           table.data_ptr(), y.data_ptr(), num_bags, d, stream)
+    raw = (ids.data_ptr(), bag_ids.data_ptr(), weights.data_ptr(),
+           table.data_ptr(), y.data_ptr(), L, num_bags, d, stream)
 
     def launch():
         if fn(*raw):
@@ -1285,17 +1300,22 @@ def bag_case(torch, dev, name, offsets, ids, weights, table, bag_ids, weight,
     plain_ms = gpu_ms(lambda: embedding_bag_ref(ids, bag_ids, weights, table,
                                                 num_bags), **reps)
     library_ms = gpu_ms(library, **reps)
-    # what the data needs: each distinct row looked up read once, 8 B of id
-    # and weight per entry, the offsets, every bag's row written once; an
-    # FMA per entry and column
+    del offsets
+    # what the data needs: each distinct row looked up read once, 12 B of
+    # id, bag id and weight per entry, every bag's row written once; an FMA
+    # per entry and column.  The kernel's earlier contract took the bags'
+    # offsets instead of a bag id per entry: 8 B per entry and
+    # 4 (num_bags + 1) B, kept as `bound_ms_offsets` for comparison.
     rows = int(torch.unique(ids).numel())
-    nbytes = rows * d * 4 + 8 * L + 4 * (num_bags + 1) + 4 * num_bags * d
+    nbytes = rows * d * 4 + 12 * L + 4 * num_bags * d
+    old_bytes = rows * d * 4 + 8 * L + 4 * (num_bags + 1) + 4 * num_bags * d
     case = {"kernel": "embedding_bag", "case": name, "num_bags": num_bags,
             "entries": L, "d": d, "table_rows": table.shape[0],
-            "distinct_rows": rows, "max_abs_err": err,
-            "library_vs_plain_err": lib_err,
+            "distinct_rows": rows, "plan": kb.plan(L, num_bags, table, y),
+            "max_abs_err": err, "library_vs_plain_err": lib_err,
             "ref_max_abs": float(ref.abs().max()), "ms": ms,
             "plain_ms": plain_ms, **bound(nbytes, 2 * L * d),
+            "bound_ms_offsets": bound(old_bytes, 2 * L * d)["bound_ms"],
             "library_ms": library_ms, "weight": weight}
     print("case " + json.dumps(case))
     return case
@@ -1306,32 +1326,31 @@ def embedding_bag_phase(torch, dev, params, cfg, gen):
     the ``CONFIG`` tables (40 M rows): the deep lookup (B·F single-id bags,
     d = 32) at ``serve_p99`` and at ``train_batch``, the wide lookup (B bags
     of F ids, d = 1) at ``train_batch``, and both backwards, the transposed
-    bag lists with one bag per table row.  The ids are sorted and the
-    offsets built by ``ops``' own ``_sorted_bags``, as the path does."""
+    entries with one bag per table row.  The entries are sorted by the
+    stable argsort ``ops`` runs."""
     from repro_torch.configs import RECSYS_SHAPES
-    from repro_torch.kernels.ops import _sorted_bags
     from repro_torch.models.recsys import _flat_ids
 
     def lookup_cases(what, B, table, per_bag, backward):
         sparse = torch.randint(0, cfg.rows_per_field, (B, cfg.n_sparse),
                                generator=gen, device=dev, dtype=torch.int32)
         ids = _flat_ids(sparse, cfg)
-        bag_ids = torch.arange(ids.numel() // per_bag, device=dev,
-                               dtype=torch.int32).repeat_interleave(per_bag)
         num_bags = ids.numel() // per_bag
+        bag_ids = torch.arange(num_bags, device=dev,
+                               dtype=torch.int32).repeat_interleave(per_bag)
         w = torch.ones(ids.numel(), device=dev)
-        order, offsets = _sorted_bags(bag_ids, num_bags)
+        order = torch.argsort(bag_ids, stable=True)
         ids_s, bags_s, w_s = ids[order], bag_ids[order], w[order]
-        out = [bag_case(torch, dev, f"{what} B={B}", offsets, ids_s, w_s,
-                        table, bags_s, int(backward))]
+        out = [bag_case(torch, dev, f"{what} B={B}", ids_s, bags_s, w_s,
+                        table, num_bags, int(backward))]
         if backward:
             V, d = table.shape
-            order_t, offsets_t = _sorted_bags(ids_s, V)
+            order_t = torch.argsort(ids_s, stable=True)
             grad_out = torch.randn((num_bags, d), generator=gen, device=dev)
             out.append(bag_case(
-                torch, dev, f"{what} backward B={B} (V={V} bags)", offsets_t,
-                bags_s[order_t], w_s[order_t], grad_out, ids_s[order_t], 1,
-                big=True))
+                torch, dev, f"{what} backward B={B} (V={V} bags)",
+                bags_s[order_t], ids_s[order_t], w_s[order_t], grad_out, V,
+                1, big=True))
         return out
 
     deep, wide = params["table"], params["wide"][:, None]
@@ -1344,6 +1363,72 @@ def embedding_bag_phase(torch, dev, params, cfg, gen):
     cases += lookup_cases("wide lookup d=1, train_batch", B_train, wide,
                           cfg.n_sparse, True)
     return cases
+
+
+def bag_floors_phase(torch, dev, params, cfg, gen):
+    """What the card does at the backward's and the wide lookup's access
+    patterns without the kernel: ``zero_`` of a 40 M x 32 fp32 tensor (the
+    deep backward's 5.12 GB of stores, nothing read) and ``torch.take`` of
+    2,621,440 random floats of the 40 M-row wide table (the wide lookup's
+    gathers, nothing summed)."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.models.recsys import _flat_ids
+
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    sparse = torch.randint(0, cfg.rows_per_field, (B, cfg.n_sparse),
+                           generator=gen, device=dev, dtype=torch.int32)
+    ids = _flat_ids(sparse, cfg).long()
+    grad = torch.empty_like(params["table"])
+    wide = params["wide"]
+    report = {"zero_table_grad_ms": gpu_ms(grad.zero_, n_inner=5, reps=10),
+              "zero_table_grad_gb": grad.numel() * 4 / 1e9,
+              "take_wide_ms": gpu_ms(lambda: torch.take(wide, ids)),
+              "take_wide_n": ids.numel()}
+    print("embedding_bag floors (CONFIG): " + json.dumps(report))
+    return report
+
+
+def ops_bag_train_phase(torch, dev, params, cfg, gen):
+    """``ops.embedding_bag`` forward and backward as the training step calls
+    it at ``train_batch`` (index checks, stable sorts, both launches),
+    timed with CUDA events for the deep and the wide table, held against
+    autograd through the plain version."""
+    from repro_torch.configs import RECSYS_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.models.recsys import _flat_ids
+
+    B, F = RECSYS_SHAPES["train_batch"]["batch"], cfg.n_sparse
+    sparse = torch.randint(0, cfg.rows_per_field, (B, F), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ids = _flat_ids(sparse, cfg)
+    report = {}
+    for what, table, bags, nb in (
+            ("deep", params["table"], torch.arange(B * F, device=dev), B * F),
+            ("wide", params["wide"][:, None],
+             torch.arange(B, device=dev).repeat_interleave(F), B)):
+        V, d = table.shape
+        grad = torch.randn((nb, d), generator=gen, device=dev)
+
+        def fwd_bwd(fn):
+            t = table.detach().requires_grad_()
+            fn(t).backward(grad)
+            return t.grad
+
+        got = fwd_bwd(lambda t: ops.embedding_bag(ids, bags, t, nb))
+        ref = fwd_bwd(lambda t: embedding_bag_ref(
+            ids, bags, torch.ones(ids.numel(), device=dev), t, nb))
+        err = assert_close_scaled(got, ref, KERNEL_TOL,
+                                  f"ops.embedding_bag table gradient ({what})")
+        del got, ref
+        ms = gpu_ms(lambda: fwd_bwd(lambda t: ops.embedding_bag(ids, bags, t,
+                                                                nb)),
+                    n_inner=2, reps=5)
+        report[what] = {"num_bags": nb, "V": V, "d": d,
+                        "fwd_bwd_ms": ms, "grad_max_abs_err": err}
+    print("ops.embedding_bag train_batch forward+backward (CONFIG): "
+          + json.dumps(report))
+    return report
 
 
 def sddmm_phase(torch, dev, g):
@@ -1589,7 +1674,9 @@ def recsys_training_phase(torch, dev, bundle, params, gen):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     br = step_breakdown(torch, "wide-deep CONFIG train_batch", step_fn,
-                        params, state, batch, warmup=1, timed=4, n_prof=2)
+                        params, state, batch, warmup=1, timed=4, n_prof=2,
+                        watch={"embedding_bag": "embedding_bag",
+                               "sort": "sort"})
     launches = read_launches(torch)
     report = {"step0_loss": float(l_d), "step0_loss_err": loss_err,
               "step0_grad_err": grad_err, "launches": launches,
@@ -1631,6 +1718,10 @@ def recsys_phases(torch, dev):
           f"{report['init_s']:.2f}s")
     gen = torch.Generator(device=dev).manual_seed(7)
     cases = embedding_bag_phase(torch, dev, sess.params, CONFIG, gen)
+    report["bag_floors"] = bag_floors_phase(torch, dev, sess.params, CONFIG,
+                                            gen)
+    report["ops_train_batch"] = ops_bag_train_phase(torch, dev, sess.params,
+                                                    CONFIG, gen)
     paths["wide-deep serving (CONFIG)"], report["serving"] = \
         recsys_full_serving_phase(torch, dev, sess)
     bundle = RecsysBundle(CONFIG)

@@ -8,8 +8,8 @@ a block); the port hands them over at their own shapes.
 ``spmm`` is the entry point of the padded kernel ``spmm_blockell`` over a
 ``BlockEll`` container; ``spmm_ref`` always runs its plain version.
 ``embedding_bag`` keeps the reference's contract (a stable sort by bag,
-weights defaulting to ones, empty bags giving zeros), builds the bag
-offsets on the device and differentiates with respect to the table.
+weights defaulting to ones, empty bags giving zeros) and differentiates
+with respect to the table.
 ``sddmm`` is the per-edge dot product.  ``decode_attention`` is
 flash-decode over a KV cache, taken GQA-native or expanded, at any length
 (the reference pads S to a multiple of its block).
@@ -51,34 +51,28 @@ def spmm_ref(ell, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- embedding bag
-def _sorted_bags(keys: torch.Tensor, n: int):
-    """The stable order sorting ``keys`` (int32, each in [0, n)) and the
-    (n + 1,) int32 offsets of each key's run in that order."""
-    order = torch.argsort(keys, stable=True)
-    bounds = torch.arange(n + 1, dtype=torch.int32, device=keys.device)
-    return order, torch.searchsorted(keys[order], bounds, out_int32=True)
-
-
 class _EmbeddingBag(torch.autograd.Function):
     """The bag sums, and the table's gradient by the same kernel on the
-    transposed bag list: sorted by id, one bag per table row (``num_bags =
+    transposed entries: sorted by id, one bag per table row (``num_bags =
     V``), gathering the output gradient's row of each entry's bag, weighted
-    as in the forward."""
+    as in the forward.  Both sort with a stable argsort and hand the kernel
+    a bag id per entry, as the TPU kernel takes them."""
 
     @staticmethod
     def forward(ctx, table, ids, bag_ids, weights, num_bags):
-        order, offsets = _sorted_bags(bag_ids, num_bags)
+        order = torch.argsort(bag_ids, stable=True)
         ids_s, bags_s, w_s = ids[order], bag_ids[order], weights[order]
         ctx.save_for_backward(ids_s, bags_s, w_s)
         ctx.n_rows = table.shape[0]
-        return _bag.embedding_bag(offsets, ids_s, w_s, table)
+        return _bag.embedding_bag(ids_s, bags_s, w_s, table, num_bags)
 
     @staticmethod
     def backward(ctx, grad_out):
         ids_s, bags_s, w_s = ctx.saved_tensors
-        order, offsets = _sorted_bags(ids_s, ctx.n_rows)
-        grad_table = _bag.embedding_bag(offsets, bags_s[order], w_s[order],
-                                        grad_out.contiguous())
+        order = torch.argsort(ids_s, stable=True)
+        grad_table = _bag.embedding_bag(bags_s[order], ids_s[order],
+                                        w_s[order], grad_out.contiguous(),
+                                        ctx.n_rows)
         return grad_table, None, None, None, None
 
 

@@ -3,8 +3,8 @@
 The port of the Pallas TPU kernel ``repro/kernels/sddmm.py``: per-edge dot
 products ``out[e] = <q[src[e]], k[dst[e]]>`` (GAT-style edge scores).  The
 TPU kernel runs one edge per grid step over q and k padded to 128 lanes;
-the port takes any edge count and width (one warp per 32 edges, see the
-source).
+the port takes any edge count and width (lane groups matched to d, a few
+edges a warp, see the source).
 
 On a CUDA tensor the wrapper launches the hand-written kernel (built on
 first use, see ``_build``) or raises; on a CPU tensor it runs the plain

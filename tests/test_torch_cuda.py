@@ -742,48 +742,94 @@ def test_autotune_layer_races_every_candidate_on_the_card(tmp_path):
 # embedding_bag and sddmm
 # ---------------------------------------------------------------------------
 def _bag_case(case, d, V=5000, seed=0):
-    """ids sorted by bag and their offsets, on the card: single-id bags
-    (the deep lookup), 40-id bags (the wide one), random bag sizes with a
-    third of the bags empty (runs of empty bags, one at the end too), and
-    a few bags of 1000+ ids."""
+    """Entries sorted by bag, on the card: single-id bags (the deep lookup),
+    40-id bags (the wide one), random bag sizes with a third of the bags
+    empty (runs of empty bags, one at the end too), a few bags of 1000+
+    ids, and the backward's shape: 500,000 bags over 3,000 entries (runs of
+    empty bags longer than a warp's range, at the start, the middle and
+    the end, the last row not empty), 64 MB and more of output at d >= 32,
+    so that the stores stream.  Below one id a bag but too dense for the
+    zero pass, ``sparse``: 60 ids over 400 bags, empty runs at the start
+    (0-49), the middle (150-299) and the end (390-399), each longer than a
+    warp's range at this size; ``one_bag``: every id in bag 17 of 48;
+    ``single_bag``: num_bags = 1."""
     rng = np.random.default_rng(seed)
-    sizes = {"single": np.ones(3000, np.int64),
-             "fields": np.full(700, 40),
-             "empty": rng.integers(0, 6, 2000) * (rng.random(2000) > 0.33),
-             "long": rng.integers(900, 1300, 9)}[case]
-    if case == "empty":
-        sizes[-1] = 0
+    if case in ("backward", "sparse"):
+        nb = 500_000 if case == "backward" else 400
+        bags = (np.concatenate([rng.integers(3_000, 200_000, 1500),
+                                rng.integers(260_000, nb - 1000, 1499),
+                                [nb - 1]]) if case == "backward" else
+                np.concatenate([rng.integers(50, 150, 30),
+                                rng.integers(300, 390, 30)]))
+        sizes = np.bincount(bags, minlength=nb)
+    elif case in ("one_bag", "single_bag"):
+        sizes = np.zeros(48 if case == "one_bag" else 1, np.int64)
+        sizes[17 if case == "one_bag" else 0] = 120
+    else:
+        sizes = {"single": np.ones(3000, np.int64),
+                 "fields": np.full(700, 40),
+                 "empty": rng.integers(0, 6, 2000) * (rng.random(2000) > 0.33),
+                 "long": rng.integers(900, 1300, 9)}[case]
+        if case == "empty":
+            sizes[-1] = 0
     L = int(sizes.sum())
     t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
-    offsets = t(np.concatenate([[0], np.cumsum(sizes)]), np.int32)
+    bag_ids = t(np.repeat(np.arange(len(sizes)), sizes), np.int32)
     ids = t(rng.integers(0, V, L), np.int32)
     weights = t(rng.uniform(-1, 2, L), np.float32)
     table = t(rng.standard_normal((V, d)), np.float32)
-    bag_ids = torch.repeat_interleave(
-        torch.arange(len(sizes), device="cuda"), torch.diff(offsets.long()))
-    return offsets, ids, weights, table, bag_ids, len(sizes)
+    return ids, bag_ids, weights, table, len(sizes)
 
 
-@pytest.mark.parametrize("case", ["single", "fields", "empty", "long"])
-@pytest.mark.parametrize("d", [1, 7, 32, 37, 64])
-def test_embedding_bag_kernel_matches_plain_version(case, d):
-    """Both walks (lanes over ids below d = 32, over columns from 32 on)
-    against ``embedding_bag_ref``; every row written, empty bags zero, and a
-    rerun bit-identical (no atomics)."""
-    _need_cuda()
+def _bag_check(ids, bag_ids, weights, table, nb):
+    """The kernel against ``embedding_bag_ref``: every row written, empty
+    bags zero, one launch, and a rerun bit-identical (no atomics)."""
     from repro_torch.kernels import embedding_bag as kb
     from repro_torch.kernels.ref import embedding_bag_ref
-    offsets, ids, weights, table, bag_ids, nb = _bag_case(case, d)
     before = kb.embedding_bag.launches
-    y = kb.embedding_bag(offsets, ids, weights, table)
+    y = kb.embedding_bag(ids, bag_ids, weights, table, nb)
     assert kb.embedding_bag.launches == before + 1
     ref = embedding_bag_ref(ids, bag_ids, weights, table, nb)
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.abs().max()))
     torch.testing.assert_close(y, ref, rtol=0, atol=TOL * scale)
-    empty = torch.diff(offsets) == 0
+    empty = torch.bincount(bag_ids.long(), minlength=nb) == 0
     assert not y[empty].any()
-    assert torch.equal(kb.embedding_bag(offsets, ids, weights, table), y)
+    assert torch.equal(kb.embedding_bag(ids, bag_ids, weights, table, nb), y)
+    return y
+
+
+@pytest.mark.parametrize("case", ["single", "fields", "empty", "long",
+                                  "backward", "sparse", "one_bag",
+                                  "single_bag"])
+@pytest.mark.parametrize("d", [1, 3, 4, 7, 32, 33, 37, 64, 128, 1027, 1028])
+def test_embedding_bag_kernel_matches_plain_version(case, d):
+    """Both mappings (lane groups over float4 columns where d % 4 == 0, a
+    lane per entry elsewhere) against ``embedding_bag_ref``; runs longer
+    than a 32-entry window ("long", "one_bag", "single_bag"); d = 1027 and
+    1028, wider than the lanes mapping's tile and than a warp of float4."""
+    _need_cuda()
+    from repro_torch.kernels import embedding_bag as kb
+    ids, bag_ids, weights, table, nb = _bag_case(case, d)
+    y = _bag_check(ids, bag_ids, weights, table, nb)
+    plan = kb.plan(ids.numel(), nb, table, y)
+    assert plan["mapping"] == ("rows" if d % 4 == 0 else "lanes")
+    # the rows mapping zeroes a mostly empty output first
+    assert plan["zero_pass"] == (d % 4 == 0 and case == "backward")
+
+
+@pytest.mark.parametrize("case", ["fields", "empty", "backward"])
+@pytest.mark.parametrize("d", [1, 4, 32])
+def test_embedding_bag_kernel_off_16_byte_rows(case, d):
+    """A table that is a view starting one float past a 16-byte boundary
+    (as a column view of a 1-D parameter can be): the same kernel takes
+    the lane-per-entry mapping with scalar loads."""
+    _need_cuda()
+    from repro_torch.kernels import embedding_bag as kb
+    ids, bag_ids, weights, table, nb = _bag_case(case, d, seed=1)
+    table = _offset(table)
+    y = _bag_check(ids, bag_ids, weights, table, nb)
+    assert kb.plan(ids.numel(), nb, table, y)["mapping"] == "lanes"
 
 
 @pytest.mark.parametrize("d", [1, 32])
@@ -821,16 +867,9 @@ def test_embedding_bag_backward_on_the_card(d):
     assert not grads["kernel"][V - 100:].any()
 
 
-@pytest.mark.parametrize("E", [1, 300, 10556])
-@pytest.mark.parametrize("d", [1, 7, 64, 130])
-def test_sddmm_kernel_matches_plain_version(E, d):
-    _need_cuda()
+def _sddmm_check(src, dst, q, k):
     from repro_torch.kernels import sddmm as ks
     from repro_torch.kernels.ref import sddmm_ref
-    rng = np.random.default_rng(E + d)
-    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
-    src, dst = (t(rng.integers(0, 2708, E), np.int32) for _ in range(2))
-    q, k = (t(rng.standard_normal((2708, d)), np.float32) for _ in range(2))
     before = ks.sddmm.launches
     y = ops.sddmm(src, dst, q, k)
     assert ks.sddmm.launches == before + 1
@@ -838,6 +877,36 @@ def test_sddmm_kernel_matches_plain_version(E, d):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ref, rtol=0,
                                atol=TOL * max(1.0, float(ref.abs().max())))
+    assert torch.equal(ops.sddmm(src, dst, q, k), y)
+
+
+def _sddmm_case(E, d, seed):
+    """E edges over 2708 nodes, the second half repeating the first."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).cuda()
+    idx = [rng.integers(0, 2708, E) for _ in range(2)]
+    for a in idx:
+        a[E // 2:] = a[:E - E // 2]
+    q, k = (t(rng.standard_normal((2708, d)), np.float32) for _ in range(2))
+    return t(idx[0], np.int32), t(idx[1], np.int32), q, k
+
+
+@pytest.mark.parametrize("E", [1, 300, 10556])
+@pytest.mark.parametrize("d", [1, 4, 7, 64, 128, 130, 256])
+def test_sddmm_kernel_matches_plain_version(E, d):
+    """Lane groups matched to d (a lane per edge below d = 16), float4 rows
+    where d % 4 == 0; repeated edges; a rerun bit-identical."""
+    _need_cuda()
+    _sddmm_check(*_sddmm_case(E, d, E + d))
+
+
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_sddmm_kernel_off_16_byte_rows(d):
+    """q and k starting one float past a 16-byte boundary: scalar loads in
+    the same kernel."""
+    _need_cuda()
+    src, dst, q, k = _sddmm_case(10556, d, d)
+    _sddmm_check(src, dst, _offset(q), _offset(k))
 
 
 def test_wide_deep_bag_matches_dense_on_the_card():

@@ -4,10 +4,14 @@
   version) against the reference's ``ops.embedding_bag``, which runs the
   Pallas kernel in interpret mode (one grid step per id, so L <= 300), and
   against its ``embedding_bag_ref``: d in {1, 32, 37}, weighted and not,
-  unsorted bag ids, with and without empty bags.  1e-5 of the largest
-  entry: fp32 sums of at most a bag's ids in another order.
-* The table's gradient (the same kernel wrapper on the transposed bag list)
-  against ``jax.grad`` of the reference's ``embedding_bag_ref``, 1e-5.
+  unsorted bag ids, with and without empty bags; and at the shapes the
+  Hopper kernel's mapping branches on (under one id a bag with long empty
+  runs, one bag holding every id, num_bags = 1; d in {1, 3, 4, 32, 33}).
+  1e-5 of the largest entry: fp32 sums of at most a bag's ids in another
+  order.
+* The table's gradient (the same kernel wrapper on the transposed entries)
+  against ``jax.grad`` of the reference's ``embedding_bag_ref``, 1e-5, also
+  with far more table rows than ids (the backward's shape).
 * ``nn.embedding``: ``embedding_bag_apply`` (sum, mean, max; weighted and
   not), ``multi_field_lookup`` and ``fused_field_lookup`` at 1e-5 (gathers
   are exact); ``hash_bucket`` byte-equal to the reference's uint32
@@ -104,15 +108,17 @@ def test_table_gradient_matches_jax_grad(d):
 
 
 def test_kernel_wrapper_takes_sorted_offsets():
-    """The wrapper's contract: ids sorted by bag, the bags' offsets; its
-    plain version on CPU tensors equals ``embedding_bag_ref``."""
+    """The wrapper's contract, the TPU kernel's: entries sorted by bag, a bag
+    id per entry and the bag count (the bags' offsets until the kernel took
+    the TPU kernel's contract); its plain version on CPU tensors equals
+    ``embedding_bag_ref`` on the unsorted entries."""
     ids, bag_ids, weights, table = _inputs(32, empty=True, seed=3)
     order = np.argsort(bag_ids, kind="stable")
-    offsets = np.searchsorted(bag_ids[order], np.arange(NUM_BAGS + 1))
     t = lambda a, dt: torch.as_tensor(np.asarray(a, dt))
-    got = kb.embedding_bag(t(offsets, np.int32), t(ids[order], np.int32),
+    got = kb.embedding_bag(t(ids[order], np.int32),
+                           t(bag_ids[order], np.int32),
                            t(weights[order], np.float32),
-                           t(table, np.float32))
+                           t(table, np.float32), NUM_BAGS)
     ref = embedding_bag_ref(t(ids, np.int32), t(bag_ids, np.int32),
                             t(weights, np.float32), t(table, np.float32),
                             NUM_BAGS)
@@ -121,7 +127,8 @@ def test_kernel_wrapper_takes_sorted_offsets():
 
 
 @pytest.mark.parametrize("bad", ["weights_grad", "id_range", "bag_range",
-                                 "float_ids", "offsets_dtype"])
+                                 "float_ids", "offsets_dtype",
+                                 "bag_ids_dtype"])
 def test_embedding_bag_rejects_bad_operands(bad):
     ids, bag_ids, weights, table = (torch.as_tensor(a) for a in
                                     _inputs(8, empty=False, L=20))
@@ -140,10 +147,86 @@ def test_embedding_bag_rejects_bad_operands(bad):
     elif bad == "float_ids":
         with pytest.raises(TypeError, match="integers"):
             ops.embedding_bag(ids.float(), bag_ids, table, NUM_BAGS)
+    elif bad == "offsets_dtype":
+        # the bags' offsets (num_bags + 1 of them) in place of a bag id per
+        # entry: the wrapper refuses the old contract
+        offsets = torch.zeros(NUM_BAGS + 1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="entries"):
+            kb.embedding_bag(ids.int(), offsets, weights, table, NUM_BAGS)
     else:
-        with pytest.raises(TypeError, match="offsets"):
-            kb.embedding_bag(torch.zeros(NUM_BAGS + 1, dtype=torch.int64),
-                             ids.int(), weights, table)
+        with pytest.raises(TypeError, match="bag_ids"):
+            kb.embedding_bag(ids.int(), bag_ids.long(), weights, table,
+                             NUM_BAGS)
+
+
+def _shaped(shape, d, seed):
+    """Entries (unsorted) of the shape classes the kernel's mapping branches
+    on: ``sparse``, 60 ids over 400 bags (0.15 a bag) with runs of empty
+    bags at the start (0-49), the middle (150-299) and the end (390-399)
+    longer than a warp's range at this size; ``one_bag``, every id in bag
+    17 of 48; ``single_bag``, num_bags = 1."""
+    rng = np.random.default_rng(seed)
+    nb, L = {"sparse": (400, 60), "one_bag": (48, 120),
+             "single_bag": (1, 90)}[shape]
+    if shape == "sparse":
+        bag_ids = np.concatenate([rng.integers(50, 150, L // 2),
+                                  rng.integers(300, 390, L - L // 2)])
+        rng.shuffle(bag_ids)
+    else:
+        bag_ids = np.full(L, 17 if shape == "one_bag" else 0)
+    table = rng.standard_normal((V, d)).astype(np.float32)
+    ids = rng.integers(0, V, L).astype(np.int32)
+    weights = rng.uniform(-1, 2, L).astype(np.float32)
+    return ids, bag_ids.astype(np.int32), weights, table, nb
+
+
+@pytest.mark.parametrize("shape", ["sparse", "one_bag", "single_bag"])
+@pytest.mark.parametrize("d", [1, 3, 4, 32, 33])
+def test_ops_embedding_bag_at_the_mapping_shapes(shape, d):
+    """``ops.embedding_bag`` on CPU tensors (its plain path,
+    ``embedding_bag_ref``) against the reference's (the Pallas kernel in
+    interpret mode) at the bag shapes and widths the Hopper kernel's
+    mapping branches on; empty bags exact zeros.  The kernel itself meets
+    these shapes in ``test_torch_cuda.py``, on the card."""
+    ids, bag_ids, weights, table, nb = _shaped(shape, d, seed=10 + d)
+    ref = ref_ops.embedding_bag(jnp.asarray(ids), jnp.asarray(bag_ids),
+                                jnp.asarray(table), nb, jnp.asarray(weights),
+                                interpret=True)
+    got = ops.embedding_bag(torch.as_tensor(ids), torch.as_tensor(bag_ids),
+                            torch.as_tensor(table), nb,
+                            torch.as_tensor(weights))
+    assert got.shape == (nb, d)
+    _close(got, ref, f"{shape} d={d}")
+    empty = torch.as_tensor(np.bincount(bag_ids, minlength=nb) == 0)
+    assert not got[empty].any()
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 32, 33])
+def test_table_gradient_with_far_more_rows_than_ids(d):
+    """The backward's shape on CPU tensors (the plain path): the table
+    gradient over V = 4096 rows (one bag each in the transposed entries)
+    from 60 ids, against ``jax.grad`` of the reference's
+    ``embedding_bag_ref``; rows no id touches exact zeros."""
+    rng = np.random.default_rng(20 + d)
+    rows, L, nb = 4096, 60, 40
+    table = rng.standard_normal((rows, d)).astype(np.float32)
+    ids = np.concatenate([rng.integers(100, 1000, L // 2),
+                          rng.integers(3000, 4000, L - L // 2)]
+                         ).astype(np.int32)
+    bag_ids = rng.integers(0, nb, L).astype(np.int32)
+    weights = rng.uniform(-1, 2, L).astype(np.float32)
+    g = rng.standard_normal((nb, d)).astype(np.float32)
+    ref_grad = jax.grad(lambda t: jnp.sum(ref_embedding_bag_ref(
+        jnp.asarray(ids), jnp.asarray(bag_ids), jnp.asarray(weights), t,
+        nb) * g))(jnp.asarray(table))
+    t = torch.tensor(table, requires_grad=True)
+    out = ops.embedding_bag(torch.as_tensor(ids), torch.as_tensor(bag_ids), t,
+                            nb, torch.as_tensor(weights))
+    (out * torch.as_tensor(g)).sum().backward()
+    _close(t.grad, ref_grad, "table gradient")
+    touched = torch.zeros(rows, dtype=torch.bool)
+    touched[torch.as_tensor(ids).long()] = True
+    assert not t.grad[~touched].any()
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean", "max"])

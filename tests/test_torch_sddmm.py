@@ -4,8 +4,11 @@
 against the reference's ``ops.sddmm``, which runs the Pallas kernel in
 interpret mode (one edge per grid step, q and k padded to 128 lanes), and
 against its ``sddmm_ref``, at 1e-5 of the largest score: fp32 dot products
-of up to 130 terms in another order.  Edge counts on and off a multiple of
-256 (the reference's unused edge block), widths below, at and above a warp.
+of up to 256 terms in another order.  Edge counts on and off a multiple of
+256 (the reference's unused edge block), widths below, at and above a warp
+and at the Hopper kernel's branches (a lane per edge below d = 16, lane
+groups of d/4 above, 128-column chunks past d = 128); the 60 x 45 node
+pairs repeat edges.
 The kernel itself against its plain version is in ``test_torch_cuda.py``.
 """
 import numpy as np
@@ -30,7 +33,7 @@ def _inputs(E, d, seed=0, n=60, m=45):
 
 
 @pytest.mark.parametrize("E", [256, 300])
-@pytest.mark.parametrize("d", [1, 7, 64, 130])
+@pytest.mark.parametrize("d", [1, 4, 7, 16, 64, 130, 256])
 def test_ops_sddmm_matches_reference(E, d):
     src, dst, q, k = _inputs(E, d)
     j = [jnp.asarray(a) for a in (src, dst, q, k)]
