@@ -9,7 +9,8 @@
    ``build/`` (one nvcc per source, all started together) and prints the
    build time and ptxas's register and spill report.
 3. Kernel phases (``sddmm``, ``embedding_bag`` and ``decode_attention`` in
-   5, 6 and 7), each kernel
+   5, 7 and 8; the block-ELL kernels at GraphSAGE's shapes in 6), each
+   kernel
    against its plain PyTorch version on the card
    (tolerances below), timed with CUDA events beside its bound:
    ``spmm_blockell_compact`` on the GCN serving plan of ``cora_like(seed=0)``
@@ -41,7 +42,22 @@
    ``spmm_blockell``) and ``kernels.ops.sddmm`` run as paths of their own.
    Every path runs with each kernel's launch count set to 0 just before it
    and read just after, and fails if a kernel it needs was not launched.
-6. Wide & deep (``embedding_bag``): ``launch.serve --model wide_deep`` and
+6. GraphSAGE on the paper's CITESEER-S stand-in at Table I's size
+   (227,320 nodes, 814,134 edges, 3,703 features, 41 classes; synthesized
+   once): ``launch.serve --graph citeseer-s --scale 1.0 --model sage_gin``
+   (200 Zipf(1.1) requests, 500 KB cache; exactly 2 compact launches build
+   the offline forward, answers within 1e-4 of it); the paper's width
+   [3703, 256, 41] trained full-graph on the MinHash-reordered graph
+   through the cold ``plan_forward(sage_chain)`` plans (4 compact launches
+   a step), held against the segment executor (step 0 and 10 losses
+   within 1e-4), with ms per step, busy share and peak memory; the compact
+   kernel at that step's four launches against its plain version (run by
+   pieces of destination blocks) and ``torch.sparse.mm``; sampled
+   minibatches at [3703, 256, 256] (fanouts (15, 10), 512 seeds, 20
+   steps, no kernel); ``launch.serve --graph reddit --model sage_gin`` at
+   its default ``--scale 0.02`` (1 update and 1 compact launch) and the
+   update kernel at its two-W layer 1 beside ``composed_update``.
+7. Wide & deep (``embedding_bag``): ``launch.serve --model wide_deep`` and
    ``launch.train --arch wide-deep`` (``REDUCED``; 20 losses held against
    ``lookup="dense"`` within 1e-4, 4 launches a step); then ``CONFIG``
    (40 fields x 1 M rows, embed 32, MLP 1024-512-256; 5.3 GB of params
@@ -57,7 +73,7 @@
    (ms per step, busy share, peak memory).  Every ``CONFIG`` result is held
    against ``lookup="dense"`` on the same params within 1e-5 of its largest
    entry.
-7. LM serving (``decode_attention``), once the wide & deep phases have
+8. LM serving (``decode_attention``), once the wide & deep phases have
    freed the card: the kernel against its plain version (fp32 1e-4, bf16
    3e-2) and ``F.scaled_dot_product_attention`` at the reference's test
    shapes, granite-8b's ``decode_32k`` layer (B = 8), one ``long_500k``
@@ -68,7 +84,7 @@
    one step on the kernel and the plain path (logits within 3e-2 of the
    largest), 32 greedy steps (36 launches each; ms per step, tokens/s,
    busy share, decode_attention's share, peak memory).
-8. Writes the full report (every case, trial table and path) to
+9. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -249,26 +265,66 @@ def library_matrix(torch, dev, g, mode, transposed, self_coeff=None):
 
 COMPOSED = ("two PyTorch calls: torch.sparse.mm over the scaled adjacency "
             "(self terms on its diagonal), then torch.addmm with the bias; "
-            "ReLU in place")
+            "ReLU in place (SAGE's two-W layer: a third call, addmm_ of "
+            "x @ w_self)")
 
 
-def composed_update(torch, matrix, x, w, bias, relu):
+def composed_update(torch, matrix, x, w, bias, relu, w_self=None):
     """The update kernels' yardstick (``COMPOSED``; no single PyTorch call
     computes aggregation and W epilogue together, and the port never calls
-    this): ``act(M x @ W + b)`` with ``M`` from :func:`library_matrix`."""
+    this): ``act(M x @ W + b)`` with ``M`` from :func:`library_matrix`, and
+    ``+ x @ w_self`` for SAGE's two-W layer."""
     agg = torch.sparse.mm(matrix, x)
     y = agg @ w if bias is None else torch.addmm(bias, agg, w)
+    if w_self is not None:
+        y.addmm_(x, w_self)
     return y.relu_() if relu else y
 
 
+def compact_ref_by_row_blocks(torch, a, blocks, x, x_diag, s_in_diag, *,
+                              bm, bk, add_diag, max_tiles):
+    """``spmm_blockell_compact_ref`` on the side arrays ``a``, run over
+    consecutive destination blocks of at most ``max_tiles`` slots each (one
+    block more where a single block holds more) and concatenated.  Each
+    destination block's sum is its own, so this is the same function; the
+    pieces keep the plain version's fp32 tiles and per-slot products, which
+    at CITESEER-S scale would take 33 GB and 66 GB at once, within the
+    card."""
+    from repro_torch.kernels.ref import spmm_blockell_compact_ref
+
+    ro = a["row_offsets"].tolist()
+    R, n_dst = len(ro) - 1, a["s_out"].numel()
+    xd = x if x_diag is None else x_diag
+    sd = a["s_in"] if s_in_diag is None else s_in_diag
+    outs, r0 = [], 0
+    while r0 < R:
+        r1 = r0 + 1
+        while r1 < R and ro[r1 + 1] - ro[r0] <= max_tiles:
+            r1 += 1
+        lo, hi = ro[r0], ro[r1]
+        rows = slice(r0 * bm, min(r1 * bm, n_dst))
+        outs.append(spmm_blockell_compact_ref(
+            a["row_offsets"][r0:r1 + 1] - lo, a["cols"][lo:hi],
+            blocks[lo:hi], x, a["s_in"], a["s_out"][rows], xd[rows],
+            sd[rows], bm=bm, bk=bk, add_diag=add_diag))
+        r0 = r1
+    return torch.cat(outs)
+
+
 def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
-                 name, weight=0, plan_side=None, library=None):
+                 name, weight=0, plan_side=None, library=None,
+                 plain_max_tiles=None, n_inner=20, reps=25):
     """One ``spmm_blockell_compact`` case on the side arrays ``a`` of a
     plan: kernel vs plain version, both timed; ``weight`` is how many such
     launches one unit of main-path work makes (0: not on the main path).
     With ``plan_side`` (the plan's patched output) and ``library`` (its CSR
     matrix), the patched output is held against ``torch.sparse.mm`` and the
-    library call is timed as the yardstick."""
+    library call is timed as the yardstick.  ``plain_max_tiles`` runs the
+    plain version by runs of destination blocks
+    (:func:`compact_ref_by_row_blocks`); ``n_inner`` and ``reps`` size the
+    timing windows of the kernel and the library call (the plain version's
+    take one call each, 3 of them, when it runs in pieces)."""
+    import functools
     from repro_torch.kernels import spmm_blockell as sk
     from repro_torch.kernels.ref import spmm_blockell_compact_ref
 
@@ -285,8 +341,13 @@ def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
     args = (a["row_offsets"], a["cols"], blocks, x, a["s_in"], a["s_out"],
             xd, sd)
     kw = dict(bm=BM, bk=BM, add_diag=add_diag)
+    plain = functools.partial(spmm_blockell_compact_ref, *args, **kw)
+    if plain_max_tiles:
+        plain = functools.partial(compact_ref_by_row_blocks, torch, a,
+                                  blocks, x, xd, sd, **kw,
+                                  max_tiles=plain_max_tiles)
     y = sk.spmm_blockell_compact(*args, **kw)
-    ref = spmm_blockell_compact_ref(*args, **kw)
+    ref = plain()
     torch.cuda.synchronize()
     if not torch.isfinite(y[active]).all():
         raise AssertionError(f"kernel output not finite ({name})")
@@ -308,8 +369,9 @@ def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
         if fn(*raw):
             raise RuntimeError("launch failed")
 
-    ms = gpu_ms(launch)
-    plain_ms = gpu_ms(lambda: spmm_blockell_compact_ref(*args, **kw))
+    ms = gpu_ms(launch, n_inner=n_inner, reps=reps)
+    plain_ms = (gpu_ms(plain, n_inner=1, reps=3, warmup=1) if plain_max_tiles
+                else gpu_ms(plain))
     # what the data needs: inputs read once, outputs written once
     rows_out = int(active.sum())
     nbytes = (blocks.numel() * blocks.element_size() + x.numel() * 4
@@ -318,7 +380,7 @@ def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
     ops = 2 * nnz * d + 2 * n * d + (2 * n * d if add_diag else 0)
     case = {"kernel": "spmm_blockell_compact", "case": name,
             "max_abs_err": err, "ref_max_abs": ref_scale, "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "plain_in_pieces": bool(plain_max_tiles),
             **bound(nbytes, ops),
             "library_ms": None, "ms_over_library": None, "weight": weight}
     if library is not None:
@@ -327,7 +389,8 @@ def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
                                       KERNEL_TOL,
                                       f"plan vs torch.sparse.mm {name}")
         case["plan_vs_library_err"] = lib_err
-        case["library_ms"] = gpu_ms(lambda: torch.sparse.mm(library, x))
+        case["library_ms"] = gpu_ms(lambda: torch.sparse.mm(library, x),
+                                    n_inner=n_inner, reps=reps)
         case["ms_over_library"] = ms / case["library_ms"]
     print("case " + json.dumps(case))
     return case
@@ -418,118 +481,130 @@ def update_phase(torch, dev, g):
     """``spmm_blockell_update_compact`` against its plain version in the
     four cases above; case (a) is the GIN main path (4 launches a step)."""
     from repro_torch.exec import build_plan
-    from repro_torch.kernels import spmm_blockell as sk
-    from repro_torch.kernels.ref import spmm_blockell_update_compact_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    n = g.num_nodes
     plans = {}
     cases = []
-    for (name, mode, d_in, d_out, epi, has_bias, relu, add_diag, override,
-         tiles, tol, why) in UPDATE_CASES:
+    for spec in UPDATE_CASES:
+        mode = spec[1]
         if mode not in plans:
             plans[mode] = build_plan(g, mode, bm=BM, backend="cuda",
                                      device=dev)
-        plan = plans[mode]
-        a = plan._fwd
-        nnz = int(plan.ell.density_stats()["nnz"])
-        R = a["row_offsets"].numel() - 1
-        n_active = a["cols"].numel()
-        active = a["node_active"]
-        blocks = (a["blocks"] if tiles == "u8"
-                  else a["blocks"].to(torch.float32))
-        r = lambda *s: torch.randn(*s, generator=gen, device=dev)
-        x = r(n, d_in)
-        w = r(d_in, d_out) / d_in ** 0.5
-        b = r(d_out) if has_bias else None
-        ws = c = xs = xd = sd = None
-        if epi == "two_w":
-            ws = r(d_in, d_out) / d_in ** 0.5
-        elif epi == "self_coeff":
-            ws, c = w, torch.tensor(1.25, device=dev)     # 1 + eps
-        if override:
-            xs, xd = r(n, d_in), r(n, d_in)
-            sd = torch.rand((n,), generator=gen, device=dev)
-        args = (a["row_offsets"], a["cols"], blocks, x, a["s_in"],
-                a["s_out"], w, b, ws, c, xs, xd, sd)
-        kw = dict(bm=BM, bk=BM, add_diag=add_diag, relu=relu)
-        y = sk.spmm_blockell_update_compact(*args, **kw)
-        ref = spmm_blockell_update_compact_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.isfinite(y[active]).all():
-            raise AssertionError(f"update kernel output not finite {name}")
-        err = assert_close_scaled(y[active], ref[active], tol,
-                                  f"update kernel vs plain {name}")
-        ref_scale = float(ref[active].abs().max())
-        main = name.startswith("(a)")
-        if main:
-            again = sk.spmm_blockell_update_compact(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(again[active], y[active]):
-                raise AssertionError("update kernel rerun is not "
-                                     "bit-identical")
-
-        fn = sk._kernel_fn("spmm_blockell_update_compact")
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = lambda t: None if t is None else t.data_ptr()
-        xd_, sd_ = (xd, sd) if override else (x, a["s_in"])
-        raw = (a["row_offsets"].data_ptr(), a["cols"].data_ptr(),
-               blocks.data_ptr(), x.data_ptr(), a["s_in"].data_ptr(),
-               a["s_out"].data_ptr(), w.data_ptr(), ptr(b), ptr(ws), ptr(c),
-               ptr(xs if xs is not None else (x if ws is not None else None)),
-               xd_.data_ptr() if add_diag else None,
-               sd_.data_ptr() if add_diag else None, y.data_ptr(),
-               int(tiles == "u8"), R, n, n, BM, BM, d_in, d_out,
-               int(add_diag), int(relu), stream)
-
-        def launch():
-            if fn(*raw):
-                raise RuntimeError("launch failed")
-
-        big = d_in > 512
-        ms = gpu_ms(launch, n_inner=5 if big else 20)
-        plain_ms = gpu_ms(
-            lambda: spmm_blockell_update_compact_ref(*args, **kw),
-            n_inner=5 if big else 20)
-        # the two-call yardstick where one matrix holds the whole
-        # aggregation and self term (one W, no overrides)
-        composed_ms = composed_err = None
-        if epi != "two_w" and not override:
-            mat = library_matrix(torch, dev, g, mode, False,
-                                 None if c is None else float(c))
-            composed = lambda: composed_update(torch, mat, x, w, b, relu)
-            composed_err = assert_close_scaled(
-                composed()[active], ref[active], tol,
-                f"two-call yardstick vs plain {name}")
-            composed_ms = gpu_ms(composed, n_inner=5 if big else 20)
-        # what the data needs: each input read once, the output written
-        # once; the aggregation's sparse products, the scales, the self
-        # term and the dense epilogue product(s) on the written rows
-        rows_out = int(active.sum())
-        n_w = 2 if epi == "two_w" else 1
-        nbytes = (blocks.numel() * blocks.element_size() + 4 * n * d_in
-                  + 4 * n * 2 + 4 * (R + 1) + 4 * n_active
-                  + 4 * n_w * d_in * d_out + (4 * d_out if has_bias else 0)
-                  + (4 if c is not None else 0)
-                  + (4 * n * d_in if xs is not None else 0)
-                  + (4 * n * d_in + 4 * n if xd is not None else 0)
-                  + 4 * rows_out * d_out)
-        ops = (2 * nnz * d_in + 2 * n * d_in
-               + (2 * n * d_in if add_diag else 0)
-               + (2 * n * d_in if ws is not None else 0)
-               + 2 * n_w * rows_out * d_in * d_out
-               + (rows_out * d_out if has_bias else 0))
-        case = {"kernel": "spmm_blockell_update_compact", "case": name,
-                "tolerance": tol, "tolerance_why": why, "max_abs_err": err,
-                "ref_max_abs": ref_scale, "ms": ms, "plain_ms": plain_ms,
-                **bound(nbytes, ops),
-                "library_ms": None, "composed_ms": composed_ms,
-                "composed": COMPOSED if composed_ms is not None else None,
-                "composed_vs_plain_err": composed_err,
-                "weight": 4 if main else 0}
-        print("case " + json.dumps(case))
-        cases.append(case)
+        main = spec[0].startswith("(a)")
+        cases.append(update_case(torch, dev, g, plans[mode], spec, gen,
+                                 weight=4 if main else 0, rerun=main))
     return cases
+
+
+def update_case(torch, dev, g, plan, spec, gen, weight=0, rerun=False):
+    """One ``spmm_blockell_update_compact`` case (``spec`` as in
+    ``UPDATE_CASES``) on the forward side of ``plan``: kernel vs plain
+    version, both timed, beside the two-call yardstick where one matrix
+    holds the aggregation (no overrides); ``rerun`` also checks that a
+    second launch is bit-identical."""
+    from repro_torch.kernels import spmm_blockell as sk
+    from repro_torch.kernels.ref import spmm_blockell_update_compact_ref
+
+    (name, mode, d_in, d_out, epi, has_bias, relu, add_diag, override,
+     tiles, tol, why) = spec
+    n = g.num_nodes
+    a = plan._fwd
+    nnz = int(plan.ell.density_stats()["nnz"])
+    R = a["row_offsets"].numel() - 1
+    n_active = a["cols"].numel()
+    active = a["node_active"]
+    blocks = (a["blocks"] if tiles == "u8"
+              else a["blocks"].to(torch.float32))
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = r(n, d_in)
+    w = r(d_in, d_out) / d_in ** 0.5
+    b = r(d_out) if has_bias else None
+    ws = c = xs = xd = sd = None
+    if epi == "two_w":
+        ws = r(d_in, d_out) / d_in ** 0.5
+    elif epi == "self_coeff":
+        ws, c = w, torch.tensor(1.25, device=dev)     # 1 + eps
+    if override:
+        xs, xd = r(n, d_in), r(n, d_in)
+        sd = torch.rand((n,), generator=gen, device=dev)
+    args = (a["row_offsets"], a["cols"], blocks, x, a["s_in"],
+            a["s_out"], w, b, ws, c, xs, xd, sd)
+    kw = dict(bm=BM, bk=BM, add_diag=add_diag, relu=relu)
+    y = sk.spmm_blockell_update_compact(*args, **kw)
+    ref = spmm_blockell_update_compact_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y[active]).all():
+        raise AssertionError(f"update kernel output not finite {name}")
+    err = assert_close_scaled(y[active], ref[active], tol,
+                              f"update kernel vs plain {name}")
+    ref_scale = float(ref[active].abs().max())
+    if rerun:
+        again = sk.spmm_blockell_update_compact(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(again[active], y[active]):
+            raise AssertionError("update kernel rerun is not "
+                                 "bit-identical")
+
+    fn = sk._kernel_fn("spmm_blockell_update_compact")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
+    xd_, sd_ = (xd, sd) if override else (x, a["s_in"])
+    raw = (a["row_offsets"].data_ptr(), a["cols"].data_ptr(),
+           blocks.data_ptr(), x.data_ptr(), a["s_in"].data_ptr(),
+           a["s_out"].data_ptr(), w.data_ptr(), ptr(b), ptr(ws), ptr(c),
+           ptr(xs if xs is not None else (x if ws is not None else None)),
+           xd_.data_ptr() if add_diag else None,
+           sd_.data_ptr() if add_diag else None, y.data_ptr(),
+           int(tiles == "u8"), R, n, n, BM, BM, d_in, d_out,
+           int(add_diag), int(relu), stream)
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError("launch failed")
+
+    big = d_in > 512
+    ms = gpu_ms(launch, n_inner=5 if big else 20)
+    plain_ms = gpu_ms(
+        lambda: spmm_blockell_update_compact_ref(*args, **kw),
+        n_inner=5 if big else 20)
+    # the two-call yardstick (three calls for the two-W layer) where one
+    # matrix holds the whole aggregation and self term (no overrides)
+    composed_ms = composed_err = None
+    if not override:
+        mat = library_matrix(torch, dev, g, mode, False,
+                             None if epi != "self_coeff" else float(c))
+        composed = lambda: composed_update(
+            torch, mat, x, w, b, relu, ws if epi == "two_w" else None)
+        composed_err = assert_close_scaled(
+            composed()[active], ref[active], tol,
+            f"yardstick vs plain {name}")
+        composed_ms = gpu_ms(composed, n_inner=5 if big else 20)
+    # what the data needs: each input read once, the output written
+    # once; the aggregation's sparse products, the scales, the self
+    # term and the dense epilogue product(s) on the written rows
+    rows_out = int(active.sum())
+    n_w = 2 if epi == "two_w" else 1
+    nbytes = (blocks.numel() * blocks.element_size() + 4 * n * d_in
+              + 4 * n * 2 + 4 * (R + 1) + 4 * n_active
+              + 4 * n_w * d_in * d_out + (4 * d_out if has_bias else 0)
+              + (4 if c is not None else 0)
+              + (4 * n * d_in if xs is not None else 0)
+              + (4 * n * d_in + 4 * n if xd is not None else 0)
+              + 4 * rows_out * d_out)
+    ops = (2 * nnz * d_in + 2 * n * d_in
+           + (2 * n * d_in if add_diag else 0)
+           + (2 * n * d_in if ws is not None else 0)
+           + 2 * n_w * rows_out * d_in * d_out
+           + (rows_out * d_out if has_bias else 0))
+    case = {"kernel": "spmm_blockell_update_compact", "case": name,
+            "tolerance": tol, "tolerance_why": why, "max_abs_err": err,
+            "ref_max_abs": ref_scale, "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes, ops),
+            "library_ms": None, "composed_ms": composed_ms,
+            "composed": COMPOSED if composed_ms is not None else None,
+            "composed_vs_plain_err": composed_err, "weight": weight}
+    print("case " + json.dumps(case))
+    return case
 
 
 def bucket_tile_phase(torch, dev, g):
@@ -1222,6 +1297,337 @@ def gin_training_phase(torch, dev, g):
                                 grad_tol=1e-4, loss_tol=1e-3)
     report["breakdown"] = breakdown
     return launches, res.losses, breakdown["step_ms"], report
+
+
+# ---------------------------------------------------------------------------
+# GraphSAGE on the paper's CITESEER-S and REDDIT stand-ins
+# ---------------------------------------------------------------------------
+# CITESEER-S at Table I's size (227,320 nodes, 814,134 edges, 3,703
+# features, 41 classes), the paper's GraphSAGE width (GRAPHSAGE_DIMS =
+# [d_in, 256, classes], repro/core/perf_model.py), minibatches of 512 seeds
+# at fanouts (15, 10) as the reference's example samples them
+SAGE_SCALE = 1.0
+SAGE_HIDDEN = 256
+SAGE_MB_STEPS = 20
+SAGE_MB_SEEDS = 512
+SAGE_FANOUTS = (15, 10)
+SAGE_REQUESTS = 200
+# the card's cold DP at [3703, 256, 41]: both layers update-first compact
+SAGE_COLD_SCHEDULE = [("update_first", False, "cuda", 128, True)] * 2
+# the plain compact version runs in pieces of at most this many slots
+# (~5 GB of fp32 tiles, gathered x tiles and products at d = 256)
+SAGE_PLAIN_TILES = 16384
+# reddit's layer 1 at the launcher's default --scale 0.02, as update case
+SAGE_REDDIT_UPDATE = (
+    "(e) reddit --scale 0.02 sage_gin layer 1: mean 48->64, two W, bias, "
+    "ReLU", "mean", 48, 64, "two_w", True, True, False, False, "u8", 1e-5,
+    "fp32 means of a row's ~400 edges, then 48-term products, in another "
+    "order")
+
+
+def tile_counts(g, bm=BM) -> tuple:
+    """The active (bm, bm) tiles of ``g``'s adjacency in each direction
+    (forward, transposed): the slots its compact plan holds."""
+    import numpy as np
+    C = -(-g.num_nodes // bm)
+    count = lambda dst, src: int(np.unique(
+        dst.astype(np.int64) // bm * C + src.astype(np.int64) // bm).size)
+    return count(g.dst, g.src), count(g.src, g.dst)
+
+
+def sage_launcher_phase(torch, argv, expect, what):
+    """``launch.serve`` (its graph path) on a fresh tuning cache: the
+    graph is loaded as the launcher loads it; the offline forward must
+    launch exactly ``expect`` (kernel -> count) and nothing else, and the
+    served answers match it within 1e-4.  Returns (launches, report,
+    graph)."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(argv)
+    t0 = time.perf_counter()
+    g = serve.load_graph(args.graph, args.scale)
+    load_s = time.perf_counter() - t0
+    with tuning_cache():
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = serve.serve_graph(args, g)
+        wall = time.perf_counter() - t0
+        launches = read_launches(torch)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expect)
+    report = {"graph_load_s": load_s, "serve_wall_s": wall,
+              "nodes": g.num_nodes, "edges": g.num_edges,
+              "features": g.node_feat.shape[1],
+              "active_tiles_fwd_bwd": tile_counts(g),
+              "max_oracle_err": rep.max_oracle_err, "hit_rate": rep.hit_rate,
+              "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+              "req_per_s": rep.req_per_s, "batches": rep.num_batches,
+              "launches": launches}
+    print(f"{what}: " + json.dumps(report))
+    if rep.max_oracle_err >= ORACLE_TOL:
+        raise AssertionError(f"{what}: oracle max_err {rep.max_oracle_err} "
+                             f">= {ORACLE_TOL}")
+    if rep.num_requests != args.requests:
+        raise AssertionError(f"{what}: served {rep.num_requests} of "
+                             f"{args.requests} requests")
+    if launches != want:
+        raise AssertionError(f"{what}: launched {launches}; the offline "
+                             f"forward needs exactly {want}")
+    return launches, report, g
+
+
+def sage_training_phase(torch, dev, g):
+    """The paper's GraphSAGE [3703, 256, 41] on the reordered CITESEER-S,
+    trained full-graph through the cold ``plan_forward(sage_chain)`` plans
+    (both layers update-first compact: per step 2 forward and 2 transposed
+    ``spmm_blockell_compact`` launches), ``sage_loss`` and ``adam(1e-2)``:
+    ``COMPARE_STEPS`` steps with their launches counted, then
+    ``hold_against_plain`` against the same params on the segment executor
+    (step 0's loss and gradients within 1e-4 of the largest entry, every
+    loss within 1e-4 relative: fp32 means over a row's edges and 3703-term
+    products in another order), and ``step_breakdown`` with the peak
+    memory.  Returns (launches, report, forward plan)."""
+    import numpy as np
+    from repro_torch.exec import plan_forward, sage_chain
+    from repro_torch.models import sage_init, sage_loss
+    from repro_torch.train import adam, fit, make_train_step
+
+    classes = int(g.labels.max()) + 1
+    dims = [g.node_feat.shape[1], SAGE_HIDDEN, classes]
+    specs = sage_chain(dims)
+    with tuning_cache():
+        t0 = time.perf_counter()
+        fplan = plan_forward(g, specs, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    gp = fplan[0].gplan
+    print(f"SAGE {dims} schedule (cold plan_forward): {list(fplan.configs)}; "
+          f"plan built in {build_s:.1f}s: n_active {gp.meta_fwd.n_active} "
+          f"(transposed {gp.meta_bwd.n_active}), tiles "
+          f"{gp._fwd['blocks'].numel() / 1e9:.2f} GB + "
+          f"{gp._bwd['blocks'].numel() / 1e9:.2f} GB uint8 on the card")
+    if list(fplan.configs) != SAGE_COLD_SCHEDULE:
+        raise AssertionError(f"unexpected SAGE schedule {fplan.configs}")
+    t = lambda a: torch.as_tensor(a).to(dev)
+    batch = {"x": t(g.node_feat), "labels": t(g.labels.astype(np.int64)),
+             "mask": t(g.train_mask)}
+    graph = {"src": t(g.src.astype(np.int64)),
+             "dst": t(g.dst.astype(np.int64))}
+
+    def make(backend):
+        executor, plan = (("fused", fplan) if backend == "cuda"
+                          else ("segment", None))
+
+        def loss_fn(p, b):
+            return sage_loss(p, b["x"], graph, b["labels"], b["mask"],
+                             executor=executor, plan=plan)
+        params = sage_init(torch.Generator().manual_seed(0), dims,
+                           device=dev)
+        return loss_fn, params, batch
+
+    loss_fn, params, _ = make("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    res = fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
+              steps=COMPARE_STEPS, clip_norm=1.0, log=lambda s: None)
+    launches = read_launches(torch)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = {k: v / COMPARE_STEPS for k, v in launches.items() if v}
+    print(f"SAGE CITESEER-S training: launches={launches} per step="
+          f"{per_step} (expected 4 compact: 2 forward, 2 transposed); "
+          f"losses {res.losses}")
+    check_curve(res.losses, "SAGE CITESEER-S")
+    check_step_launches(launches, fplan, COMPARE_STEPS,
+                        "SAGE CITESEER-S training")
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = hold_against_plain(torch, "SAGE CITESEER-S", make,
+                                COMPARE_STEPS, grad_tol=1e-4, loss_tol=1e-4)
+    # the segment path gathers one feature row per edge (12 GB)
+    report["hold_peak_memory_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                     / 1e9)
+    report["breakdown"] = step_breakdown(
+        torch, "SAGE CITESEER-S", make_train_step(loss_fn, adam(1e-2), 1.0),
+        res.params, adam(1e-2).init(res.params), batch,
+        watch={"spmm_blockell_compact": "blockell"})
+    report["peak_memory_gb"] = peak
+    report["plan_build_s"] = build_s
+    report["launches"] = launches
+    report["losses"] = res.losses
+    print(f"SAGE CITESEER-S: {report['breakdown']['step_ms']:.3f} ms/step, "
+          f"busy share {report['breakdown']['busy_share']}, peak memory "
+          f"{peak:.2f} GB (kernel path; {report['hold_peak_memory_gb']:.2f} "
+          "GB while held against the segment path)")
+    return launches, report, fplan
+
+
+def sage_kernel_cases(torch, dev, g, fplan):
+    """``spmm_blockell_compact`` at one SAGE training step's four launches
+    on the reordered CITESEER-S (forward at d = 256 and 41, transposed at
+    d = 256 and 41), each against its plain version run by pieces, beside
+    ``torch.sparse.mm`` of the same scaled adjacency and the bound."""
+    gp = fplan[0].gplan
+    if not gp.ell.implicit:
+        raise AssertionError("CITESEER-S's plan should hold 0/1 tiles")
+    nnz = g.num_edges                   # unique unit edges: the bitmask's
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for side, a, apply, transposed in (
+            ("forward", gp._fwd, gp.raw_apply, False),
+            ("transposed", gp._bwd, gp.raw_apply_t, True)):
+        lib = library_matrix(torch, dev, g, "mean", transposed)
+        for d in (SAGE_HIDDEN, int(g.labels.max()) + 1):
+            cases.append(compact_case(
+                torch, dev, a, nnz, d, False, "u8", False, gen,
+                f"SAGE CITESEER-S {side} d={d}", weight=1, plan_side=apply,
+                library=lib, plain_max_tiles=SAGE_PLAIN_TILES, n_inner=5,
+                reps=5))
+        del lib
+    return cases
+
+
+def sage_minibatch_phase(torch, dev, g):
+    """Sampled-minibatch SAGE at full width: ``sage_block_apply`` at
+    [3703, 256, 256] plus a linear head to the 41 classes, fanouts (15,
+    10), 512 seeds a step, ``adam(1e-3)``, ``SAGE_MB_STEPS`` steps, batches
+    made as ``examples/train_sage_reddit_torch.py`` makes them.  Its
+    aggregation is ``index_add_`` (the reference's ``segment_sum``, no
+    Pallas kernel): no kernel of the port runs, and the phase checks that
+    none launched.  The mean of the last 5 losses must be below that of
+    the first 5."""
+    from repro_torch.graph import NeighborSampler
+    from repro_torch.models import sage_block_apply, sage_init
+    from repro_torch.nn.layers import cross_entropy, linear_apply, linear_init
+    from repro_torch.train import adam, make_train_step, minibatch_tensors
+
+    d, classes = g.node_feat.shape[1], int(g.labels.max()) + 1
+    sampler = NeighborSampler(g, SAGE_FANOUTS, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    params = {"sage": sage_init(gen, [d, SAGE_HIDDEN, SAGE_HIDDEN],
+                                device=dev),
+              "head": linear_init(gen, SAGE_HIDDEN, classes, device=dev)}
+
+    def loss_fn(p, batch):
+        h = sage_block_apply(p["sage"], batch["x"], batch["blocks"])
+        return cross_entropy(linear_apply(p["head"], h[batch["seed_rows"]]),
+                             batch["labels"])
+
+    opt = adam(1e-3)
+    step = make_train_step(loss_fn, opt)
+    state = opt.init(params)
+    losses, step_ms, host_ms, frontier = [], [], [], []
+    reset_launches()
+    for mb in sampler.batches(SAGE_MB_SEEDS, SAGE_MB_STEPS):
+        t0 = time.perf_counter()
+        batch = minibatch_tensors(g, mb, dev)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        frontier.append(mb.layer_sizes[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = read_launches(torch)
+    report = {"step_ms": statistics.median(step_ms[2:]),
+              "step_ms_all": step_ms,
+              "batch_prep_ms": statistics.median(host_ms),
+              "frontier_nodes": frontier, "losses": losses,
+              "launches": launches}
+    print(f"SAGE minibatch (sage_block_apply [{d}, {SAGE_HIDDEN}, "
+          f"{SAGE_HIDDEN}] + head to {classes}, fanouts {SAGE_FANOUTS}, "
+          f"{SAGE_MB_SEEDS} seeds; index_add_ aggregation, the reference's "
+          "segment_sum: no TPU kernel on this path, in the reference "
+          "either): " + json.dumps(report))
+    import math
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"SAGE minibatch: a loss is not finite {losses}")
+    if not statistics.mean(losses[-5:]) < statistics.mean(losses[:5]):
+        raise AssertionError(f"SAGE minibatch: the loss did not fall "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"SAGE minibatch launched {launches}")
+    return launches, report
+
+
+def sage_phases(torch, dev):
+    """Every GraphSAGE path: (a) ``launch.serve --graph citeseer-s --scale
+    1.0 --model sage_gin`` (2 compact launches build the offline forward);
+    (b) paper-width full-graph training on the reordered graph and the
+    compact kernel at its four launches; (c) sampled-minibatch training;
+    (d) ``launch.serve --graph reddit --model sage_gin`` at its default
+    ``--scale 0.02`` (1 ``spmm_blockell_update_compact`` and 1 compact
+    launch) and the update kernel at its layer 1.  CITESEER-S is
+    synthesized once, for (a), then reordered for (b) and (c); everything
+    is freed at the end."""
+    import gc
+    from repro_torch.core import minhash_reorder
+    from repro_torch.exec import build_plan
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    paths, report = {}, {}
+    argv = ["--graph", "citeseer-s", "--scale", str(SAGE_SCALE), "--model",
+            "sage_gin", "--requests", str(SAGE_REQUESTS), "--cache-kb", "500",
+            "--device", "cuda"]
+    paths["SAGE serving CITESEER-S (launcher)"], report["serving"], raw = \
+        sage_launcher_phase(torch, argv, {"spmm_blockell_compact": 2},
+                            "SAGE serving CITESEER-S (launcher)")
+    report["serving"]["peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = raw.permute(minhash_reorder(raw))
+    del raw
+    report["reorder_s"] = time.perf_counter() - t0
+    paths["SAGE training CITESEER-S"], report["training"], fplan = \
+        sage_training_phase(torch, dev, g)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cases = sage_kernel_cases(torch, dev, g, fplan)
+    del fplan
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["SAGE minibatch training CITESEER-S"], report["minibatch"] = \
+        sage_minibatch_phase(torch, dev, g)
+    report["cases_and_minibatch_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated(dev) / 1e9
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = ["--graph", "reddit", "--model", "sage_gin", "--requests",
+            str(SAGE_REQUESTS), "--device", "cuda"]
+    paths["SAGE serving reddit (launcher)"], report["reddit"], g_reddit = \
+        sage_launcher_phase(torch, argv, {"spmm_blockell_update_compact": 1,
+                                          "spmm_blockell_compact": 1},
+                            "SAGE serving reddit --scale 0.02 (launcher)")
+    plan = build_plan(g_reddit, "mean", bm=BM, backend="cuda", device=dev)
+    update_cases = [update_case(torch, dev, g_reddit, plan,
+                                SAGE_REDDIT_UPDATE,
+                                torch.Generator(device=dev).manual_seed(12),
+                                weight=1)]
+    del plan, g_reddit
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) / 1e9
+    report["left_allocated_gb"] = left
+    report["peak_memory_gb"] = max(
+        report["serving"]["peak_memory_gb"],
+        report["training"]["peak_memory_gb"],
+        report["training"]["hold_peak_memory_gb"],
+        report["cases_and_minibatch_peak_memory_gb"])
+    report["wall_s"] = time.perf_counter() - t_start
+    print(f"SAGE phases: {report['wall_s']:.1f}s, peak "
+          f"{report['peak_memory_gb']:.2f} GB (serving, training, "
+          "hold, cases and minibatch; reddit after), "
+          f"{left:.2f} GB still allocated")
+    if left > 4:
+        raise AssertionError(f"{left:.2f} GB left allocated after the SAGE "
+                             "phases")
+    return cases, update_cases, paths, report
 
 
 def ops_spmm_phase(torch, dev, g):
@@ -2155,6 +2561,11 @@ def main() -> int:
     paths["ops.spmm"] = ops_spmm_phase(torch, dev, g_train)
     sddmm_cases = sddmm_phase(torch, dev, g_train)
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
+    sage_compact, sage_update, sage_paths, sage_report = sage_phases(torch,
+                                                                     dev)
+    compact_cases += sage_compact
+    update_cases += sage_update
+    paths.update(sage_paths)
     bag_cases, recsys_paths, recsys_report = recsys_phases(torch, dev)
     paths.update(recsys_paths)
     decode_cases, lm_paths, lm_report = lm_phases(torch, dev)
@@ -2180,7 +2591,11 @@ def main() -> int:
                    "one GCN serving forward on Cora (d=64 then 16) + one "
                    "gcn-cora compact step (forward d=16, 7; transposed "
                    "d=16, 7) + one GIN step (forward d=128; 5 transposed "
-                   "d=128) on the reordered Cora, bm=128"),
+                   "d=128) on the reordered Cora + one paper-width SAGE "
+                   "training step on the reordered CITESEER-S (227,320 "
+                   "nodes; forward d=256, 41; transposed d=256, 41), "
+                   "bm=128; library: torch.sparse.mm of the same scaled "
+                   "adjacency"),
         kernel_row("spmm_blockell_update", padded_update_cases,
                    total["spmm_blockell_update"],
                    "one padded GIN conv launch (sum 128->128, w_self is w, "
@@ -2191,10 +2606,13 @@ def main() -> int:
         kernel_row("spmm_blockell_update_compact", update_cases,
                    total["spmm_blockell_update_compact"],
                    "one GIN training step's 4 fused convs (sum 128->128, "
-                   "w_self is w, 1+eps, bias, ReLU) on the reordered Cora, "
+                   "w_self is w, 1+eps, bias, ReLU) on the reordered Cora "
+                   "+ the sage_gin serving forward's layer 1 on reddit "
+                   "--scale 0.02 (mean 48->64, two W, bias, ReLU), "
                    "bm=128; library_ms null: no single PyTorch call "
                    "computes aggregation and W epilogue together "
-                   "(composed_ms: two PyTorch calls)"),
+                   "(composed_ms: two PyTorch calls, three for SAGE's two "
+                   "W)"),
         kernel_row("sddmm", sddmm_cases, total["sddmm"],
                    "per-edge scores on the reordered Cora (10,556 edges, "
                    "d=64, kernels.ops.sddmm's shape); library: "
@@ -2224,7 +2642,7 @@ def main() -> int:
         "cases": (spmm_cases + fused_cases + compact_cases
                   + padded_update_cases + update_cases + sddmm_cases
                   + bag_cases + decode_cases),
-        "gcn_autotune": gcn_report, "gin": gin_report,
+        "gcn_autotune": gcn_report, "gin": gin_report, "sage": sage_report,
         "wide_deep": recsys_report, "lm": lm_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

@@ -16,8 +16,9 @@ from .device import resolve_device
 def params_from_jax(tree, device="cuda"):
     """Any nested dict / list / tuple tree of numpy (or array-like) leaves
     -> the same tree (tuples stay tuples) of float32 tensors on ``device``,
-    bfloat16 leaves as bfloat16: GCN's ``{"layers": [{"w", "b"}, ...]}``,
-    GIN's ``convs[i].mlp[j].{w, b}`` with its 0-d ``eps``, ``lin1`` and
+    bfloat16 leaves as bfloat16: GCN's and GraphSAGE's ``{"layers":
+    [{"w", "b"}, ...]}`` (a SAGE layer's ``w`` is the concat form's (2 d_in,
+    d_out): self half on top, neighbor half below), GIN's ``convs[i].mlp[j].{w, b}`` with its 0-d ``eps``, ``lin1`` and
     ``lin2``, an LM's stacked ``dense_layers`` and its KV caches
     ``{"dense": (k, v)}``."""
     dev = resolve_device(device)

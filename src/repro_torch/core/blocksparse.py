@@ -105,8 +105,10 @@ class BlockEll:
         if self.blocks is not None:
             tiles = self.blocks[r_idx, s_idx].astype(dtype, copy=False)
         else:
+            # unpacked in place when the compute dtype is uint8: at
+            # CITESEER-S scale the tiles alone are 8-11 GB
             tiles = np.unpackbits(self.packed[r_idx, s_idx], axis=-1,
-                                  count=self.bk).astype(dtype)
+                                  count=self.bk).astype(dtype, copy=False)
         row_active = np.zeros(R, bool)
         row_active[r_idx] = True
         row_offsets = np.zeros(R + 1, np.int64)

@@ -1,4 +1,8 @@
-"""Graph containers, the Cora-shaped generator and serving expanders."""
+"""Graph containers, the paper's stand-in datasets, the neighbor sampler
+and serving expanders, and small-graph packing."""
 from .structure import Graph, CSR
-from .datasets import DatasetSpec, synthesize, cora_like
-from .sampler import FullNeighborhood, NeighborSampler
+from .datasets import (DatasetSpec, PAPER_TABLE_I, spec_for_paper, synthesize,
+                       cora_like, reddit_like, citeseer_s_like)
+from .sampler import (NeighborSampler, MiniBatch, SampledBlock,
+                      FullNeighborhood, static_block_shapes)
+from .batching import GraphBatch, pack, readout_segments

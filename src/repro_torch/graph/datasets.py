@@ -1,4 +1,6 @@
-"""Synthetic Cora-shaped graphs (numpy copy of ``repro/graph/datasets.py``).
+"""Synthetic graphs shaped like the paper's datasets (numpy copy of
+``repro/graph/datasets.py``): Cora, and the Table I stand-ins CITESEER-S
+and REDDIT at any scale.
 
 The generator draws from one numpy ``default_rng(seed)`` stream, so its
 output is byte-equal to the reference's for the same spec (the tests assert
@@ -14,6 +16,16 @@ import numpy as np
 
 from .structure import Graph
 
+# name: (num_graphs, avg_V, avg_E, feat_dim, classes)  — paper Table I
+PAPER_TABLE_I = {
+    "COLLAB":      (5000, 74, 2458, 492, 3),
+    "BZR":         (405, 36, 38, 53, 2),
+    "IMDB-BINARY": (1000, 20, 97, 136, 2),
+    "DD":          (1178, 284, 716, 89, 2),
+    "CITESEER-S":  (1, 227_320, 814_134, 3703, 41),
+    "REDDIT":      (1, 232_965, 114_615_892, 602, 6),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
@@ -25,6 +37,20 @@ class DatasetSpec:
     community: float = 0.8  # fraction of edges kept intra-community
     num_communities: Optional[int] = None
     seed: int = 0
+
+
+def spec_for_paper(name: str, scale: float = 1.0, seed: int = 0) -> DatasetSpec:
+    """Spec matching paper Table I, optionally scaled down: nodes and edges
+    by ``scale``, features by ``min(4 scale, 1)``."""
+    _, v, e, d, c = PAPER_TABLE_I[name]
+    return DatasetSpec(
+        name=name,
+        num_nodes=max(int(v * scale), 16),
+        num_edges=max(int(e * scale), 32),
+        feat_dim=max(int(d * min(scale * 4, 1.0)), 8),
+        num_classes=c,
+        seed=seed,
+    )
 
 
 def _power_law_degrees(n: int, m: int, rng: np.random.Generator,
@@ -109,3 +135,11 @@ def synthesize(spec: DatasetSpec) -> Graph:
 def cora_like(seed: int = 0) -> Graph:
     """Cora-shaped graph: 2708 nodes, 10556 edges, 1433 feats, 7 classes."""
     return synthesize(DatasetSpec("cora", 2708, 10556, 1433, 7, seed=seed))
+
+
+def reddit_like(scale: float = 1.0, seed: int = 0) -> Graph:
+    return synthesize(spec_for_paper("REDDIT", scale=scale, seed=seed))
+
+
+def citeseer_s_like(scale: float = 1.0, seed: int = 0) -> Graph:
+    return synthesize(spec_for_paper("CITESEER-S", scale=scale, seed=seed))

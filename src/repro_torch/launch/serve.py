@@ -1,5 +1,5 @@
-"""Serving launcher: an LM's prefill + decode loop, or online GCN and wide
-& deep inference on the port (``repro/launch/serve.py``).
+"""Serving launcher: an LM's prefill + decode loop, or online GCN,
+GraphSAGE and wide & deep inference on the port (``repro/launch/serve.py``).
 
 LM path (the ``REDUCED`` config, as the reference runs it), taken when
 ``--graph`` is absent:
@@ -15,18 +15,22 @@ kernel on ``cuda``.  Prints the generated ids and tokens/s.
 
 Graph path:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --graph cora \\
-      --model gcn|wide_deep --requests 200 --cache-kb 500 --warm reorder \\
-      [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --graph cora|citeseer-s|reddit [--scale 0.02] \\
+      --model gcn|sage_gin|wide_deep --requests 200 --cache-kb 500 \\
+      --warm reorder [--device cpu]
 
-Micro-batcher -> reorder-aware embedding cache -> sampled forward, every
-answer checked against the offline forward; exits 1 if they differ by 1e-4
-or more.  ``gcn``: the offline full-graph forward runs through the
-block-ELL kernels on ``cuda``.  ``wide_deep``: each of Cora's nodes is a
-user of the reduced wide & deep model, scored by the user tower, whose
-field lookup is the ``embedding_bag`` kernel on ``cuda``.  Runs on
-``cuda`` unless ``--device cpu`` is given.  The MoE LMs, the other graphs
-and models, and ``--metrics-out`` / ``--trace`` are not ported yet.
+``citeseer-s`` and ``reddit`` are the paper's Table I stand-ins at
+``--scale`` (nodes and edges scaled by it, features by ``min(4 scale,
+1)``).  Micro-batcher -> reorder-aware embedding cache -> sampled forward,
+every answer checked against the offline forward; exits 1 if they differ by
+1e-4 or more.  ``gcn`` and ``sage_gin`` (GraphSAGE, dims [d, 64, 16]): the
+offline full-graph forward runs through the block-ELL kernels on ``cuda``.
+``wide_deep``: each of the graph's nodes is a user of the reduced wide &
+deep model, scored by the user tower, whose field lookup is the
+``embedding_bag`` kernel on ``cuda``.  Runs on ``cuda`` unless ``--device
+cpu`` is given.  The MoE LMs and ``--metrics-out`` / ``--trace`` are not
+ported yet.
 """
 import argparse
 import dataclasses
@@ -38,7 +42,7 @@ import torch
 from ..configs import get
 from ..core import identity_order, minhash_reorder
 from ..device import resolve_device
-from ..graph import cora_like
+from ..graph import citeseer_s_like, cora_like, reddit_like
 from ..models.transformer import (lm_decode_step, lm_init, lm_prefill,
                                   make_kv_caches)
 from ..serve import (EmbeddingCache, MicroBatcher, ServeEngine, ServeReport,
@@ -94,11 +98,24 @@ def serve_lm(args, attn: str = "kernel") -> LMServeResult:
     return LMServeResult(seq, torch.stack(out_logits), dt)
 
 
-def serve_graph(args) -> ServeReport:
+def load_graph(name: str, scale: float):
+    """The ``--graph`` dataset at ``--scale`` (Cora ignores the scale)."""
+    if name == "cora":
+        return cora_like(seed=0)
+    if name == "citeseer-s":
+        return citeseer_s_like(scale=scale, seed=0)
+    if name == "reddit":
+        return reddit_like(scale=scale, seed=0)
+    raise SystemExit(f"unknown --graph {name!r} "
+                     "(choices: cora, citeseer-s, reddit)")
+
+
+def serve_graph(args, g=None) -> ServeReport:
+    """The graph path; ``g`` is ``load_graph(args.graph, args.scale)``
+    when the caller has loaded it already."""
     resolve_device(args.device)
-    if args.graph != "cora":
-        raise SystemExit(f"unknown --graph {args.graph!r} (ported: cora)")
-    g = cora_like(seed=0)
+    if g is None:
+        g = load_graph(args.graph, args.scale)
     print(f"graph {args.graph}: {g.num_nodes} nodes, {g.num_edges} edges; "
           f"model={args.model} device={args.device}")
     sess = make_session(args.model, g, seed=0, device=args.device)
@@ -142,10 +159,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     # graph path
     ap.add_argument("--graph", default=None,
                     help="serve a GNN/recsys session over this dataset "
-                         "(ported: cora) instead of the LM")
+                         "(cora | citeseer-s | reddit) instead of the LM")
     ap.add_argument("--model", default="gcn",
-                    help="registered serve session (ported: gcn, "
-                         "wide_deep)")
+                    help="registered serve session: gcn | sage_gin | "
+                         "wide_deep")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--zipf-a", type=float, default=1.1)
     ap.add_argument("--cache-kb", type=int, default=500)
@@ -154,6 +171,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-wait-ms", type=float, default=1.0)
     ap.add_argument("--warm", default="reorder",
                     choices=["reorder", "index", "none"])
+    ap.add_argument("--scale", type=float, default=0.02,
+                    help="dataset scale for the citeseer-s/reddit stand-ins")
     ap.add_argument("--no-oracle", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)

@@ -2,10 +2,10 @@
 
 A session owns the model parameters and turns a batch of node ids into
 embeddings: ``expand`` (one-hop frontier growth), ``gather`` (leaf
-features), ``layer_forward`` (one GCN layer over flat edge lists, on the
-device) and ``layer_values`` (the offline full-graph forward: the oracle
-rows and the ``warm()`` payloads).  The ``gcn`` and ``wide_deep`` sessions
-are ported; ``sage_gin`` raises until it is.
+features), ``layer_forward`` (one GCN or GraphSAGE layer over flat edge
+lists, on the device) and ``layer_values`` (the offline full-graph forward:
+the oracle rows and the ``warm()`` payloads).  Registered: ``gcn``,
+``sage_gin`` (GraphSAGE) and ``wide_deep``.
 """
 from __future__ import annotations
 
@@ -16,11 +16,12 @@ import torch
 
 from ..configs.wide_deep import REDUCED
 from ..device import resolve_device
-from ..exec import gcn_chain, plan_forward
+from ..exec import gcn_chain, plan_forward, sage_chain
 from ..graph.structure import Graph
 from ..graph.sampler import FullNeighborhood, NeighborSampler
 from ..models.gcn import gcn_apply, gcn_init, make_graph_inputs
 from ..models.recsys import WideDeepConfig, user_tower, widedeep_init
+from ..models.sage_gin import l2_normalize, sage_init, sage_layer
 from .batcher import pow2_bucket as _pow2
 
 
@@ -37,12 +38,31 @@ def _gcn_layer(w: torch.Tensor, b: torch.Tensor, src_h: torch.Tensor,
     return h if is_last else torch.relu(h)
 
 
+def _sage_layer(w: torch.Tensor, b: torch.Tensor, src_h: torch.Tensor,
+                self_h: torch.Tensor, dst_index: torch.Tensor,
+                is_last: bool) -> torch.Tensor:
+    """One GraphSAGE layer over a sampled block: the mean of each
+    destination's messages (0 where it has none), ``concat(self, nbr) @ w +
+    b``, ReLU except on the last layer, then the L2 normalize."""
+    B = self_h.shape[0]
+    s = torch.zeros_like(self_h).index_add_(0, dst_index, src_h)
+    cnt = self_h.new_zeros(B).index_add_(
+        0, dst_index, self_h.new_ones(dst_index.shape[0]))
+    nbr = s / torch.clamp(cnt, min=1.0)[:, None]
+    h = torch.cat([self_h, nbr], dim=-1) @ w + b
+    if not is_last:
+        h = torch.relu(h)
+    return l2_normalize(h)
+
+
 class GNNSession:
-    """Serves a full-batch GCN over sampled blocks.
+    """Serves a full-batch-trained GCN (``kind="gcn"``) or GraphSAGE
+    (``kind="sage"``) over sampled blocks.
 
     ``expander='full'`` (default) aggregates every in-edge with global
     degrees, so block outputs equal the offline full-graph forward row for
-    row and the engine's oracle check is exact.
+    row and the engine's oracle check is exact.  ``expander='fanout'``
+    swaps in the GraphSAGE sampler for approximate serving.
 
     ``executor='fused'`` (default) compiles the offline forward through
     :func:`~repro_torch.exec.plan_forward`, as the reference does: the DP
@@ -51,10 +71,13 @@ class GNNSession:
     (``$REPRO_TORCH_EXEC_CACHE``) is warm for this graph and device, the
     FLOP/byte model when cold — over the card's candidate grid on ``cuda``
     and the CPU grid on the CPU; layers with matching configs share one
-    graph plan.  ``executor='segment'`` runs the plain edge-list forward.
+    graph plan.  SAGE layers run the two-W epilogue, one plan call per
+    layer, then the L2 normalize.  ``executor='segment'`` runs the plain
+    edge-list forward.
 
-    ``params`` (a tree like ``gcn_init``'s) replaces the seeded init, e.g.
-    with the reference's weights carried over by ``params_from_jax``.
+    ``params`` (a tree like ``gcn_init``'s or ``sage_init``'s) replaces the
+    seeded init, e.g. with the reference's weights carried over by
+    ``params_from_jax``.
     """
 
     def __init__(self, name: str, g: Graph, kind: str = "gcn",
@@ -64,9 +87,8 @@ class GNNSession:
                  params: Optional[dict] = None):
         if g.node_feat is None:
             raise ValueError("GNNSession needs node features")
-        if kind != "gcn":
-            raise NotImplementedError(f"session kind {kind!r} is not ported "
-                                      "yet (only 'gcn')")
+        if kind not in ("gcn", "sage"):
+            raise ValueError(f"unknown session kind {kind!r} (gcn | sage)")
         if executor not in ("fused", "segment"):
             raise ValueError(f"unknown executor {executor!r} "
                              "(fused | segment)")
@@ -78,18 +100,23 @@ class GNNSession:
         self.feats = np.asarray(g.node_feat, dtype=np.float32)
         self.dims = [self.feats.shape[1], hidden, out_dim]
         if params is None:
-            params = gcn_init(torch.Generator().manual_seed(seed), self.dims,
-                              device=self.device)
+            init = gcn_init if kind == "gcn" else sage_init
+            params = init(torch.Generator().manual_seed(seed), self.dims,
+                          device=self.device)
         self.params = params
-        deg = g.in_degrees().astype(np.float32) + 1.0
-        self.inv_sqrt = (1.0 / np.sqrt(np.maximum(deg, 1.0))).astype(np.float32)
+        self.inv_sqrt = None
+        if kind == "gcn":
+            deg = g.in_degrees().astype(np.float32) + 1.0
+            self.inv_sqrt = (1.0 / np.sqrt(np.maximum(deg, 1.0))
+                             ).astype(np.float32)
         self._expander = (FullNeighborhood(g) if expander == "full"
                           else NeighborSampler(g, list(fanouts), seed=seed))
         self._layer_cache: Optional[List[np.ndarray]] = None
         self._layer_plans = None
         self._fplan = None
         if executor == "fused":
-            self._fplan = plan_forward(g, gcn_chain(self.dims),
+            chain = gcn_chain if kind == "gcn" else sage_chain
+            self._fplan = plan_forward(g, chain(self.dims),
                                        device=self.device)
             self._layer_plans = self._fplan.layers
 
@@ -115,12 +142,17 @@ class GNNSession:
         dev = self.device
         t = lambda a, dt: torch.as_tensor(np.asarray(a, dt)).to(dev)
         p = self.params["layers"][l - 1]
-        out = _gcn_layer(p["w"], p["b"], t(src_h, np.float32),
-                         t(self_h, np.float32),
-                         t(self.inv_sqrt[edge_src], np.float32),
-                         t(self.inv_sqrt[dst_ids], np.float32),
-                         t(dst_index, np.int64),
-                         is_last=l == self.num_layers)
+        is_last = l == self.num_layers
+        if self.kind == "gcn":
+            out = _gcn_layer(p["w"], p["b"], t(src_h, np.float32),
+                             t(self_h, np.float32),
+                             t(self.inv_sqrt[edge_src], np.float32),
+                             t(self.inv_sqrt[dst_ids], np.float32),
+                             t(dst_index, np.int64), is_last=is_last)
+        else:
+            out = _sage_layer(p["w"], p["b"], t(src_h, np.float32),
+                              t(self_h, np.float32), t(dst_index, np.int64),
+                              is_last=is_last)
         return out.cpu().numpy()
 
     # -------------------------------------------------------------- oracle
@@ -136,19 +168,26 @@ class GNNSession:
     @torch.no_grad()
     def _offline_layers(self) -> List[np.ndarray]:
         """Offline full-graph forward, capturing each layer's output as the
-        next layer consumes it (post-activation for non-final layers)."""
+        next layer consumes it (post-activation for non-final layers; SAGE's
+        after its L2 normalize)."""
         h = torch.as_tensor(self.feats).to(self.device)
         vals = [self.feats]
         L = self.num_layers
-        graph = (make_graph_inputs(self.g, self.device)
-                 if self._layer_plans is None else None)
+        lps = self._layer_plans
+        graph = (make_graph_inputs(self.g, self.device) if lps is None
+                 else None)
         for i, p in enumerate(self.params["layers"]):
-            if self._layer_plans is not None:
-                h = self._layer_plans[i].apply(h, p["w"], p.get("b"),
-                                               relu=i + 1 < L)
+            last = i + 1 == L
+            if self.kind == "sage":
+                # fused: the two-W epilogue, the self and neighbor halves
+                # of the concat-form W in ONE plan call (ReLU folded in)
+                h = (sage_layer(p, h, graph, last=last) if lps is None
+                     else sage_layer(p, h, None, "fused", lps[i], last=last))
+            elif lps is not None:
+                h = lps[i].apply(h, p["w"], p.get("b"), relu=not last)
             else:
                 h = gcn_apply({"layers": [p]}, h, graph, "segment")
-                if i + 1 < L:
+                if not last:
                     h = torch.relu(h)
             vals.append(h.cpu().numpy())
         return vals
@@ -230,24 +269,16 @@ def _build_widedeep(g, **kw):
     return WideDeepSession("wide_deep", num_users=num_users, **kw)
 
 
-def _not_ported(model: str) -> Callable[..., object]:
-    def build(g, **kw):
-        raise NotImplementedError(f"serve model {model!r} is not ported to "
-                                  "repro_torch yet (ported: gcn, "
-                                  "wide_deep)")
-    return build
-
-
 SESSION_BUILDERS: Dict[str, Callable[..., object]] = {
     "gcn": lambda g, **kw: GNNSession("gcn", g, "gcn", **kw),
-    "sage_gin": _not_ported("sage_gin"),
+    "sage_gin": lambda g, **kw: GNNSession("sage_gin", g, "sage", **kw),
     "wide_deep": _build_widedeep,
 }
 
 
 def make_session(model: str, g: Optional[Graph] = None, **kw):
-    """Build a registered serving session (``gcn`` | ``wide_deep``;
-    ``sage_gin`` is not ported yet)."""
+    """Build a registered serving session (``gcn`` | ``sage_gin`` |
+    ``wide_deep``)."""
     try:
         build = SESSION_BUILDERS[model]
     except KeyError:

@@ -4,7 +4,8 @@ padded kernels ``spmm_blockell``, ``spmm_blockell_fused`` and
 ``spmm_blockell_update``; ``embedding_bag``, ``sddmm`` and
 ``decode_attention``), the plans' backwards through the kernels (compact,
 padded and degree-bucketed) and ``ops.embedding_bag``'s transposed
-backward, a tiny autotune on the card, the serving slice, wide & deep's
+backward, GraphSAGE's two-W layer plans forward and backward and its
+serving session, a tiny autotune on the card, the serving slice, wide & deep's
 ``bag`` lookup against its ``dense`` one, and an LM decode step with the
 kernel against the plain attention.
 
@@ -282,6 +283,89 @@ def test_layer_plan_autograd_on_the_card(mode, d_in, d_out, epilogue):
         scale = max(1.0, float(out["torch"][1][k].abs().max()))
         torch.testing.assert_close(gk, out["torch"][1][k], rtol=0,
                                    atol=1e-4 * scale, msg=f"d{k}")
+
+
+@pytest.mark.parametrize("order", ["aggregate_first", "update_first"])
+def test_sage_fused_forward_and_backward_on_the_card(order):
+    """GraphSAGE through the two-W layer plans on the kernel backend against
+    the plain backend and the segment executor on the card: embeddings, the
+    loss and every gradient.  Aggregate-first layers are one
+    ``spmm_blockell_update_compact`` launch forward, update-first layers one
+    ``spmm_blockell_compact``; each takes one transposed compact launch
+    backward, but the first layer's (the features take no gradient)."""
+    _need_cuda()
+    from repro_torch.models import sage_apply, sage_init, sage_loss
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    dims = [64, 32, 7]
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = torch.randn(g.num_nodes, dims[0], device="cuda", generator=gen)
+    labels = torch.as_tensor(g.labels % 7, device="cuda")
+    mask = torch.as_tensor(g.train_mask, device="cuda")
+    params0 = sage_init(torch.Generator().manual_seed(0), dims,
+                        device="cuda")
+    graph = {"src": torch.as_tensor(g.src.astype(np.int64), device="cuda"),
+             "dst": torch.as_tensor(g.dst.astype(np.int64), device="cuda")}
+    out = {}
+    for backend in ("cuda", "torch", "segment"):
+        plans = None
+        if backend != "segment":
+            gplan = build_plan(g, "mean", bm=128, backend=backend,
+                               device="cuda")
+            plans = [build_layer_plan(g, "mean", d_in=a, d_out=b,
+                                      order=order, gplan=gplan)
+                     for a, b in zip(dims[:-1], dims[1:])]
+        executor = "segment" if backend == "segment" else "fused"
+        params = {"layers": [dict(zip(p, _leaves(*p.values())))
+                             for p in params0["layers"]]}
+        sk.spmm_blockell_compact.launches = 0
+        sk.spmm_blockell_update_compact.launches = 0
+        emb = sage_apply(params, x, graph, executor, plans)
+        loss = sage_loss(params, x, graph, labels, mask, executor=executor,
+                         plan=plans)
+        loss.backward()
+        if backend == "cuda":
+            fused = order == "aggregate_first"
+            # forward twice (sage_apply, then the loss's), backward once
+            assert sk.spmm_blockell_update_compact.launches == (
+                2 * 2 if fused else 0)
+            assert sk.spmm_blockell_compact.launches == (
+                2 if fused else 2 * 2 + 2)
+        out[backend] = (emb.detach(), loss.detach(),
+                        [t.grad for p in params["layers"]
+                         for t in p.values()])
+    for other in ("torch", "segment"):
+        torch.testing.assert_close(out["cuda"][0], out[other][0], atol=1e-4,
+                                   rtol=1e-4)
+        torch.testing.assert_close(out["cuda"][1], out[other][1], atol=1e-4,
+                                   rtol=1e-4)
+        for i, (a, b) in enumerate(zip(out["cuda"][2], out[other][2])):
+            scale = max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                       msg=f"grad {i} vs {other}")
+
+
+def test_sage_session_serves_through_the_kernels():
+    _need_cuda()
+    g = synthesize(DatasetSpec("t", 600, 4000, 32, 4, community=0.9,
+                               num_communities=6, seed=4))
+    sess = make_session("sage_gin", g, hidden=16, out_dim=8, device="cuda")
+    cpu = make_session("sage_gin", g, hidden=16, out_dim=8, device="cpu",
+                       executor="segment",
+                       params={"layers": [{k: v.cpu() for k, v in p.items()}
+                                          for p in sess.params["layers"]]})
+    sk.spmm_blockell_compact.launches = 0
+    sk.spmm_blockell_update_compact.launches = 0
+    for l in (1, 2):
+        np.testing.assert_allclose(sess.layer_values(l), cpu.layer_values(l),
+                                   atol=1e-4, rtol=1e-4)
+    # one kernel launch per layer, whichever order the DP picked
+    assert (sk.spmm_blockell_compact.launches
+            + sk.spmm_blockell_update_compact.launches) == 2
+    cache = EmbeddingCache(sess.layer_dims, 60_000, num_nodes=g.num_nodes)
+    eng = ServeEngine(sess, cache, MicroBatcher(max_batch=8, max_wait=1e-3))
+    rep = eng.serve(zipfian_trace(g.num_nodes, 80, seed=1))
+    assert rep.num_requests == 80 and rep.max_oracle_err < 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """The port's host-side graph compilers produce byte-equal arrays to the
-reference: the Cora-shaped generator, MinHash reordering, block-ELL tiling
-and its slot compaction (rows / cols / blocks / row_active / row_offsets)."""
+reference: the Cora-shaped generator and the paper's Table I stand-ins
+(``spec_for_paper``, ``citeseer_s_like``, ``reddit_like``), MinHash
+reordering, block-ELL tiling and its slot compaction (rows / cols / blocks
+/ row_active / row_offsets), the neighbor sampler's minibatches (every
+field of ``MiniBatch`` and ``SampledBlock``, ``gnn_epoch_batches``,
+``static_block_shapes``) and small-graph packing (``pack``)."""
 import dataclasses
 
 import numpy as np
@@ -9,7 +13,8 @@ import pytest
 from repro.core import (build_blockell as ref_build_blockell,
                         minhash_reorder as ref_minhash,
                         traffic_model as ref_traffic_model)
-from repro.graph import (DatasetSpec as RefSpec, cora_like as ref_cora,
+from repro.graph import (DatasetSpec as RefSpec, Graph as RefGraph,
+                         cora_like as ref_cora,
                          synthesize as ref_synthesize)
 from repro_torch.core import (build_blockell, identity_order, minhash_reorder,
                               traffic_model)
@@ -116,3 +121,138 @@ def test_weighted_tiles_and_traffic_model_equal(storage):
     ell = build_blockell(to_port(g), bm=32, bk=32, storage=storage)
     assert_bytes_equal(ref_ell.blocks, ell.blocks, "blocks")
     assert ref_traffic_model(ref_ell, 64) == traffic_model(ell, 64)
+
+
+# ----------------------------------------------------- the paper's datasets
+@pytest.mark.parametrize("name", ["COLLAB", "BZR", "IMDB-BINARY", "DD",
+                                  "CITESEER-S", "REDDIT"])
+@pytest.mark.parametrize("scale", [1.0, 0.005])
+def test_spec_for_paper_equal(name, scale):
+    import dataclasses as dc
+    from repro.graph import PAPER_TABLE_I as REF_TABLE
+    from repro.graph import spec_for_paper as ref_spec_for_paper
+    from repro_torch.graph import PAPER_TABLE_I, spec_for_paper
+
+    assert PAPER_TABLE_I[name] == REF_TABLE[name]
+    assert dc.asdict(spec_for_paper(name, scale, seed=3)) == \
+        dc.asdict(ref_spec_for_paper(name, scale, seed=3))
+
+
+@pytest.mark.parametrize("which,scale,seed", [("citeseer_s_like", 0.005, 0),
+                                              ("citeseer_s_like", 0.01, 2),
+                                              ("reddit_like", 0.002, 0),
+                                              ("reddit_like", 0.005, 1)])
+def test_paper_stand_ins_byte_equal(which, scale, seed):
+    import repro.graph as ref_graph
+    import repro_torch.graph as port_graph
+    ref = getattr(ref_graph, which)(scale=scale, seed=seed)
+    port = getattr(port_graph, which)(scale=scale, seed=seed)
+    _assert_graphs_equal(ref, port)
+
+
+# ----------------------------------------------------------- the sampler
+@pytest.fixture(scope="module")
+def sampled_graph():
+    """A graph with isolated nodes (they sample themselves)."""
+    g = ref_synthesize(RefSpec("s", 500, 2400, 6, 3, num_communities=5,
+                               seed=9))
+    keep = g.dst < 480                   # nodes 480.. get no in-edge
+    g = dataclasses.replace(g, src=g.src[keep], dst=g.dst[keep])
+    return g, to_port(g)
+
+
+def _assert_minibatches_equal(ref, port):
+    for f in ("seeds", "input_nodes"):
+        assert_bytes_equal(getattr(ref, f), getattr(port, f), f)
+    assert ref.layer_sizes == port.layer_sizes
+    assert len(ref.blocks) == len(port.blocks)
+    for i, (rb, pb) in enumerate(zip(ref.blocks, port.blocks)):
+        assert rb.fanout == pb.fanout and rb.num_dst == pb.num_dst
+        assert_bytes_equal(rb.dst_nodes, pb.dst_nodes, f"block {i} dst")
+        assert_bytes_equal(rb.src_nodes, pb.src_nodes, f"block {i} src")
+        assert_bytes_equal(ref.edge_src[i], port.edge_src[i], f"edge_src {i}")
+        assert_bytes_equal(ref.edge_dst[i], port.edge_dst[i], f"edge_dst {i}")
+
+
+@pytest.mark.parametrize("fanouts,seed", [((15, 10), 0), ((5,), 3),
+                                          ((4, 3, 2), 7), ((25, 10), 11)])
+def test_sampler_batches_byte_equal(sampled_graph, fanouts, seed):
+    from repro.graph import NeighborSampler as RefSampler
+    from repro_torch.graph import NeighborSampler
+
+    ref_g, g = sampled_graph
+    ref = RefSampler(ref_g, fanouts, seed=seed)
+    port = NeighborSampler(g, fanouts, seed=seed)
+    for batch_nodes in (64, 700):        # 700 > 500 nodes: with replacement
+        for rmb, pmb in zip(ref.batches(batch_nodes, 3),
+                            port.batches(batch_nodes, 3)):
+            _assert_minibatches_equal(rmb, pmb)
+    # the generators stayed in step: direct samples (isolated seeds too)
+    seeds = np.array([3, 481, 17, 499, 3], np.int32)
+    _assert_minibatches_equal(ref.sample(seeds), port.sample(seeds))
+    assert_bytes_equal(ref.expand(seeds)[0], port.expand(seeds)[0], "expand")
+
+
+def test_gnn_epoch_batches_byte_equal(sampled_graph):
+    from repro.graph import NeighborSampler as RefSampler
+    from repro.train.data import gnn_epoch_batches as ref_epoch
+    from repro_torch.graph import NeighborSampler
+    from repro_torch.train import gnn_epoch_batches
+
+    ref_g, g = sampled_graph
+    got = list(gnn_epoch_batches(NeighborSampler(g, (6, 4), seed=5), 32, 4))
+    want = list(ref_epoch(RefSampler(ref_g, (6, 4), seed=5), 32, 4))
+    assert len(got) == len(want) == 4
+    for rmb, pmb in zip(want, got):
+        _assert_minibatches_equal(rmb, pmb)
+
+
+@pytest.mark.parametrize("batch_nodes,fanouts,feat_dim",
+                         [(512, (15, 10), 602), (8, (3,), 5),
+                          (100, (4, 3, 2), 3703)])
+def test_static_block_shapes_equal(batch_nodes, fanouts, feat_dim):
+    from repro.graph import static_block_shapes as ref_shapes
+    from repro_torch.graph import static_block_shapes
+    assert static_block_shapes(batch_nodes, fanouts, feat_dim) == \
+        ref_shapes(batch_nodes, fanouts, feat_dim)
+
+
+# ------------------------------------------------------ small-graph packing
+def _small_graphs(feats=True):
+    rng = np.random.default_rng(4)
+    out = []
+    for i in range(5):
+        n, e = int(rng.integers(3, 12)), int(rng.integers(2, 30))
+        out.append(RefGraph(
+            src=rng.integers(0, n, e).astype(np.int32),
+            dst=rng.integers(0, n, e).astype(np.int32), num_nodes=n,
+            edge_mask=(rng.random(e) < 0.8) if i % 2 else None,
+            node_feat=(rng.standard_normal((n, 6)).astype(np.float32)
+                       if feats else None)))
+    return out
+
+
+@pytest.mark.parametrize("feats,caps", [(True, (None, None)),
+                                        (True, (16, 40)),
+                                        (False, (None, None))])
+def test_pack_byte_equal(feats, caps):
+    from repro.graph import pack as ref_pack
+    from repro.graph.batching import readout_segments as ref_readout
+    from repro_torch.graph import pack, readout_segments
+
+    graphs = _small_graphs(feats)
+    rb, rfeat = ref_pack(graphs, *caps)
+    pb, pfeat = pack([to_port(g) for g in graphs], *caps)
+    for f in ("src", "dst", "edge_mask", "node_mask", "graph_ids"):
+        assert_bytes_equal(getattr(rb, f), getattr(pb, f), f)
+    assert (rb.num_graphs, rb.nodes_per_graph, rb.edges_per_graph,
+            rb.num_nodes) == (pb.num_graphs, pb.nodes_per_graph,
+                              pb.edges_per_graph, pb.num_nodes)
+    assert_bytes_equal(rfeat, pfeat, "feat")
+    assert_bytes_equal(ref_readout(rb), readout_segments(pb), "readout")
+
+
+def test_pack_refuses_an_overfull_graph():
+    from repro_torch.graph import pack
+    with pytest.raises(ValueError, match="capacity"):
+        pack([to_port(g) for g in _small_graphs()], nodes_per_graph=2)

@@ -54,6 +54,7 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.exec.forward", "repro_torch.obs.audit",
                 "repro_torch.kernels.ops",
                 "repro_torch.graph.datasets", "repro_torch.graph.sampler",
+                "repro_torch.graph.batching",
                 "repro_torch.graph.structure", "repro_torch.kernels._build",
                 "repro_torch.kernels.ref",
                 "repro_torch.kernels.spmm_blockell",

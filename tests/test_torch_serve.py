@@ -4,9 +4,11 @@ the reference's, with the reference's weights carried over by
 
 On a small graph the offline layer values agree to 1e-5 and the same
 Zipfian trace served through both engines gives embeddings within 1e-5 and
-identical batching and cache statistics.  At full width (Cora, GCN dims
+identical batching and cache statistics, for the ``gcn`` and the
+``sage_gin`` (GraphSAGE) sessions.  At full width (Cora, GCN dims
 [1433, 64, 16]) the values agree to 1e-4: sums of 1433 terms in another
-order, the serving oracle's own bar.
+order, the serving oracle's own bar.  The launcher serves Cora, and the
+CITESEER-S and REDDIT stand-ins at a small ``--scale``, on the CPU.
 """
 import jax
 import numpy as np
@@ -27,8 +29,8 @@ from repro_torch.core import minhash_reorder
 from repro_torch.graph import cora_like
 from repro_torch.kernels import spmm_blockell as sk
 from repro_torch.launch import serve as launch_serve
-from repro_torch.serve import (EmbeddingCache, MicroBatcher, Request,
-                               ServeEngine, ServeSLO, make_session,
+from repro_torch.serve import (EmbeddingCache, GNNSession, MicroBatcher,
+                               Request, ServeEngine, ServeSLO, make_session,
                                zipfian_trace)
 
 from _torch_parity import assert_bytes_equal, to_port
@@ -197,11 +199,12 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_sessions_and_devices_raise():
     g = to_port(ref_synthesize(RefSpec("t", 64, 300, 8, 2, seed=3)))
-    for model in ("sage_gin",):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_session(model, g, device="cpu")
-    # ported since: one user per node of the graph
+    # every registered model is ported by now: wide & deep serves one user
+    # per node of the graph, sage_gin GraphSAGE
     assert make_session("wide_deep", g, device="cpu").num_users == 64
+    assert make_session("sage_gin", g, device="cpu").kind == "sage"
+    with pytest.raises(ValueError, match="unknown session kind"):
+        GNNSession("gat", g, "gat", device="cpu")
     with pytest.raises(ValueError, match="unknown serve model"):
         make_session("gat", g, device="cpu")
     if not torch.cuda.is_available():
@@ -243,3 +246,93 @@ def test_launcher_serves_cora_on_cpu(capsys):
     assert sk.spmm_blockell_compact.launches == before   # plain path on CPU
     out = capsys.readouterr().out
     assert "oracle check" in out and "OK" in out
+
+
+# ---------------------------------------------------------------- sage_gin
+@pytest.fixture(scope="module")
+def small_sage():
+    g = ref_synthesize(RefSpec("t", 400, 2500, 32, 4, community=0.9,
+                               num_communities=6, seed=4))
+    ref = ref_make_session("sage_gin", g, **SMALL)
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                             device="cpu")
+    return g, ref, params
+
+
+@pytest.mark.parametrize("executor", ["fused", "segment"])
+def test_sage_layer_values_match_reference(small_sage, executor):
+    g, ref, params = small_sage
+    sess = make_session("sage_gin", to_port(g), device="cpu", params=params,
+                        executor=executor, **SMALL)
+    assert sess.kind == "sage" and sess.layer_dims == [32, 16, 8]
+    if executor == "fused":
+        assert all(lp.mode == "mean" for lp in sess._layer_plans)
+    for l in range(sess.num_layers + 1):
+        np.testing.assert_allclose(sess.layer_values(l), ref.layer_values(l),
+                                   atol=1e-5, rtol=1e-5, err_msg=f"layer {l}")
+    # every served layer is L2-normalized
+    for l in (1, 2):
+        np.testing.assert_allclose(
+            np.linalg.norm(sess.layer_values(l), axis=-1), 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("expander", ["full", "fanout"])
+def test_sage_engine_serves_the_same_answers_as_reference(small_sage,
+                                                          expander):
+    g, ref, params = small_sage
+    if expander != "full":
+        ref = ref_make_session("sage_gin", g, expander=expander, **SMALL)
+    sess = make_session("sage_gin", to_port(g), device="cpu", params=params,
+                        expander=expander, **SMALL)
+    order = minhash_reorder(sess.g)
+    trace = zipfian_trace(g.num_nodes, 120, a=1.2, seed=1)
+    ref_trace = ref_zipfian_trace(g.num_nodes, 120, a=1.2, seed=1)
+    rep, outs, _ = _serve(ServeEngine, EmbeddingCache, MicroBatcher, sess,
+                          order, trace)
+    ref_rep, ref_outs, _ = _serve(RefEngine, RefCache, RefBatcher, ref,
+                                  order, ref_trace)
+    assert rep.num_requests == ref_rep.num_requests == 120
+    assert rep.num_batches == ref_rep.num_batches == len(outs)
+    for got, want in zip(outs, ref_outs):
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert rep.hit_rate == ref_rep.hit_rate
+    assert rep.cache.per_layer == ref_rep.cache.per_layer
+    assert rep.cache.bytes_missed == ref_rep.cache.bytes_missed
+    np.testing.assert_allclose(rep.max_oracle_err, ref_rep.max_oracle_err,
+                               atol=1e-5)
+    if expander == "full":
+        assert rep.max_oracle_err < 1e-5
+
+
+def test_sage_layer_forward_computes_cold_blocks(small_sage):
+    """With no cache, every answer goes through ``layer_forward`` (the
+    sampled-block SAGE layer), and still equals the offline forward."""
+    g, _, params = small_sage
+    sess = make_session("sage_gin", to_port(g), device="cpu", params=params,
+                        **SMALL)
+    eng = ServeEngine(sess, None, MicroBatcher(max_batch=8, max_wait=1e-3),
+                      oracle_check=True)
+    rep = eng.serve(zipfian_trace(g.num_nodes, 40, a=1.1, seed=2))
+    assert rep.num_requests == 40 and rep.max_oracle_err < 1e-5
+
+
+@pytest.mark.parametrize("graph", ["citeseer-s", "reddit"])
+def test_launcher_serves_sage_on_paper_stand_ins_on_cpu(graph, capsys):
+    from repro_torch.graph import citeseer_s_like, reddit_like
+    before = (sk.spmm_blockell_compact.launches,
+              sk.spmm_blockell_update_compact.launches)
+    rep = launch_serve.main(["--graph", graph, "--scale", "0.005",
+                             "--model", "sage_gin", "--requests", "60",
+                             "--device", "cpu"])
+    assert rep.num_requests == 60 and rep.max_oracle_err < 1e-4
+    assert (sk.spmm_blockell_compact.launches,
+            sk.spmm_blockell_update_compact.launches) == before
+    out = capsys.readouterr().out
+    g = (citeseer_s_like if graph == "citeseer-s" else reddit_like)(0.005)
+    assert f"graph {graph}: {g.num_nodes} nodes, {g.num_edges} edges" in out
+    assert "model=sage_gin" in out and "OK" in out
+
+
+def test_launcher_rejects_an_unknown_graph():
+    with pytest.raises(SystemExit, match="choices: cora, citeseer-s, reddit"):
+        launch_serve.main(["--graph", "pubmed", "--device", "cpu"])

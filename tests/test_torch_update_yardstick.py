@@ -7,8 +7,9 @@ self term ``c x_v`` on its diagonal), then ``torch.addmm`` with the bias,
 ReLU in place.  No single PyTorch call computes aggregation and W epilogue
 together, so that composition stands in for a library call.  This holds it
 to ``spmm_blockell_update_compact_ref`` and ``spmm_blockell_update_ref`` on
-the CPU, at GIN's conv (sum, W_self is W, c = 1 + eps, bias, ReLU) and at
-gcn's ``add_diag`` layer 1433 -> 16, so that its times on the card measure
+the CPU, at GIN's conv (sum, W_self is W, c = 1 + eps, bias, ReLU), at
+gcn's ``add_diag`` layer 1433 -> 16 and at SAGE's two-W layer (a third
+call, ``addmm_`` of ``x @ w_self``), so that its times on the card measure
 the same function.
 
 Tolerance 1e-5 of the largest entry (at least 1): fp32 sums of a row's
@@ -74,3 +75,29 @@ def test_composition_matches_the_update_kernels_plain_version(
     assert got.shape == (n, d_out)
     chip_smoke.assert_close_scaled(got[rows], ref[rows], TOL,
                                    f"{walk} {mode} {d_in}->{d_out}")
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_two_w_composition_matches_the_update_kernels_plain_version(relu):
+    """SAGE's two-W layer (mean, separate w_self, no coefficient): the
+    yardstick's third call ``addmm_(x, w_self)`` gives the plain version's
+    ``(s_out ⊙ A x) @ w + x @ w_self + b``."""
+    g = _graph()
+    n = g.num_nodes
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    x = t(rng.standard_normal((n, 48)))
+    w = t(rng.standard_normal((48, 64)) / np.sqrt(48))
+    ws = t(rng.standard_normal((48, 64)) / np.sqrt(48))
+    b = t(rng.standard_normal(64))
+    plan = build_plan(g, "mean", bm=BM, backend="torch", device="cpu")
+    a = plan._fwd
+    ref = spmm_blockell_update_compact_ref(
+        a["row_offsets"], a["cols"], a["blocks"], x, a["s_in"], a["s_out"],
+        w, b, ws, bm=BM, bk=BM, add_diag=plan.add_diag, relu=relu)
+    mat = chip_smoke.library_matrix(torch, torch.device("cpu"), g, "mean",
+                                    False)
+    got = chip_smoke.composed_update(torch, mat, x, w, b, relu, ws)
+    rows = a["node_active"]
+    chip_smoke.assert_close_scaled(got[rows], ref[rows], TOL,
+                                   f"two-W relu={relu}")
