@@ -40,6 +40,14 @@
    steps of ``fit``) on the port's cold ``plan_forward`` schedule, held
    against the plain backend.  ``kernels.ops.spmm`` (the entry point of
    ``spmm_blockell``) and ``kernels.ops.sddmm`` run as paths of their own.
+   Then the paper's reuse layer on Cora: ``examples/quickstart_torch.py``
+   on the card (the reference quickstart's lines, no launch); GCN [1433,
+   16, 7] with ``executor="blockell"`` over the bare adjacency's
+   ``BlockEll`` (``core.blockell_aggregate``: exactly 3 ``spmm_blockell``
+   launches a step, 10 steps held against the plain path on the CPU, and
+   ``spmm_blockell`` at the step's three launches, d = 1433 among them,
+   against its plain version and ``torch.sparse.mm``); GIN with
+   ``executor="shared"`` against ``"segment"`` (fp32 and fp64, no launch).
    Every path runs with each kernel's launch count set to 0 just before it
    and read just after, and fails if a kernel it needs was not launched.
 6. GraphSAGE on the paper's CITESEER-S stand-in at Table I's size
@@ -56,7 +64,13 @@
    minibatches at [3703, 256, 256] (fanouts (15, 10), 512 seeds, 20
    steps, no kernel); ``launch.serve --graph reddit --model sage_gin`` at
    its default ``--scale 0.02`` (1 update and 1 compact launch) and the
-   update kernel at its two-W layer 1 beside ``composed_update``.
+   update kernel at its two-W layer 1 beside ``composed_update``.  And the
+   paper's LR&CR schedule on the reordered CITESEER-S: the cache model's
+   Index / LR / LR&CR off-chip totals (64 PEs, 64 + 64 KB, d = 3703; host
+   seconds), the level-1 shared-set plan, and [3703, 256, 41] trained with
+   ``executor="shared"`` (no launch) against ``"segment"`` (step 0 and 10
+   losses within 1e-4), with ms per step, busy share and peak memory of
+   both.
 7. Wide & deep (``embedding_bag``): ``launch.serve --model wide_deep`` and
    ``launch.train --arch wide-deep`` (``REDUCED``; 20 losses held against
    ``lookup="dense"`` within 1e-4, 4 launches a step); then ``CONFIG``
@@ -874,15 +888,16 @@ def leaf_copy(tree):
 
 
 def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
-                       loss_tol):
+                       loss_tol, backends=("cuda", "torch")):
     """Step 0's loss and gradients, then ``COMPARE_STEPS`` losses of ``fit``,
-    on the kernel backend against the plain backend from the same params.
+    on the kernel backend against the plain backend from the same params
+    (or on ``backends[0]`` against ``backends[1]``, e.g. two executors).
     ``make(backend) -> (loss_fn, params, batch)``.  Losses of the first
     ``loss_tol_steps`` steps are held to ``loss_tol`` (relative)."""
     from repro_torch.train import adam, fit, tree_leaves
 
     out = {}
-    for backend in ("cuda", "torch"):
+    for backend in backends:
         loss_fn, params, batch = make(backend)
         p0 = leaf_copy(params)
         loss = loss_fn(p0, batch)
@@ -891,7 +906,7 @@ def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
                   steps=COMPARE_STEPS, clip_norm=1.0, log=lambda s: None)
         out[backend] = (loss.detach(), [p.grad for p in tree_leaves(p0)],
                         res.losses)
-    (l_k, g_k, c_k), (l_p, g_p, c_p) = out["cuda"], out["torch"]
+    (l_k, g_k, c_k), (l_p, g_p, c_p) = (out[b] for b in backends)
     loss0_err = assert_close_scaled(l_k, l_p, grad_tol, f"{what} step-0 loss")
     grad_err = max(assert_close_scaled(a, b, grad_tol, f"{what} grad {i}")
                    for i, (a, b) in enumerate(zip(g_k, g_p)))
@@ -903,7 +918,7 @@ def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
                              f"(kernel {c_k}, plain {c_p})")
     report = {"step0_loss_err": loss0_err, "step0_grad_err": grad_err,
               "loss_rel_err": rel, "kernel_losses": c_k, "plain_losses": c_p}
-    print(f"{what} vs plain backend: " + json.dumps(report))
+    print(f"{what} ({backends[0]} vs {backends[1]}): " + json.dumps(report))
     return report
 
 
@@ -1557,11 +1572,14 @@ def sage_phases(torch, dev):
     1.0 --model sage_gin`` (2 compact launches build the offline forward);
     (b) paper-width full-graph training on the reordered graph and the
     compact kernel at its four launches; (c) sampled-minibatch training;
-    (d) ``launch.serve --graph reddit --model sage_gin`` at its default
+    (e) the paper's LR&CR schedule (:func:`sage_lrcr_phase`); (d)
+    ``launch.serve --graph reddit --model sage_gin`` at its default
     ``--scale 0.02`` (1 ``spmm_blockell_update_compact`` and 1 compact
     launch) and the update kernel at its layer 1.  CITESEER-S is
-    synthesized once, for (a), then reordered for (b) and (c); everything
-    is freed at the end."""
+    synthesized once, for (a), then reordered for (b), (c) and (e), whose
+    Index schedule reads the raw graph's edges; everything is freed at the
+    end."""
+    import dataclasses
     import gc
     from repro_torch.core import minhash_reorder
     from repro_torch.exec import build_plan
@@ -1581,6 +1599,9 @@ def sage_phases(torch, dev):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     g = raw.permute(minhash_reorder(raw))
+    # the index order's edges, for the cache model's Index schedule
+    raw_edges = dataclasses.replace(raw, node_feat=None, labels=None,
+                                    train_mask=None)
     del raw
     report["reorder_s"] = time.perf_counter() - t0
     paths["SAGE training CITESEER-S"], report["training"], fplan = \
@@ -1594,7 +1615,11 @@ def sage_phases(torch, dev):
         sage_minibatch_phase(torch, dev, g)
     report["cases_and_minibatch_peak_memory_gb"] = \
         torch.cuda.max_memory_allocated(dev) / 1e9
-    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["SAGE LR&CR training CITESEER-S"], report["lrcr"] = \
+        sage_lrcr_phase(torch, dev, raw_edges, g)
+    del g, raw_edges
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1618,11 +1643,13 @@ def sage_phases(torch, dev):
         report["serving"]["peak_memory_gb"],
         report["training"]["peak_memory_gb"],
         report["training"]["hold_peak_memory_gb"],
-        report["cases_and_minibatch_peak_memory_gb"])
+        report["cases_and_minibatch_peak_memory_gb"],
+        report["lrcr"]["peak_memory_gb"],
+        report["lrcr"]["segment_peak_memory_gb"])
     report["wall_s"] = time.perf_counter() - t_start
     print(f"SAGE phases: {report['wall_s']:.1f}s, peak "
           f"{report['peak_memory_gb']:.2f} GB (serving, training, "
-          "hold, cases and minibatch; reddit after), "
+          "hold, cases and minibatch, LR&CR; reddit after), "
           f"{left:.2f} GB still allocated")
     if left > 4:
         raise AssertionError(f"{left:.2f} GB left allocated after the SAGE "
@@ -1649,6 +1676,318 @@ def ops_spmm_phase(torch, dev, g):
     if launches["spmm_blockell"] != 1:
         raise AssertionError(f"ops.spmm launched {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the paper's reuse layer: the quickstart, GCN on a bare BlockEll, the
+# shared-set (LR&CR) executor
+# ---------------------------------------------------------------------------
+# the reference quickstart's numbers on Cora (examples/quickstart.py)
+QUICKSTART_LINES = (
+    "graph: 2708 nodes, 10556 edges",
+    "off-chip traffic: index=56.0MB -> LR=43.4MB (22.5% eliminated)",
+    "shared-set plan: 1217 shared edges, -4.3% reductions eliminated",
+    "CR executor exact: True",
+    "block-ELL: 461 active blocks, mean density 0.0014")
+GCN_DIMS = [1433, 16, 7]
+
+
+def quickstart_phase(torch):
+    """``examples/quickstart_torch.py`` on the card, run in this process as
+    :func:`run_launcher` runs the launcher (its output captured and echoed,
+    the launch counters watching): its lines must be the reference
+    quickstart's, its asserts (the shared-set executor within 1e-3 of the
+    segment one, a falling loss) must pass, and no kernel may launch (the
+    reference's quickstart reaches no Pallas kernel either)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main([])
+    wall = time.perf_counter() - t0
+    launches = read_launches(torch)
+    print(buf.getvalue(), end="")
+    lines = buf.getvalue().splitlines()
+    missing = [l for l in QUICKSTART_LINES if l not in lines]
+    if missing:
+        raise AssertionError(f"quickstart: missing the lines {missing}")
+    check_curve(out["losses"], "quickstart GCN")
+    if any(launches.values()):
+        raise AssertionError(f"quickstart launched {launches}")
+    report = {"wall_s": wall, "losses": out["losses"],
+              "feature_loads": [out["index"].feature_loads,
+                                out["lr"].feature_loads],
+              "launches": launches}
+    print("quickstart: " + json.dumps(report))
+    return launches, report
+
+
+@contextlib.contextmanager
+def plain_spmm():
+    """``kernels.ops.spmm`` replaced by its plain version
+    (``ops.spmm_ref``, ``spmm_blockell_ref`` on the same operands) while
+    the block lasts; ``core.blockell_aggregate`` looks it up at call time,
+    forward and backward."""
+    from repro_torch.kernels import ops
+    kernel = ops.spmm
+    ops.spmm = ops.spmm_ref
+    try:
+        yield
+    finally:
+        ops.spmm = kernel
+
+
+def gcn_blockell_phase(torch, dev, g):
+    """GCN [1433, 16, 7] on the reordered Cora with ``executor="blockell"``
+    and the bare adjacency's ``BlockEll`` (0/1 tiles, bm 128): each step's
+    aggregations through ``core.blockell_aggregate``, 3 ``spmm_blockell``
+    launches (2 forward; 1 backward over Aᵀ for layer 2's input, the
+    features needing no gradient), ``adam(1e-2)``, ``COMPARE_STEPS`` steps.
+    Held against the same model on the plain path on the card (each launch
+    replaced by its plain version, :func:`plain_spmm`): step 0's loss and
+    every gradient within 1e-5 of the largest entry (fp32 sums of a row's
+    edges in another order), every loss within 1e-4 relative.  (An H100
+    80GB HBM3 against the plain path on an x86 CPU parts by up to 9.6e-5
+    within 10 steps: the CPU's GEMMs round otherwise, and Adam carries
+    it.)  Then ``spmm_blockell`` at that step's three launches
+    (forward d = 1433 and 16, transposed d = 16) against its plain version
+    and ``torch.sparse.mm``.  Returns (launches, report, cases)."""
+    from repro_torch.core import build_blockell, transpose_blockell
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.models import gcn_init, gcn_loss
+    from repro_torch.train import adam, fit, tree_leaves
+
+    ell = build_blockell(g, bm=BM, bk=BM, storage="auto")
+
+    def run():
+        """Step 0's loss and gradients, then the launches and losses of
+        ``COMPARE_STEPS`` steps of ``fit``."""
+        batch = gnn_batch(g, GCN_DIMS[-1], dev)
+
+        def loss_fn(p, b):
+            return gcn_loss(p, b["x"], b, b["labels"], b["train_mask"],
+                            "blockell", ell)
+        params = gcn_init(torch.Generator().manual_seed(0), GCN_DIMS,
+                          device=dev)
+        p0 = leaf_copy(params)
+        loss = loss_fn(p0, batch)
+        loss.backward()
+        reset_launches()
+        res = fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
+                  steps=COMPARE_STEPS, clip_norm=1.0, log=lambda s: None)
+        return (loss.detach().cpu(), [p.grad.cpu() for p in tree_leaves(p0)],
+                res.losses, read_launches(torch))
+
+    l_k, g_k, c_k, launches = run()
+    with plain_spmm():
+        l_p, g_p, c_p, plain_launches = run()
+    want = dict.fromkeys(KERNELS, 0)
+    want["spmm_blockell"] = 3 * COMPARE_STEPS
+    print(f"GCN {GCN_DIMS} blockell + BlockEll: launches={launches} "
+          f"(expected {want}); losses {c_k}")
+    if launches != want or any(plain_launches.values()):
+        raise AssertionError(f"GCN blockell + BlockEll launched {launches} "
+                             f"(plain path {plain_launches}); expected "
+                             f"{want}")
+    check_curve(c_k, "GCN blockell + BlockEll")
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(c_k, c_p)]
+    report = {
+        "step0_loss_err": assert_close_scaled(l_k, l_p, KERNEL_TOL,
+                                              "GCN blockell step-0 loss"),
+        "step0_grad_err": max(assert_close_scaled(
+            a, b, KERNEL_TOL, f"GCN blockell grad {i}")
+            for i, (a, b) in enumerate(zip(g_k, g_p))),
+        "loss_rel_err": rel, "kernel_losses": c_k, "plain_losses": c_p,
+        "ell": {"R": ell.n_row_blocks, "W": ell.width,
+                "active": ell.n_active, "implicit": ell.implicit},
+        "launches": launches}
+    if max(rel) > 1e-4:
+        raise AssertionError(f"GCN blockell losses differ by {max(rel):.3e} "
+                             f"> 1e-4 (kernel {c_k}, plain {c_p})")
+    print("GCN blockell + BlockEll vs plain path: "
+          + json.dumps(report))
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    nnz = int(ell.density_stats()["nnz"])
+    ones = torch.ones(g.num_nodes, device=dev)
+    cases = []
+    for side, e, transposed, widths in (
+            ("forward", ell, False, (GCN_DIMS[0], GCN_DIMS[1])),
+            ("transposed", transpose_blockell(ell), True, (GCN_DIMS[1],))):
+        cols, tiles = ops._operands(e, ones)
+        a = {"block_cols": cols, "blocks": tiles, "s_in": ones}
+        lib = library_matrix(torch, dev, g, "sum", transposed)
+        for d in widths:
+            cases.append(padded_case(
+                torch, dev, "spmm_blockell", a, nnz, e.n_active, d, gen,
+                f"GCN blockell step {side} d={d} (bare adjacency BlockEll, "
+                f"bm={BM})", bm=BM, weight=1, library=lib))
+    return launches, report, cases
+
+
+def gin_shared_phase(torch, dev, g):
+    """GIN at its paper width (1433 -> 128 x 5 convs -> 7) on the reordered
+    Cora with ``executor="shared"`` (the level-1 ``SharedSetPlan``): 5 steps
+    of ``fit`` with the launches counted (none: the shared executor is
+    segment sums, as in the reference), then held against
+    ``executor="segment"``: step 0's loss and gradients and the losses of
+    steps 0-4 within 1e-3 (of the largest entry; relative), in fp32 and in
+    fp64.  GIN at this width is chaotic (``tests/test_torch_gin.py``): the
+    shared partials sum a row in another order, five unnormalized sum convs
+    carry that fp32 rounding to 1.6e-4 of the largest step-0 gradient on
+    the CPU, where Adam then takes the losses 5.1e-2 apart by step 4 (on
+    an H100 80GB HBM3: 1.5e-5 and 2.3e-5).  In fp64 the two executors
+    agree to 1.4e-14 at step 0 on that card: they compute one function."""
+    import math
+    from repro_torch.core import build_shared_plan
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.models.sage_gin import gin_init, gin_loss
+    from repro_torch.train import adam, fit, tree_map
+
+    plan = build_shared_plan(g)
+
+    def make_for(dtype):
+        batch = gnn_batch(g, 7, dev)
+        batch["x"] = batch["x"].to(dtype)
+
+        def make(executor):
+            def loss_fn(p, b):
+                return gin_loss(p, b["x"], b, b["labels"], b["train_mask"],
+                                executor=executor, plan=plan)
+            params = gin_init(torch.Generator().manual_seed(0),
+                              g.node_feat.shape[1], 128, 5, 7, device=dev)
+            return loss_fn, tree_map(lambda t: t.to(dtype), params), batch
+        return make
+
+    make = make_for(torch.float32)
+    loss_fn, params, batch = make("shared")
+    reset_launches()
+    res = fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
+              steps=5, clip_norm=1.0, log=lambda s: None)
+    launches = read_launches(torch)
+    print(f"GIN shared: launches={launches}; losses {res.losses}")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"GIN shared: a loss is not finite "
+                             f"{res.losses}")
+    if any(launches.values()):
+        raise AssertionError(f"GIN shared launched {launches}")
+    pair = ("shared", "segment")
+    report = {"fp32": hold_against_plain(torch, "GIN shared fp32", make, 5,
+                                         grad_tol=1e-3, loss_tol=1e-3,
+                                         backends=pair),
+              "fp64": hold_against_plain(torch, "GIN shared fp64",
+                                         make_for(torch.float64), 5,
+                                         grad_tol=1e-3, loss_tol=1e-3,
+                                         backends=pair),
+              "launches": launches}
+    return launches, report
+
+
+def sage_lrcr_phase(torch, dev, raw_edges, g):
+    """The paper's LR&CR schedule at the paper's GraphSAGE width on the
+    full CITESEER-S: ``schedule_comparison`` (Index on the raw graph's
+    edges, LR and LR&CR on the reordered graph; 64 PEs, 64 + 64 KB a PE,
+    d = 3703) and ``build_shared_plan`` (level 1) with their host seconds,
+    then [3703, 256, 41] trained with ``executor="shared"``,
+    ``adam(1e-2)``, ``COMPARE_STEPS`` steps with the launches counted
+    (none), held against ``executor="segment"`` (step 0's loss and
+    gradients within 1e-4 of the largest entry, every loss within 1e-4
+    relative), and ``step_breakdown`` of both executors with their peak
+    memory.  Returns (launches, report)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import build_shared_plan, schedule_comparison
+    from repro_torch.models import sage_init, sage_loss
+    from repro_torch.train import adam, fit, make_train_step
+
+    d = g.node_feat.shape[1]
+    t0 = time.perf_counter()
+    plan = build_shared_plan(g, levels=1)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched = schedule_comparison(
+        raw_edges, dataclasses.replace(g, node_feat=None, labels=None,
+                                       train_mask=None),
+        plan, num_pes=64, feat_dim=d)
+    sched_s = time.perf_counter() - t0
+    names = ("index", "lr", "lrcr")
+    report = {"plan_build_s": plan_s, "shared_edges": plan.shared_edges,
+              "residual_edges": int(plan.residual_src.shape[0]),
+              "shared_fraction": plan.shared_fraction,
+              "reduction_ratio": plan.reduction_ratio,
+              "schedule_s": sched_s,
+              "offchip_gb": {k: sched[k].offchip_bytes / 1e9 for k in names},
+              "feature_loads": {k: sched[k].feature_loads for k in names},
+              "gc_hits": sched["lrcr"].pair_hits,
+              **{k: sched[k] for k in ("lr_traffic_reduction",
+                                       "lrcr_traffic_reduction",
+                                       "lrcr_extra_reduction_vs_lr")}}
+    print("SAGE CITESEER-S LR&CR, cache model (64 PEs, 64 + 64 KB, d = "
+          f"{d}; host): " + json.dumps(report))
+
+    classes = int(g.labels.max()) + 1
+    dims = [d, SAGE_HIDDEN, classes]
+    t = lambda a: torch.as_tensor(a).to(dev)
+    batch = {"x": t(g.node_feat), "labels": t(g.labels.astype(np.int64)),
+             "mask": t(g.train_mask)}
+    graph = {"src": t(g.src.astype(np.int64)),
+             "dst": t(g.dst.astype(np.int64))}
+
+    def make(executor):
+        def loss_fn(p, b):
+            return sage_loss(p, b["x"], graph, b["labels"], b["mask"],
+                             executor=executor, plan=plan)
+        params = sage_init(torch.Generator().manual_seed(0), dims,
+                           device=dev)
+        return loss_fn, params, batch
+
+    loss_fn, params, _ = make("shared")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    res = fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
+              steps=COMPARE_STEPS, clip_norm=1.0, log=lambda s: None)
+    launches = read_launches(torch)
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"SAGE CITESEER-S LR&CR training: launches={launches} (expected "
+          f"none); losses {res.losses}")
+    check_curve(res.losses, "SAGE CITESEER-S LR&CR")
+    if any(launches.values()):
+        raise AssertionError(f"SAGE LR&CR launched {launches}")
+    report["hold"] = hold_against_plain(
+        torch, "SAGE CITESEER-S LR&CR", make, COMPARE_STEPS, grad_tol=1e-4,
+        loss_tol=1e-4, backends=("shared", "segment"))
+    # device time by kind: the scatter-adds, the row gathers, the GEMMs,
+    # the elementwise passes (the shared partials' consume among them)
+    watch = {"index_add": "indexFunc", "gather": "index_elementwise",
+             "gemm": "gemm", "elementwise": "elementwise_kernel",
+             "cat": "CatArray"}
+    report["breakdown"] = step_breakdown(
+        torch, "SAGE CITESEER-S LR&CR", make_train_step(loss_fn, adam(1e-2),
+                                                       1.0),
+        res.params, adam(1e-2).init(res.params), batch, watch=watch)
+    seg_fn, seg_params, _ = make("segment")
+    torch.cuda.reset_peak_memory_stats(dev)
+    report["segment_breakdown"] = step_breakdown(
+        torch, "SAGE CITESEER-S segment", make_train_step(seg_fn, adam(1e-2),
+                                                         1.0),
+        seg_params, adam(1e-2).init(seg_params), batch, watch=watch)
+    report["segment_peak_memory_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                        / 1e9)
+    report["launches"] = launches
+    report["losses"] = res.losses
+    b, sb = report["breakdown"], report["segment_breakdown"]
+    print(f"SAGE CITESEER-S LR&CR: {b['step_ms']:.3f} ms/step, busy share "
+          f"{b['busy_share']}, peak {report['peak_memory_gb']:.2f} GB; "
+          f"segment {sb['step_ms']:.3f} ms/step, busy share "
+          f"{sb['busy_share']}, peak "
+          f"{report['segment_peak_memory_gb']:.2f} GB")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -2559,6 +2898,13 @@ def main() -> int:
         torch, dev, g_train)
     paths["GIN training"] = gin_launches
     paths["ops.spmm"] = ops_spmm_phase(torch, dev, g_train)
+    paths["quickstart (examples/quickstart_torch.py)"], quickstart_report = \
+        quickstart_phase(torch)
+    paths["GCN blockell + BlockEll training"], gcn_ell_report, ell_cases = \
+        gcn_blockell_phase(torch, dev, g_train)
+    spmm_cases += ell_cases
+    paths["GIN shared training"], gin_shared_report = gin_shared_phase(
+        torch, dev, g_train)
     sddmm_cases = sddmm_phase(torch, dev, g_train)
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
     sage_compact, sage_update, sage_paths, sage_report = sage_phases(torch,
@@ -2578,9 +2924,11 @@ def main() -> int:
 
     kernels = [
         kernel_row("spmm_blockell", spmm_cases, total["spmm_blockell"],
-                   "y = A x on the reordered Cora's padded ELL, bm=128, d=64 "
-                   "(kernels.ops.spmm's shape); library: torch.sparse.mm of "
-                   "the bare adjacency"),
+                   "y = A x on the reordered Cora's padded ELL, bm=128: "
+                   "d=64 (kernels.ops.spmm's shape) + one GCN [1433, 16, 7] "
+                   "blockell + BlockEll training step's 3 launches "
+                   "(forward d=1433, 16; transposed d=16); library: "
+                   "torch.sparse.mm of the bare adjacency"),
         kernel_row("spmm_blockell_fused", fused_cases,
                    total["spmm_blockell_fused"],
                    "one padded gcn-cora step's aggregations on the reordered "
@@ -2643,6 +2991,8 @@ def main() -> int:
                   + padded_update_cases + update_cases + sddmm_cases
                   + bag_cases + decode_cases),
         "gcn_autotune": gcn_report, "gin": gin_report, "sage": sage_report,
+        "quickstart": quickstart_report, "gcn_blockell": gcn_ell_report,
+        "gin_shared": gin_shared_report,
         "wide_deep": recsys_report, "lm": lm_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

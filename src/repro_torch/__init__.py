@@ -13,5 +13,8 @@ the autotuner, GCN, GIN, wide & deep with the ``embedding_bag`` kernel,
 the ``sddmm`` kernel (``kernels.ops.sddmm``), the serving engine and
 ``launch.serve``, training (``train``, ``configs``, ``launch.train``), and
 dense LM serving (``nn.attention``, ``models.transformer``, the LM configs,
-``launch.serve --arch``) with the ``decode_attention`` kernel.
+``launch.serve --arch``) with the ``decode_attention`` kernel, and the
+paper's reuse layer (``core``: shared-set plans and executor, the other
+reorders, the hierarchical mapping, the G-D/G-C cache and Table II cost
+models).
 """

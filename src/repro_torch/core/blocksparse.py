@@ -234,6 +234,38 @@ def transpose_graph(g: Graph) -> Graph:
     return dataclasses.replace(g, src=g.dst, dst=g.src)
 
 
+def transpose_blockell(ell: BlockEll) -> BlockEll:
+    """Aᵀ of a square (num_nodes x num_nodes) block-ELL, in its storage:
+    tile (r, c) moves to (c, r), transposed; each new row block lists its
+    slots by ascending source block.  The same matrix as
+    ``build_blockell(transpose_graph(g))``, not always in the same slots."""
+    R = ell.n_row_blocks
+    C = max(-(-ell.num_nodes // ell.bk), 1)
+    if R != max(-(-ell.num_nodes // ell.bm), 1):
+        raise ValueError(f"{R} row blocks of {ell.bm} for {ell.num_nodes} "
+                         "sources: only a square block-ELL transposes here")
+    r_idx, s_idx = np.nonzero(ell.block_cols >= 0)
+    c_idx = ell.block_cols[r_idx, s_idx].astype(np.int64)
+    order = np.lexsort((r_idx, c_idx))          # by (new row, new col)
+    r_idx, s_idx, c_idx = r_idx[order], s_idx[order], c_idx[order]
+    counts = np.bincount(c_idx, minlength=C)
+    W = max(int(counts.max(initial=1)), 1)
+    slot = np.arange(c_idx.shape[0]) - (np.cumsum(counts) - counts)[c_idx]
+    block_cols = np.full((C, W), -1, np.int32)
+    block_cols[c_idx, slot] = r_idx
+    if ell.implicit:
+        bits = np.unpackbits(ell.packed[r_idx, s_idx], axis=-1, count=ell.bk)
+        packed = np.zeros((C, W, ell.bk, (ell.bm + 7) // 8), np.uint8)
+        packed[c_idx, slot] = np.packbits(bits.transpose(0, 2, 1), axis=-1)
+        return BlockEll(block_cols=block_cols, blocks=None,
+                        num_nodes=ell.num_nodes, bm=ell.bk, bk=ell.bm,
+                        packed=packed)
+    blocks = np.zeros((C, W, ell.bk, ell.bm), ell.blocks.dtype)
+    blocks[c_idx, slot] = ell.blocks[r_idx, s_idx].transpose(0, 2, 1)
+    return BlockEll(block_cols=block_cols, blocks=blocks,
+                    num_nodes=ell.num_nodes, bm=ell.bk, bk=ell.bm)
+
+
 def traffic_model(ell: BlockEll, d: int, bytes_per_el: int = 4) -> dict:
     """Device-memory traffic of one block-ELL SpMM vs a pure edge gather.
 

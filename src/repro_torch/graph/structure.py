@@ -68,6 +68,14 @@ class Graph:
             np.add.at(deg, self.dst, 1)
         return deg
 
+    def out_degrees(self) -> np.ndarray:
+        deg = np.zeros(self.num_nodes, dtype=np.int64)
+        if self.edge_mask is not None:
+            np.add.at(deg, self.src[self.edge_mask], 1)
+        else:
+            np.add.at(deg, self.src, 1)
+        return deg
+
     def permute(self, perm: np.ndarray) -> "Graph":
         """Relabel nodes: ``perm[k]`` = old id of the node that runs k-th."""
         assert perm.shape[0] == self.num_nodes
@@ -82,6 +90,15 @@ class Graph:
             labels=self.labels[perm] if self.labels is not None else None,
             train_mask=self.train_mask[perm] if self.train_mask is not None else None,
         )
+
+    def with_sym_norm(self) -> "Graph":
+        """Attach GCN symmetric normalization coefficients 1/sqrt(d_u d_v)
+        (degrees count the self loop)."""
+        deg = np.maximum(self.in_degrees() + 1, 1).astype(np.float64)
+        w = 1.0 / np.sqrt(deg[self.src] * deg[self.dst])
+        if self.edge_mask is not None:
+            w = np.where(self.edge_mask, w, 0.0)
+        return dataclasses.replace(self, edge_weight=w.astype(np.float32))
 
     def validate(self) -> None:
         if self.src.dtype not in (np.int32, np.int64):

@@ -6,7 +6,9 @@ C*bk rows and 128 lanes, the table and q/k to 128 lanes, the edge count to
 a block); the port hands them over at their own shapes.
 
 ``spmm`` is the entry point of the padded kernel ``spmm_blockell`` over a
-``BlockEll`` container; ``spmm_ref`` always runs its plain version.
+``BlockEll`` container (its device operands are built on the first call
+and kept while the container lives); ``spmm_ref`` always runs its plain
+version.
 ``embedding_bag`` keeps the reference's contract (a stable sort by bag,
 weights defaulting to ones, empty bags giving zeros) and differentiates
 with respect to the table.
@@ -21,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..memo import per_object
 from . import decode_attention as _decode
 from . import embedding_bag as _bag
 from . import sddmm as _sddmm
@@ -29,10 +32,15 @@ from .spmm_blockell import spmm_blockell
 
 
 def _operands(ell, x: torch.Tensor):
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(x.device)
-    # the exact 0/1 bitmask travels as uint8 tiles; weighted tiles as fp32
-    tiles = ell.dense_blocks(np.uint8 if ell.implicit else np.float32)
-    return t(ell.block_cols), t(tiles)
+    """The slot table and tiles of ``ell`` on x's device, built on the
+    first call for that container and device."""
+    def build():
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(x.device)
+        # the exact 0/1 bitmask travels as uint8 tiles; weighted tiles as
+        # fp32
+        tiles = ell.dense_blocks(np.uint8 if ell.implicit else np.float32)
+        return t(ell.block_cols), t(tiles)
+    return per_object(ell, ("spmm", x.device), build)
 
 
 def spmm(ell, x: torch.Tensor) -> torch.Tensor:

@@ -3,21 +3,30 @@
 h^{l+1} = act( A_hat h^l W^l ),  A_hat = D^-1/2 (A+I) D^-1/2.
 
 The symmetric normalization factorizes into a source and a destination
-scale, so the aggregation runs unweighted on pre-scaled features.
-``executor`` is ``"segment"`` (an ``index_add_`` over the edge list),
-``"blockell"`` (one ``repro_torch.exec.GraphExecutionPlan`` in mode "gcn":
-the whole A_hat chain as one differentiable launch, the update matmul
-apart) or ``"fused"`` (one ``repro_torch.exec.LayerExecutionPlan`` call per
-layer: aggregation and update as one scheduled op, on the block-ELL kernels
-when the plans' backend is ``cuda``).
+scale, so the aggregation runs unweighted on pre-scaled features, which is
+what the shared-set (G-C) reuse plan needs.  ``executor`` is
+``"segment"`` (``core.segment_aggregate`` over the edge list),
+``"shared"`` (``core.shared_aggregate`` over a ``SharedSetPlan``, the
+paper's computation reuse), ``"blockell"`` (with a
+``repro_torch.exec.GraphExecutionPlan`` in mode "gcn": the whole A_hat
+chain as one differentiable launch, the update matmul apart; with a bare
+adjacency ``BlockEll``: ``core.blockell_aggregate`` inside the scaling
+chain, one ``spmm_blockell`` launch on the card) or ``"fused"`` (one
+``repro_torch.exec.LayerExecutionPlan`` call per layer: aggregation and
+update as one scheduled op, on the block-ELL kernels when the plans'
+backend is ``cuda``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core.aggregate import (blockell_aggregate, segment_aggregate,
+                              shared_aggregate)
+from ..core.blocksparse import BlockEll
+from ..core.shared_set import SharedSetPlan
 from ..device import resolve_device
 from ..exec.plan import GraphExecutionPlan
 from ..nn.layers import cross_entropy, linear_apply, linear_init
@@ -45,24 +54,45 @@ def make_graph_inputs(g, device="cuda") -> Dict[str, torch.Tensor]:
     return out
 
 
-def _aggregate_segment(x: torch.Tensor, graph: Dict[str, torch.Tensor]
-                       ) -> torch.Tensor:
-    """A_hat @ x over the edge list; self-loop added analytically."""
+def _aggregate(x: torch.Tensor, graph: Dict[str, torch.Tensor],
+               aggregate: Callable[[torch.Tensor], torch.Tensor]
+               ) -> torch.Tensor:
+    """A_hat @ x: ``aggregate`` sums over the edges of the source-scaled
+    features; the self loop is added analytically."""
     inv_sqrt = torch.rsqrt(torch.clamp(graph["deg"], min=1.0))
     xs = x * inv_sqrt[:, None]                       # source scaling
-    msgs = xs[graph["src"]]
-    if "edge_mask" in graph:
-        msgs = msgs * graph["edge_mask"][:, None].to(msgs.dtype)
-    agg = torch.zeros_like(xs).index_add_(0, graph["dst"], msgs)
-    return (agg + xs) * inv_sqrt[:, None]            # self loop, dst scaling
+    return (aggregate(xs) + xs) * inv_sqrt[:, None]  # self loop, dst scaling
+
+
+def _edge_sum(executor: str, plans, graph: Dict[str, torch.Tensor]
+              ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The unweighted sum over the edges that ``executor`` runs."""
+    if executor == "segment":
+        return lambda xs: segment_aggregate(
+            xs, graph["src"], graph["dst"], xs.shape[0], "sum",
+            edge_mask=graph.get("edge_mask"))
+    if executor == "shared":
+        if not isinstance(plans, SharedSetPlan):
+            raise ValueError("executor='shared' needs a SharedSetPlan "
+                             "(build_shared_plan(g))")
+        return lambda xs: shared_aggregate(xs, plans, "sum")
+    if executor == "blockell":
+        if not isinstance(plans, BlockEll):
+            raise ValueError("executor='blockell' needs one "
+                             "GraphExecutionPlan (build_plan(g, 'gcn')) or "
+                             "the adjacency's BlockEll (build_blockell(g))")
+        return lambda xs: blockell_aggregate(plans, xs)
+    raise ValueError(f"unknown executor {executor!r} "
+                     "(segment | shared | blockell | fused)")
 
 
 def gcn_apply(params: Dict, x: torch.Tensor,
               graph: Optional[Dict[str, torch.Tensor]] = None,
               executor: str = "segment", plans=None) -> torch.Tensor:
     """Forward pass; ReLU between layers, none after the last.  ``plans`` is
-    one LayerExecutionPlan per layer for ``"fused"`` and one
-    GraphExecutionPlan for ``"blockell"``."""
+    one LayerExecutionPlan per layer for ``"fused"``, one GraphExecutionPlan
+    or the adjacency's BlockEll for ``"blockell"`` and a SharedSetPlan for
+    ``"shared"``."""
     layers = params["layers"]
     n_layers = len(layers)
     if executor == "fused":
@@ -76,18 +106,13 @@ def gcn_apply(params: Dict, x: torch.Tensor,
         for i, (p, lp) in enumerate(zip(layers, plans)):
             h = lp.apply(h, p["w"], p.get("b"), relu=i + 1 < n_layers)
         return h
-    if executor == "blockell":
-        if not isinstance(plans, GraphExecutionPlan):
-            raise ValueError("executor='blockell' needs one "
-                             "GraphExecutionPlan (build_plan(g, 'gcn'))")
+    if executor == "blockell" and isinstance(plans, GraphExecutionPlan):
         if plans.mode != "gcn":
             raise ValueError(f"plan mode {plans.mode!r} != 'gcn'")
         aggregate = plans.apply
-    elif executor == "segment":
-        aggregate = lambda h: _aggregate_segment(h, graph)
     else:
-        raise ValueError(f"unknown executor {executor!r} "
-                         "(segment | blockell | fused)")
+        edge_sum = _edge_sum(executor, plans, graph)
+        aggregate = lambda h: _aggregate(h, graph, edge_sum)
     h = x
     for i, p in enumerate(layers):
         h = linear_apply(p, aggregate(h))

@@ -4,10 +4,12 @@ documented configurations (§V-A, PyG defaults: SAGE 2 sageConv layers,
 h = 256; GIN 5 GINConv layers, each a 2-layer MLP, plus 2 linear layers,
 h = 128).
 
-``executor`` is ``"segment"`` (``index_add_`` over the edge list),
-``"blockell"`` (one ``repro_torch.exec.GraphExecutionPlan`` in the model's
-mode: "mean" for SAGE, "sum" for GIN) or ``"fused"`` (one
-``LayerExecutionPlan`` per layer).  Fused, each SAGE layer
+``executor`` is ``"segment"`` (``core.segment_aggregate`` over the edge
+list), ``"shared"`` (``core.shared_aggregate`` over a ``SharedSetPlan``:
+the paper's LR&CR schedule), ``"blockell"`` (one
+``repro_torch.exec.GraphExecutionPlan`` in the model's mode: "mean" for
+SAGE, "sum" for GIN) or ``"fused"`` (one ``LayerExecutionPlan`` per
+layer).  Fused, each SAGE layer
 ``concat(h, mean_N(h)) @ W + b`` is the two-W plan call
 ``h @ W_self + mean_N(h) @ W_nbr + b`` with ReLU folded in, and each GIN
 conv's first MLP layer ``((1+ε) h + sum_N(h)) @ W1 + b1`` is one
@@ -24,29 +26,12 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ..core.aggregate import segment_aggregate, shared_aggregate
+from ..core.shared_set import SharedSetPlan
 from ..device import resolve_device
 from ..exec.plan import GraphExecutionPlan
 from ..nn.layers import (cross_entropy, linear_apply, linear_init, mlp_apply,
                          mlp_init)
-
-
-def _segment_aggregate(x: torch.Tensor, graph: Dict[str, torch.Tensor],
-                       op: str) -> torch.Tensor:
-    """``a[v] = op_{(u->v)} x[u]`` for op in {sum, mean}; masked edges
-    count for nothing."""
-    msgs = x[graph["src"]]
-    mask = graph.get("edge_mask")
-    if mask is not None:
-        msgs = torch.where(mask[:, None], msgs, torch.zeros_like(msgs))
-    out = torch.zeros_like(x).index_add_(0, graph["dst"], msgs)
-    if op == "mean":
-        ones = (mask.to(x.dtype) if mask is not None
-                else x.new_ones(graph["src"].shape[0]))
-        deg = x.new_zeros(x.shape[0]).index_add_(0, graph["dst"], ones)
-        return out / torch.clamp(deg, min=1.0)[:, None]
-    if op != "sum":
-        raise ValueError(f"unknown aggregation {op!r} (sum | mean)")
-    return out
 
 
 def _agg(h: torch.Tensor, graph: Optional[Dict[str, torch.Tensor]], op: str,
@@ -61,10 +46,20 @@ def _agg(h: torch.Tensor, graph: Optional[Dict[str, torch.Tensor]], op: str,
             raise ValueError(f"plan compiled for {plan.num_nodes} nodes but "
                              f"h has {h.shape[0]} rows (wrong graph?)")
         return plan.apply(h)
+    if executor == "shared":
+        # the reference quietly runs the segment path when no plan is given
+        if not isinstance(plan, SharedSetPlan):
+            raise ValueError("executor='shared' needs a SharedSetPlan "
+                             "(build_shared_plan(g))")
+        if plan.num_nodes != h.shape[0]:
+            raise ValueError(f"plan built for {plan.num_nodes} nodes but "
+                             f"h has {h.shape[0]} rows (wrong graph?)")
+        return shared_aggregate(h, plan, op)
     if executor != "segment":
         raise ValueError(f"unknown executor {executor!r} "
-                         "(segment | blockell | fused)")
-    return _segment_aggregate(h, graph, op)
+                         "(segment | shared | blockell | fused)")
+    return segment_aggregate(h, graph["src"], graph["dst"], h.shape[0], op,
+                             edge_mask=graph.get("edge_mask"))
 
 
 def l2_normalize(h: torch.Tensor) -> torch.Tensor:
@@ -91,8 +86,8 @@ def sage_layer(p: Dict, h: torch.Tensor,
                act: Callable = torch.relu) -> torch.Tensor:
     """One SAGE layer ``concat(h, mean_N(h)) @ W + b``, ``act`` unless
     ``last``, then the L2 normalize.  ``plan`` is the layer's mode-"mean"
-    LayerExecutionPlan for ``"fused"`` and the GraphExecutionPlan for
-    ``"blockell"``."""
+    LayerExecutionPlan for ``"fused"``, the GraphExecutionPlan for
+    ``"blockell"`` and the graph's SharedSetPlan for ``"shared"``."""
     if executor == "fused":
         # W splits into its self and neighbor halves:
         #   concat(h, mean_N(h)) @ W + b == h @ W_self + F(h) @ W_nbr + b
@@ -117,8 +112,9 @@ def sage_apply(params: Dict, x: torch.Tensor,
                executor: str = "segment", plan=None,
                act: Callable = torch.relu) -> torch.Tensor:
     """Full-graph forward; ``plan`` is one mode-"mean" LayerExecutionPlan
-    per layer (a list or a ForwardExecutionPlan) for ``"fused"`` and one
-    GraphExecutionPlan for ``"blockell"``."""
+    per layer (a list or a ForwardExecutionPlan) for ``"fused"``, one
+    GraphExecutionPlan for ``"blockell"`` and a SharedSetPlan for
+    ``"shared"``."""
     h = x
     L = len(params["layers"])
     for i, p in enumerate(params["layers"]):
@@ -184,7 +180,8 @@ def gin_apply(params: Dict, x: torch.Tensor,
     ``graph_ids`` (each node's graph, e.g. a ``graph.pack`` batch's): the
     conv outputs of the nodes ``node_mask`` keeps are summed per graph
     before the head.  ``plan`` is one LayerExecutionPlan per conv for
-    ``"fused"`` and one GraphExecutionPlan for ``"blockell"``."""
+    ``"fused"``, one GraphExecutionPlan for ``"blockell"`` and a
+    SharedSetPlan for ``"shared"``."""
     h = x
     for ci, c in enumerate(params["convs"]):
         if executor == "fused":

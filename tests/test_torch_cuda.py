@@ -6,8 +6,11 @@ padded kernels ``spmm_blockell``, ``spmm_blockell_fused`` and
 padded and degree-bucketed) and ``ops.embedding_bag``'s transposed
 backward, GraphSAGE's two-W layer plans forward and backward and its
 serving session, a tiny autotune on the card, the serving slice, wide & deep's
-``bag`` lookup against its ``dense`` one, and an LM decode step with the
-kernel against the plain attention.
+``bag`` lookup against its ``dense`` one, an LM decode step with the
+kernel against the plain attention, and the reuse layer: ``blockell_aggregate``
+(``spmm_blockell`` forward, the same kernel over Aᵀ backward) and GCN's
+bare-``BlockEll`` path against their plain versions, and the shared-set
+executor, which launches no kernel.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -1208,3 +1211,101 @@ def test_lm_decode_kernel_matches_plain_attention(dtype):
     ref = out["plain"].float()
     torch.testing.assert_close(out["kernel"].float(), ref, rtol=0,
                                atol=tol * float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the reuse layer: blockell_aggregate through spmm_blockell, shared sets
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("storage", ["dense", "auto"])
+@pytest.mark.parametrize("d", [1, 16, 129, 1433])
+def test_blockell_aggregate_and_backward_on_the_card(storage, d):
+    """One ``spmm_blockell`` launch forward and one over Aᵀ backward, both
+    within 1e-5 of the plain version (1e-4 at d = 1433, as for the other
+    wide cases) of the largest entry."""
+    _need_cuda()
+    from repro_torch.core import blockell_aggregate
+    g0 = _random_graph(n=700, e=6000, seed=3)
+    g = g0.with_sym_norm() if storage == "dense" else g0
+    ell = build_blockell(g, bm=128, bk=128, storage=storage)
+    gen = torch.Generator().manual_seed(d)
+    x0 = torch.randn(g.num_nodes, d, generator=gen)
+    w = torch.randn(g.num_nodes, d, generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = x0.to(dev).requires_grad_()
+        before = sk.spmm_blockell.launches
+        y = blockell_aggregate(ell, x)
+        (y * w.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        out[dev] = (y.detach().cpu(), x.grad.cpu(),
+                    sk.spmm_blockell.launches - before)
+    tol = 1e-4 if d > 512 else TOL
+    for i, what in enumerate(("forward", "backward")):
+        ref = out["cpu"][i]
+        torch.testing.assert_close(out["cuda"][i], ref, rtol=0,
+                                   atol=tol * max(1.0, float(ref.abs().max())),
+                                   msg=what)
+    assert (out["cuda"][2], out["cpu"][2]) == (2, 0)
+    before = sk.spmm_blockell.launches
+    blockell_aggregate(ell, x0.cuda())          # no gradient: forward only
+    assert sk.spmm_blockell.launches - before == 1
+
+
+def test_gcn_blockell_ell_path_on_the_card():
+    """GCN [1433, 16, 7] on the reordered Cora through a bare adjacency
+    ``BlockEll``: 3 ``spmm_blockell`` launches a step (2 forward, 1 backward
+    for layer 2's input), loss and gradients within 1e-5 of the largest
+    entry of the plain path on the CPU."""
+    _need_cuda()
+    from repro_torch.models import gcn_init, gcn_loss
+    from repro_torch.models.gcn import make_graph_inputs
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    ell = build_blockell(g, bm=128, bk=128, storage="auto")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = gcn_init(torch.Generator().manual_seed(0), [1433, 16, 7],
+                          device=dev)
+        for p in params["layers"]:
+            for t in p.values():
+                t.requires_grad_()
+        t = lambda a: torch.as_tensor(a).to(dev)
+        before = sk.spmm_blockell.launches
+        loss = gcn_loss(params, t(g.node_feat), make_graph_inputs(g, dev),
+                        t(g.labels.astype(np.int64)), t(g.train_mask),
+                        "blockell", ell)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[dev] = (loss.detach().cpu(),
+                    [p[k].grad.cpu() for p in params["layers"]
+                     for k in sorted(p)],
+                    sk.spmm_blockell.launches - before)
+    assert (out["cuda"][2], out["cpu"][2]) == (3, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=TOL)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TOL * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min"])
+def test_shared_aggregate_on_the_card(op):
+    """The G-C executor on the card: the CPU's answer within 1e-5, and no
+    kernel of the port launched (the reference runs it on segment sums
+    too)."""
+    _need_cuda()
+    from repro_torch.core import build_shared_plan, shared_aggregate
+    g0 = cora_like(seed=0)
+    g = g0.permute(minhash_reorder(g0))
+    plan = build_shared_plan(g, levels=2)
+    x = torch.randn(g.num_nodes, 33, generator=torch.Generator().manual_seed(2))
+    counts = lambda: (sk.spmm_blockell.launches,
+                      sk.spmm_blockell_compact.launches,
+                      sk.spmm_blockell_update_compact.launches)
+    before = counts()
+    y = shared_aggregate(x.cuda(), plan, op)
+    torch.cuda.synchronize()
+    assert counts() == before
+    ref = shared_aggregate(x, plan, op)
+    torch.testing.assert_close(y.cpu(), ref, rtol=0,
+                               atol=TOL * max(1.0, float(ref.abs().max())))

@@ -49,7 +49,11 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.configs.mistral_large_123b",
                 "repro_torch.configs.registry",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
-                "repro_torch.core.cache_model", "repro_torch.exec.plan",
+                "repro_torch.core.cache_model",
+                "repro_torch.core.shared_set", "repro_torch.core.aggregate",
+                "repro_torch.core.mapping", "repro_torch.core.perf_model",
+                "repro_torch.graph.partition", "repro_torch.memo",
+                "repro_torch.exec.plan",
                 "repro_torch.exec.bucketing", "repro_torch.exec.autotune",
                 "repro_torch.exec.forward", "repro_torch.obs.audit",
                 "repro_torch.kernels.ops",
