@@ -98,7 +98,21 @@
    one step on the kernel and the plain path (logits within 3e-2 of the
    largest), 32 greedy steps (36 launches each; ms per step, tokens/s,
    busy share, decode_attention's share, peak memory).
-9. Writes the full report (every case, trial table and path) to
+9. LM training (no kernel: the reference trains with plain attention),
+   once the serving weights and cache are freed: ``launch.train --arch
+   granite-8b --steps 10`` (``REDUCED``) on the card and with ``--device
+   cpu`` (losses within 1e-4); the crash drill (a ``train.step`` crash at
+   step 5 of 6 with ``ckpt_every=2``, a resumed run within 1e-6 of the
+   uninterrupted one) and the corrupt-file drill (restore falls back to
+   step 4, one ``train.ckpt_fallback``); then granite-8b ``train_4k`` at
+   full width, cut to 12 of 36 layers and batch 1 (fp32 master params and
+   Adam moments, bf16 compute, the donated step): at 2 layers the
+   remat/chunked ``lm_loss`` against the plain cross-entropy (1e-3 / 3e-2)
+   and 3 donated steps against 3 functional ones (1e-6); at 12, 1 warm-up
+   and 4 timed steps (ms a step, tokens/s, busy share, device time by
+   kind, one step timed in pieces), peak memory beside the 48.3 GB of
+   state, the bf16 FLOP share.
+10. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -2808,6 +2822,361 @@ def lm_phases(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# LM training (no kernel of the port: the reference's LM training runs plain
+# JAX attention, and the port's plain flash_attention)
+# ---------------------------------------------------------------------------
+# granite-8b train_4k at full width, cut to 12 of 36 layers and batch 1 of
+# 256: 3.02 G parameters, 16 B each of fp32 params, grads and Adam moments
+LM_TRAIN_LAYERS = 12
+LM_TRAIN_BATCH = 1
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_WARMUP = 1
+LM_TRAIN_TIMED = 4
+LM_CHECK_LAYERS = 2
+LM_CHECK_STEPS = 3
+LM_STATE_BYTES_PER_PARAM = 16
+
+
+def lm_train_launcher_phase(torch):
+    """``launch.train --arch granite-8b --steps 10`` (``REDUCED``) on the
+    card, then with ``--device cpu`` in the same process: the 10 losses
+    within 1e-4 (relative), falling; no kernel launched."""
+    reset_launches()
+    card, _, card_s = run_launcher(["--arch", "granite-8b", "--steps", "10"])
+    launches = read_launches(torch)
+    cpu, _, cpu_s = run_launcher(["--arch", "granite-8b", "--steps", "10",
+                                  "--device", "cpu"])
+    check_curve(card.losses, "granite-8b launcher (card)")
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(card.losses, cpu.losses)]
+    report = {"card_losses": card.losses, "cpu_losses": cpu.losses,
+              "loss_rel_err": max(rel), "card_s": card_s, "cpu_s": cpu_s,
+              "launches": launches}
+    print("granite-8b training (launcher, REDUCED): " + json.dumps(report))
+    if len(card.losses) != 10 or max(rel) > 1e-4:
+        raise AssertionError(f"LM launcher: card and CPU losses differ by "
+                             f"{max(rel):.3e} > 1e-4")
+    if any(launches.values()):
+        raise AssertionError(f"LM training launched {launches}")
+    return launches, report
+
+
+def _counter(obs, name: str) -> float:
+    return sum(v for k, v in obs.snapshot()["counters"].items()
+               if k == name or k.startswith(name + "{"))
+
+
+def _leaf_rel_err(a_tree, b_tree) -> float:
+    from repro_torch.train import tree_leaves
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)))
+
+
+def lm_resilience_phase(torch, dev):
+    """The crash and corrupt-file drills at granite-8b ``REDUCED`` on the
+    card, as ``tests/test_chaos.py`` runs them: ``Fault("train.step",
+    "crash", hit=5)`` over ``fit(..., 6, ckpt_dir, ckpt_every=2)`` raises
+    ``InjectedFault`` with step 4 the latest checkpoint; a resumed ``fit``
+    over the batches from step 5 gives the uninterrupted run's loss and
+    parameters within 1e-6 (relative: the embedding gather's backward
+    accumulates in another order from run to run).  Then the newest
+    checkpoint garbled by ``corrupt_file``: restore falls back to step 4,
+    and ``train.ckpt_fallback`` counts exactly 1 over both drills."""
+    from repro_torch import obs
+    from repro_torch.chaos import (Fault, FaultPlan, InjectedFault, armed,
+                                   corrupt_file)
+    from repro_torch.configs.granite_8b import REDUCED as cfg
+    from repro_torch.models import lm_init, lm_loss
+    from repro_torch.train import (adam, checkpoint, fit, lm_token_batches,
+                                   restore_checkpoint)
+
+    params0 = lambda: lm_init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    loss_fn = lambda p, b: lm_loss(p, t(b["tokens"]), t(b["targets"]), cfg)
+    batches = lambda start: lm_token_batches(cfg.vocab, 4, 64,
+                                             start_step=start)
+    quiet = dict(ckpt_every=2, log_every=0, log=lambda *a: None)
+    obs.reset()
+    obs.enable()
+    try:
+        with tempfile.TemporaryDirectory(prefix="lm-ckpt-") as root:
+            ref = fit(loss_fn, adam(1e-3), params0(), batches(0), 6,
+                      ckpt_dir=os.path.join(root, "ref"), **quiet)
+            crash_dir = os.path.join(root, "crash")
+            try:
+                with armed(FaultPlan.of(Fault("train.step", "crash",
+                                              hit=5))):
+                    fit(loss_fn, adam(1e-3), params0(), batches(0), 6,
+                        ckpt_dir=crash_dir, **quiet)
+            except InjectedFault as e:
+                crash = str(e)
+            else:
+                raise AssertionError("crash drill: the armed fault did not "
+                                     "fire")
+            for _ in range(250):        # the writer may lag the crash
+                if checkpoint.latest_step(crash_dir) == 4:
+                    break
+                time.sleep(0.02)
+            latest = checkpoint.latest_step(crash_dir)
+            res = fit(loss_fn, adam(1e-3), params0(), batches(5), 6,
+                      ckpt_dir=crash_dir, **quiet)
+            loss_rel = abs(res.losses[0] - ref.losses[5]) / abs(ref.losses[5])
+            param_rel = _leaf_rel_err(res.params, ref.params)
+            after_crash = _counter(obs, "train.ckpt_fallback")
+            newest = checkpoint.latest_step(crash_dir)
+            corrupt_file(os.path.join(crash_dir, f"step_{newest:08d}.npz"),
+                         seed=0, mode="garble")
+            template = params0()
+            _, _, restored = restore_checkpoint(
+                crash_dir, template, adam(1e-3).init(template))
+            fallbacks = _counter(obs, "train.ckpt_fallback")
+    finally:
+        obs.disable()
+        obs.reset()
+    report = {"crash": crash, "latest_after_crash": latest,
+              "resumed_steps": res.steps, "loss_rel_err": loss_rel,
+              "param_rel_err": param_rel, "corrupted_step": newest,
+              "restored_step": restored,
+              "fallbacks_after_crash_drill": after_crash,
+              "fallbacks": fallbacks}
+    print("granite-8b resilience drills (REDUCED): " + json.dumps(report))
+    if latest != 4 or res.steps != 1:
+        raise AssertionError(f"crash drill: latest checkpoint {latest}, "
+                             f"resumed {res.steps} steps; expected 4 and 1")
+    if loss_rel > 1e-6 or param_rel > 1e-6:
+        raise AssertionError(f"crash drill: the resumed run differs from "
+                             f"the uninterrupted one by {loss_rel:.3e} "
+                             f"(loss) / {param_rel:.3e} (params) > 1e-6")
+    if (newest, restored, after_crash, fallbacks) != (5, 4, 0, 1):
+        raise AssertionError(f"corrupt-file drill: newest {newest}, "
+                             f"restored {restored}, fallbacks "
+                             f"{after_crash} then {fallbacks}; expected 5, "
+                             "4, 0 then 1")
+    return report
+
+
+def lm_train_flops(cfg, B: int, S: int) -> dict:
+    """bf16 operations of one ``train_4k`` step as the port computes it:
+    6 T N over the matmul parameters (the layers and the head), the
+    layers' remat forward (2 T N_layers), the loss chunks' recomputed head
+    (2 T N_head), and the flash core's QKᵀ and PV over all S x S positions
+    (no causal skip): forward, remat forward and a backward of twice the
+    forward, 16 B S² H hd a layer."""
+    T = B * S
+    D, hd = cfg.d_model, cfg.hd
+    per_layer = (D * cfg.n_heads * hd * 2 + D * cfg.n_kv * hd * 2
+                 + 3 * D * cfg.d_ff)
+    n_layers = cfg.n_layers * per_layer
+    n_head = D * cfg.vocab
+    attn = 16 * B * S * S * cfg.n_heads * hd * cfg.n_layers
+    parts = {"6TN": 6 * T * (n_layers + n_head), "remat": 2 * T * n_layers,
+             "loss_recompute": 2 * T * n_head, "attention": attn}
+    return {**parts, "total": sum(parts.values())}
+
+
+def lm_train_check_phase(torch, dev, cfg, batch):
+    """At ``LM_CHECK_LAYERS`` layers of the full width (no remat fits
+    there): ``lm_loss`` (remat, 8 chunks) against ``cross_entropy`` over
+    ``lm_forward(remat=False)`` on the same params and batch; the loss
+    within 1e-3 (relative), every gradient within 3e-2 of its leaf's
+    largest entry (the reference's bf16 bar).  Then ``LM_CHECK_STEPS``
+    steps of the bundle's train step, donated against functional (the
+    functional one fits at this depth): losses and parameters within
+    1e-6."""
+    import dataclasses
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.models import lm_forward, lm_init, lm_loss
+    from repro_torch.nn.layers import cross_entropy
+    from repro_torch.train import make_train_step, tree_leaves, tree_map
+    from repro_torch.train.optimizer import tree_unflatten
+
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    params = lm_init(torch.Generator(device=dev).manual_seed(21), small,
+                     device=dev)
+    out = {}
+    for remat in (True, False):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        if remat:
+            loss = lm_loss(p, batch["tokens"], batch["targets"], small)
+        else:
+            logits, _ = lm_forward(p, batch["tokens"], small, remat=False)
+            loss = cross_entropy(logits, batch["targets"])
+            del logits
+        grads = torch.autograd.grad(loss, leaves)
+        out[remat] = (float(loss.detach()), grads)
+        del loss, leaves, p
+    out_loss = {k: v[0] for k, v in out.items()}
+    loss_rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    gaps = [float((a.float() - b.float()).abs().max())
+            / max(float(b.float().abs().max()), 1e-30)
+            for a, b in zip(out[True][1], out[False][1])]
+    del out
+    # the same params through LM_CHECK_STEPS steps of the bundle's train
+    # step (donated, in place) and of its functional form: one arithmetic,
+    # so the same losses and parameters
+    bundle = LMBundle(small)
+    steps = {}
+    for donate in (False, True):
+        p = tree_map(lambda t: t.clone(), params)
+        state = bundle.opt().init(p)
+        fn = make_train_step(bundle.loss_fn, bundle.opt(), clip_norm=1.0,
+                             donate=donate)
+        losses = []
+        for _ in range(LM_CHECK_STEPS):
+            p, state, loss = fn(p, state, batch)
+            losses.append(float(loss))
+        steps[donate] = (losses, p)
+        del state
+    form_rel = max(abs(a - b) / abs(b) for a, b in zip(steps[True][0],
+                                                       steps[False][0]))
+    form_param_rel = _leaf_rel_err(steps[True][1], steps[False][1])
+    report = {"layers": LM_CHECK_LAYERS, "loss_remat": out_loss[True],
+              "loss_plain": out_loss[False], "loss_rel_err": loss_rel,
+              "grad_gap_of_largest": max(gaps), "grad_gaps": gaps,
+              "donated_losses": steps[True][0],
+              "functional_losses": steps[False][0],
+              "donated_vs_functional_loss_rel": form_rel,
+              "donated_vs_functional_param_rel": form_param_rel}
+    print("granite-8b train_4k remat/chunks vs plain, donated vs "
+          f"functional (full width, {LM_CHECK_LAYERS} layers): "
+          + json.dumps(report))
+    if loss_rel > 1e-3 or max(gaps) > 3e-2:
+        raise AssertionError(f"remat/chunked lm_loss vs plain: loss "
+                             f"{loss_rel:.3e} (bar 1e-3), gradients "
+                             f"{max(gaps):.3e} of the largest (bar 3e-2)")
+    if form_rel > 1e-6 or form_param_rel > 1e-6:
+        raise AssertionError(f"donated vs functional train step: losses "
+                             f"{form_rel:.3e}, params {form_param_rel:.3e} "
+                             "(bar 1e-6)")
+    del steps, params
+    return report
+
+
+def lm_train_pieces(torch, bundle, params, state, batch) -> dict:
+    """One more step, timed in its three pieces with CUDA events: the loss
+    and its gradients, the in-place global-norm clip, the in-place Adam."""
+    from repro_torch.models import lm_loss
+    from repro_torch.train import tree_leaves
+    from repro_torch.train.optimizer import (clip_by_global_norm_,
+                                             tree_unflatten)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    marks[0].record()
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = lm_loss(tree_unflatten(params, live), batch["tokens"],
+                   batch["targets"], bundle.cfg)
+    grads = list(torch.autograd.grad(loss, live))
+    del live
+    marks[1].record()
+    with torch.no_grad():
+        clip_by_global_norm_(grads, 1.0)
+        marks[2].record()
+        bundle.opt().update_(grads, state, params)
+    marks[3].record()
+    marks[3].synchronize()
+    names = ("loss_and_grads_ms", "clip_ms", "adam_ms")
+    return {n: a.elapsed_time(b)
+            for n, a, b in zip(names, marks, marks[1:])}
+
+
+def lm_train_config_phase(torch, dev):
+    """granite-8b ``train_4k`` at full width (d_model 4096, 32 / 8 KV
+    heads, head_dim 128, d_ff 14,336, vocab 49,152, seq 4,096), cut to
+    ``LM_TRAIN_LAYERS`` of 36 layers and batch ``LM_TRAIN_BATCH`` of 256:
+    fp32 master params drawn on the card, fp32 Adam moments, bf16 compute,
+    through ``LMBundle(cfg).step_fn("train_4k")`` (donated: in place) on
+    ``lm_token_batches(49152, 1, 4096)``.  First the remat/chunking check
+    at ``LM_CHECK_LAYERS`` layers; then 1 warm-up and 4 timed steps (ms a
+    step from CUDA events, median), one profiled step (busy share, device
+    time by kind), one step timed in pieces; tokens/s, peak memory beside
+    the predicted state, and the bf16 FLOP share."""
+    import dataclasses
+    import math
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.models import lm_init
+    from repro_torch.train import lm_token_batches
+
+    S = LM_TRAIN_SEQ
+    cfg = dataclasses.replace(CONFIG, n_layers=LM_TRAIN_LAYERS)
+    raw = next(lm_token_batches(cfg.vocab, LM_TRAIN_BATCH, S))
+    batch = {k: torch.as_tensor(raw[k], device=dev)
+             for k in ("tokens", "targets")}
+    check = lm_train_check_phase(torch, dev, CONFIG, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = LMBundle(cfg)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    params = bundle.init_params(gen, dev)
+    state = bundle.opt().init(params)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    state_gb = n_params * LM_STATE_BYTES_PER_PARAM / 1e9
+    print(f"granite-8b train_4k: {cfg.n_layers} of {CONFIG.n_layers} "
+          f"layers, {n_params} params (fp32), predicted state "
+          f"{state_gb:.2f} GB (params, grads, m, v); drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    reset_launches()
+    br = step_breakdown(torch, "granite-8b train_4k", bundle.step_fn(
+        "train_4k"), params, state, batch, warmup=LM_TRAIN_WARMUP,
+        timed=LM_TRAIN_TIMED, n_prof=1,
+        watch={"gemm": "gemm", "nvjet": "nvjet",
+               "elementwise": "elementwise", "reduce": "reduce_kernel"})
+    launches = read_launches(torch)
+    pieces = lm_train_pieces(torch, bundle, params, state, batch)
+    flops = lm_train_flops(cfg, LM_TRAIN_BATCH, S)
+    tokens = LM_TRAIN_BATCH * S
+    report = {
+        "layers": cfg.n_layers, "batch": LM_TRAIN_BATCH, "seq": S,
+        "params": n_params, "predicted_state_gb": state_gb,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "step_ms": br["step_ms"], "step_ms_all": br["step_ms_all"],
+        "tokens_per_s": tokens / br["step_ms"] * 1e3,
+        "busy_share": br["busy_share"],
+        "device_ms_per_step": br["device_ms_per_step"],
+        "losses": br["losses"], "pieces_ms": pieces, "flops": flops,
+        "bf16_flop_share": flops["total"] / (br["step_ms"] / 1e3)
+        / PEAK_BF16_FLOPS, "check": check, "launches": launches,
+        "breakdown": br}
+    print("granite-8b train_4k (12 of 36 layers, B=1): " + json.dumps(
+        {k: v for k, v in report.items()
+         if k not in ("breakdown", "check", "step_ms_all")}))
+    if not all(math.isfinite(v) for v in br["losses"]):
+        raise AssertionError(f"train_4k: a loss is not finite "
+                             f"{br['losses']}")
+    if any(launches.values()):
+        raise AssertionError(f"train_4k launched {launches}")
+    del params, state, batch
+    return launches, report
+
+
+def lm_training_phases(torch, dev):
+    """LM training, after the LM serving phases have freed the card: the
+    launcher at ``REDUCED`` (card vs CPU), the resilience drills, then
+    ``train_4k`` at full width."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"LM training phases: {left:.2f} GB still allocated")
+    if left > 4:
+        raise AssertionError(f"{left:.2f} GB left allocated before LM "
+                             "training; the 48 GB of train_4k state will "
+                             "not fit")
+    paths, report = {}, {}
+    paths["granite-8b training (launcher, REDUCED)"], report["launcher"] = \
+        lm_train_launcher_phase(torch)
+    report["drills"] = lm_resilience_phase(torch, dev)
+    paths["granite-8b train_4k (12 of 36 layers, B=1)"], report[
+        "train_4k"] = lm_train_config_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+# ---------------------------------------------------------------------------
 def ptxas_report(log: str) -> list:
     """ptxas's register and spill lines, each after the (demangled, where
     ``c++filt`` is installed) name of its kernel instantiation."""
@@ -2916,6 +3285,8 @@ def main() -> int:
     paths.update(recsys_paths)
     decode_cases, lm_paths, lm_report = lm_phases(torch, dev)
     paths.update(lm_paths)
+    lm_train_paths, lm_train_report = lm_training_phases(torch, dev)
+    paths.update(lm_train_paths)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -2994,6 +3365,7 @@ def main() -> int:
         "quickstart": quickstart_report, "gcn_blockell": gcn_ell_report,
         "gin_shared": gin_shared_report,
         "wide_deep": recsys_report, "lm": lm_report,
+        "lm_training": lm_train_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,18 @@
 """End-to-end example on the PyTorch port: train GraphSAGE on a REDDIT-style
 community graph — MinHash reordering, sampled minibatches (fanouts 15, 10),
-Adam with gradient clipping and the straggler watchdog — as
-``examples/train_sage_reddit.py`` does with the JAX package.
+Adam with gradient clipping, asynchronous checkpoints every 100 steps
+(into a temporary directory, removed at the end) and the straggler
+watchdog — as ``examples/train_sage_reddit.py`` does with the JAX package.
 
   PYTHONPATH=src python examples/train_sage_reddit_torch.py \\
       [--steps 200] [--scale 0.01] [--batch-nodes 512] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The reference's
-``AsyncCheckpointer`` is left out: checkpoints are not ported yet.  Exits
-with an ``AssertionError`` if the mean of the last 10 losses is not below
-that of the first 10.
+Runs on ``cuda`` unless ``--device cpu`` is given.  Exits with an
+``AssertionError`` if the mean of the last 10 losses is not below that of
+the first 10.
 """
 import argparse
+import tempfile
 import time
 
 import numpy as np
@@ -22,8 +23,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import NeighborSampler, reddit_like
 from repro_torch.models import sage_block_apply, sage_init
 from repro_torch.nn.layers import cross_entropy, linear_apply, linear_init
-from repro_torch.train import (StepWatchdog, adam, make_train_step,
-                               minibatch_tensors)
+from repro_torch.train import (AsyncCheckpointer, StepWatchdog, adam,
+                               make_train_step, minibatch_tensors)
 
 
 def main(argv=None) -> list:
@@ -52,18 +53,25 @@ def main(argv=None) -> list:
         return cross_entropy(logits, batch["labels"])
 
     opt = adam(1e-3)
-    step = make_train_step(loss_fn, opt)
+    step = make_train_step(loss_fn, opt, donate=False)
     opt_state = opt.init(params)
     watchdog = StepWatchdog()
     losses = []
-    for i, mb in enumerate(sampler.batches(args.batch_nodes, args.steps)):
-        batch = minibatch_tensors(g, mb, dev)
-        t0 = time.time()
-        params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(float(loss))       # waits for the step to finish
-        watchdog.observe(time.time() - t0)
-        if i % 20 == 0:
-            print(f"step {i:5d} loss {losses[-1]:.4f}")
+    with tempfile.TemporaryDirectory(prefix="sage_ckpt_") as ckpt_dir:
+        ckpt = AsyncCheckpointer(ckpt_dir)
+        for i, mb in enumerate(sampler.batches(args.batch_nodes,
+                                               args.steps)):
+            batch = minibatch_tensors(g, mb, dev)
+            t0 = time.time()
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(float(loss))   # waits for the step to finish
+            watchdog.observe(time.time() - t0)
+            if i % 20 == 0:
+                print(f"step {i:5d} loss {losses[-1]:.4f}")
+            if i and i % 100 == 0:
+                ckpt.save(i, params, opt_state)
+        ckpt.wait()
+        ckpt.close()
     print(f"final loss {np.mean(losses[-10:]):.4f} "
           f"(start {np.mean(losses[:10]):.4f}); "
           f"stragglers flagged: {watchdog.flagged}")

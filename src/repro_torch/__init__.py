@@ -13,8 +13,11 @@ the autotuner, GCN, GIN, wide & deep with the ``embedding_bag`` kernel,
 the ``sddmm`` kernel (``kernels.ops.sddmm``), the serving engine and
 ``launch.serve``, training (``train``, ``configs``, ``launch.train``), and
 dense LM serving (``nn.attention``, ``models.transformer``, the LM configs,
-``launch.serve --arch``) with the ``decode_attention`` kernel, and the
+``launch.serve --arch``) with the ``decode_attention`` kernel, the
 paper's reuse layer (``core``: shared-set plans and executor, the other
 reorders, the hierarchical mapping, the G-D/G-C cache and Table II cost
-models).
+models), and LM training with the training half of resilience
+(``models.transformer.lm_loss``, the optimizers and their in-place forms,
+``train.checkpoint``, ``train.fault.resume``, the ``chaos`` hooks,
+``launch.train --arch granite-8b --ckpt``).
 """

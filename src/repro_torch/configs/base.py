@@ -41,7 +41,7 @@ def get(name: str) -> ArchSpec:
         return REGISTRY[name]
     if name in NOT_PORTED:
         raise NotImplementedError(f"arch {name!r} is not ported yet "
-                                  "(ROADMAP §1 item 8); ported: "
+                                  "(ROADMAP §1 item 8b); ported: "
                                   f"{sorted(REGISTRY)}")
     raise KeyError(f"unknown arch {name!r}")
 

@@ -1,8 +1,7 @@
-"""Family bundles — port of ``LMBundle`` (serving; its train step waits
-for LM training), ``GNNBundle`` (GCN only; GAT, PNA and NequIP are not
-ported yet) and ``RecsysBundle`` from ``repro/configs/families.py``.  The
-bundles' ``abstract_state`` and ``shardings`` are not ported (mesh work,
-ROADMAP §1 item 9)."""
+"""Family bundles — port of ``LMBundle`` (training, prefill and decode),
+``GNNBundle`` (GCN only; GAT, PNA and NequIP are ROADMAP §1 item 8b) and
+``RecsysBundle`` from ``repro/configs/families.py``.  The bundles'
+``abstract_state`` and ``shardings`` are mesh work (ROADMAP §1 item 9)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +14,7 @@ from ..models.gcn import gcn_init, gcn_loss
 from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
                              widedeep_logits, widedeep_loss)
 from ..models.transformer import (LMConfig, lm_decode_step, lm_init,
-                                  lm_prefill, make_kv_caches)
+                                  lm_loss, lm_prefill, make_kv_caches)
 from ..train.loop import make_train_step
 from ..train.optimizer import Optimizer, adam
 from .base import LM_SHAPES, RECSYS_SHAPES
@@ -23,24 +22,23 @@ from .base import LM_SHAPES, RECSYS_SHAPES
 
 @dataclasses.dataclass
 class LMBundle:
-    """A dense LM at one config over the four ``LM_SHAPES``: ``prefill``
-    and ``decode`` steps (``train`` raises until LM training is ported,
-    ROADMAP §1 item 8)."""
+    """A dense LM at one config over the four ``LM_SHAPES``: the
+    ``train`` step, ``prefill`` and ``decode``."""
     cfg: LMConfig
+    moments_dtype: Any = torch.float32
     shapes = tuple(LM_SHAPES)
 
     def init_params(self, generator: torch.Generator, device="cuda",
                     dtype=None):
         """``lm_init``'s stacked tree in ``dtype`` (``cfg.param_dtype`` by
-        default; bf16 for serving at full width)."""
+        default, the fp32 master weights training takes; bf16 for serving
+        at full width)."""
         return lm_init(generator, self.cfg, device=device, dtype=dtype)
 
-    def _info(self, shape: str, batch: Optional[int]):
-        info = LM_SHAPES[shape]
-        if info["kind"] == "train":
-            raise NotImplementedError("LM training is not ported yet "
-                                      "(ROADMAP §1 item 8)")
-        return info, batch or info["batch"]
+    def opt(self) -> Optimizer:
+        """The train step's optimizer: Adam(3e-4), moments in
+        ``moments_dtype``; ``opt().init(params)`` is the state it takes."""
+        return adam(3e-4, moments_dtype=self.moments_dtype)
 
     def input_specs(self, shape: str, batch: Optional[int] = None
                     ) -> Dict[str, Any]:
@@ -48,8 +46,11 @@ class LMBundle:
         their ``{"dense": (k, v)}`` tree.  ``batch`` overrides the cell's
         batch (``decode_32k``'s 128 x 32,768 cache is 618 GB at
         granite-8b)."""
-        info, B = self._info(shape, batch)
-        S = info["seq"]
+        info = LM_SHAPES[shape]
+        B, S = batch or info["batch"], info["seq"]
+        if info["kind"] == "train":
+            return {"tokens": ((B, S), torch.int32),
+                    "targets": ((B, S), torch.int32)}
         if info["kind"] == "prefill":
             return {"tokens": ((B, S), torch.int32)}
         c = self.cfg
@@ -61,28 +62,44 @@ class LMBundle:
     def make_batch(self, shape: str, generator: torch.Generator,
                    device="cuda", batch: Optional[int] = None
                    ) -> Dict[str, Any]:
-        """A concrete batch of :meth:`input_specs`: tokens uniform over the
-        vocabulary, drawn where ``generator`` lives; for ``decode``, zero
-        caches (``make_kv_caches``) and ``cache_len`` S - 1, the last
-        position a step may write."""
-        info, B = self._info(shape, batch)
+        """A concrete batch of :meth:`input_specs`: tokens (and targets)
+        uniform over the vocabulary, drawn where ``generator`` lives; for
+        ``decode``, zero caches (``make_kv_caches``) and ``cache_len`` S -
+        1, the last position a step may write."""
+        info = LM_SHAPES[shape]
+        B, S = batch or info["batch"], info["seq"]
         dev = resolve_device(device)
-        S = info["seq"]
         draw = lambda shp: torch.randint(
             0, self.cfg.vocab, shp, generator=generator,
             device=generator.device, dtype=torch.int32).to(dev)
+        if info["kind"] == "train":
+            return {"tokens": draw((B, S)), "targets": draw((B, S))}
         if info["kind"] == "prefill":
             return {"tokens": draw((B, S))}
         return {"token": draw((B, 1)),
                 "caches": make_kv_caches(self.cfg, B, S, device=dev),
                 "cache_len": S - 1}
 
+    def loss_fn(self, params, batch):
+        """``lm_loss`` of a ``train`` batch; its tokens and targets may be
+        numpy, and are moved to the params' device."""
+        dev = params["embed"].device
+        return lm_loss(params, torch.as_tensor(batch["tokens"], device=dev),
+                       torch.as_tensor(batch["targets"], device=dev),
+                       self.cfg)
+
     def step_fn(self, shape: str, attn: str = "kernel"):
-        """``prefill``: ``(params, batch) -> (logits, caches)``; ``decode``:
-        one ``lm_decode_step`` at the cell's sequence length, writing the
-        batch's caches in place."""
-        info, _ = self._info(shape, None)
+        """``train``: ``(params, opt_state, batch) -> (params, opt_state,
+        loss)``, :meth:`loss_fn` then the clip at 1.0 and one step of
+        :meth:`opt`, as the reference's train step, donated as the
+        reference's is: the params and state are updated in place
+        (``make_train_step``).  ``prefill``: ``(params, batch) -> (logits,
+        caches)``; ``decode``: one ``lm_decode_step`` at the cell's sequence
+        length, writing the batch's caches in place."""
+        info = LM_SHAPES[shape]
         cfg = self.cfg
+        if info["kind"] == "train":
+            return make_train_step(self.loss_fn, self.opt(), clip_norm=1.0)
         if info["kind"] == "prefill":
             @torch.inference_mode()
             def prefill_step(params, batch):
@@ -106,7 +123,7 @@ class GNNBundle:
     def _require_ported(self) -> None:
         if self.arch != "gcn":
             raise NotImplementedError(f"GNN arch {self.arch!r} is not "
-                                      "ported yet (ROADMAP §1 item 8)")
+                                      "ported yet (ROADMAP §1 item 8b)")
 
     def init_params(self, generator: torch.Generator, d_feat: int,
                     device="cuda"):

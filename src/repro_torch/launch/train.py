@@ -1,11 +1,13 @@
-"""Training launcher: full-graph GNN training and wide & deep on the port
-(the GNN and recsys paths of ``repro/launch/train.py``).
+"""Training launcher: full-graph GNN training, wide & deep and the dense
+LMs on the port (``repro/launch/train.py`` but ``--dist``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
       [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \\
       --steps 50 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
+      --reduced --steps 10 [--ckpt DIR] [--device cpu]
 
 The graph is ``cora_like()`` permuted by ``minhash_reorder``, as in the
 reference.  ``--executor auto`` (the default, as in the reference) and
@@ -24,9 +26,15 @@ matmul) and ``segment`` (the edge list) work as in the reference.
 ``--arch wide-deep`` trains the ``REDUCED`` config as the reference does:
 batches of 256 from ``recsys_batches``, ``adam(1e-3)``, both sparse lookups
 through the ``embedding_bag`` kernel (forward and the table's gradient).
-Runs on ``cuda`` unless ``--device cpu`` is given.
+An LM arch (``granite-8b``, ``minitron-8b``, ``mistral-large-123b``)
+trains its ``REDUCED`` config as the reference does (``--reduced`` is
+always on): batches of 4 x 64 tokens from ``lm_token_batches``,
+``adam(1e-3)``, ``lm_loss``.  ``--ckpt DIR`` resumes from the latest
+checkpoint in DIR and writes one every 100 steps and at the end.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 import argparse
+import importlib
 
 import numpy as np
 import torch
@@ -38,7 +46,8 @@ from ..device import resolve_device
 from ..exec import autotune_forward, build_plan, gcn_chain, plan_forward
 from ..graph import cora_like
 from ..models.recsys import widedeep_init, widedeep_loss
-from ..train import TrainResult, adam, fit, recsys_batches
+from ..models.transformer import lm_init, lm_loss
+from ..train import TrainResult, adam, fit, lm_token_batches, recsys_batches
 
 
 def training_graph():
@@ -124,14 +133,36 @@ def recsys_driver(arch: str, steps: int, ckpt=None, device="cuda",
                steps=steps, ckpt_dir=ckpt)
 
 
+def lm_reduced_driver(arch: str, steps: int, ckpt=None, device="cuda"
+                      ) -> TrainResult:
+    """The reference's ``lm_reduced_driver``: the arch's ``REDUCED``
+    config, seed-0 weights, adam(1e-3), 4 x 64-token batches."""
+    cfg = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_")).REDUCED
+    dev = resolve_device(device)
+    params = lm_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)
+
+    def loss_fn(p, b):
+        return lm_loss(p, t(b["tokens"]), t(b["targets"]), cfg)
+    return fit(loss_fn, adam(1e-3), params,
+               lm_token_batches(cfg.vocab, 4, 64), steps=steps,
+               ckpt_dir=ckpt)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--ckpt", default=None,
-                    help="checkpoint directory (not ported yet)")
+                    help="checkpoint directory: resume from its latest "
+                         "checkpoint, save every 100 steps and at the end")
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="train the arch's smoke config (always on, as in "
+                         "the reference)")
     ap.add_argument("--dist", action="store_true",
-                    help="shard the graph over devices (not ported yet)")
+                    help="shard the graph over devices (not ported yet, "
+                         "ROADMAP §1 item 9)")
     ap.add_argument("--executor", default="auto",
                     choices=["auto", "segment", "blockell", "fused",
                              "forward"],
@@ -151,9 +182,6 @@ def main(argv=None) -> TrainResult:
     if args.dist:
         raise NotImplementedError("--dist is not ported yet (ROADMAP §1 "
                                   "item 9)")
-    if args.ckpt:
-        raise NotImplementedError("--ckpt is not ported yet (ROADMAP §1 "
-                                  "item 6)")
     spec = get(args.arch)
     if spec.family == "gnn":
         res = gnn_driver(args.arch, args.steps, args.ckpt,
@@ -162,8 +190,12 @@ def main(argv=None) -> TrainResult:
         res = recsys_driver(args.arch, args.steps, args.ckpt,
                             device=args.device)
     else:
-        raise NotImplementedError(f"the {spec.family} family is not ported "
-                                  "yet (ROADMAP §1 item 8)")
+        res = lm_reduced_driver(args.arch, args.steps, args.ckpt,
+                                device=args.device)
+    if not res.losses:
+        print(f"{args.arch}: nothing to train, the checkpoint in "
+              f"{args.ckpt} is at or past step {args.steps}")
+        return res
     print(f"{args.arch}: {res.steps} steps, loss "
           f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}, "
           f"{res.wall_time:.1f}s, stragglers={res.straggler_flags}")

@@ -4,5 +4,5 @@ from .sage_gin import (sage_init, sage_apply, sage_loss, sage_block_apply,
 from .recsys import (WideDeepConfig, retrieval_score, user_tower,
                      widedeep_init, widedeep_logits, widedeep_loss)
 from .transformer import (LMConfig, cast_params, lm_backbone,
-                          lm_decode_step, lm_forward, lm_init, lm_prefill,
-                          make_kv_caches)
+                          lm_decode_step, lm_forward, lm_init, lm_loss,
+                          lm_prefill, make_kv_caches)

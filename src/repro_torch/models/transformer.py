@@ -1,6 +1,6 @@
 """Decoder-only LM family, dense GQA transformers (the port of the dense
 paths of ``repro/models/transformer.py``; the MoE configs are not ported,
-ROADMAP §1 item 8).
+ROADMAP §1 item 8b).
 
 Layer parameters and KV caches stay **stacked** on a leading layer axis,
 as in the reference, so ``convert.params_from_jax`` and the cache trees map
@@ -12,8 +12,12 @@ FFN weights, the head), so fp32 parameters compute in bf16 as there;
 same numbers.  Serving: ``lm_prefill`` returns the stacked caches,
 ``lm_decode_step`` writes the new token's KV into them in place and
 attends through the flash-decode kernel (``attn="kernel"``) or the
-reference's plain einsums (``attn="plain"``).  Training (``lm_loss``) is
-not ported yet.
+reference's plain einsums (``attn="plain"``).  Training: ``lm_loss`` is
+the reference's chunked cross-entropy over ``lm_backbone(remat=True)``,
+each layer and each loss chunk under ``torch.utils.checkpoint`` (the
+counterpart of ``jax.checkpoint``); a layer casts its fp32 views to
+``cfg.dtype`` inside its checkpointed function, so no bf16 copy of a whole
+stack is ever made.
 """
 from __future__ import annotations
 
@@ -22,11 +26,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn.attention import (causal_attention, decode_attention,
                             prefill_attention, rope_freqs)
-from ..nn.layers import rmsnorm_apply, swiglu
+from ..nn.layers import cross_entropy, rmsnorm_apply, swiglu
 from ..train.optimizer import tree_map
 
 
@@ -137,32 +142,86 @@ def _dense_ffn(lp, h):
 
 
 def _embed(params, tokens, cfg: LMConfig):
-    return params["embed"].to(cfg.dtype)[tokens.long()]
+    """The token rows of the embedding, in ``cfg.dtype``.  ``F.embedding``
+    rather than indexing: its backward sums each row's gradients in a fixed
+    order, where indexing's scatter-add order changes from run to run, so
+    a training run (and a resumed one) repeats bit for bit."""
+    return torch.nn.functional.embedding(tokens.long(),
+                                         params["embed"].to(cfg.dtype))
 
 
 # ---------------------------------------------------------------- forward
-def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _unbind_layers(stacks) -> list:
+    """The per-layer trees of a stacked tree, one ``unbind`` per stack: its
+    backward stacks the layers' gradients once, where indexing each layer
+    would scatter every layer's gradient into a zero stack."""
+    if not isinstance(stacks, dict):
+        return list(torch.unbind(stacks))
+    per = {k: _unbind_layers(v) for k, v in stacks.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _dense_layer(lp, h, cfg: LMConfig, cos, sin):
+    """One dense layer, its fp32 weights cast to the compute dtype first
+    (the reference casts the stacks before its scan)."""
+    lp = tree_map(lambda a: a.to(h.dtype) if a.dtype == torch.float32
+                  else a, lp)
+    return _dense_ffn(lp, _attn(lp, h, cfg, cos, sin))
+
+
+def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig,
+                remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S) tokens -> final hidden states (B, S, d_model), aux loss (0
-    for dense models).  Inference: no rematerialisation."""
+    for dense models).  With ``remat`` (and autograd on), each layer keeps
+    only its input for the backward and recomputes the rest."""
     dt = cfg.dtype
     cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta, dtype=dt,
                           device=tokens.device)
     h = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        # the reference casts fp32 stacks to the compute dtype up front
-        lp = tree_map(lambda a: a.to(dt) if a.dtype == torch.float32
-                      else a, _layer(params, i))
-        h = _dense_ffn(lp, _attn(lp, h, cfg, cos, sin))
+    remat = remat and torch.is_grad_enabled()
+    for lp in _unbind_layers(params["dense_layers"]):
+        if remat:
+            h = checkpoint(_dense_layer, lp, h, cfg, cos, sin,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _dense_layer(lp, h, cfg, cos, sin)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return rmsnorm_apply(params["ln_f"], h), aux
 
 
-def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig,
+               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S) tokens -> (B, S, vocab) logits, aux loss."""
-    h, aux = lm_backbone(params, tokens, cfg)
+    h, aux = lm_backbone(params, tokens, cfg, remat)
     return h @ params["head"].to(cfg.dtype), aux
+
+
+def _chunk_nll_sum(hb, tb, head):
+    return cross_entropy(hb @ head, tb) * tb.numel()
+
+
+def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: LMConfig, aux_weight: float = 0.01,
+            loss_chunks: int = 8) -> torch.Tensor:
+    """Chunked-softmax cross-entropy: the (B, S, vocab) logits are never
+    materialized; each sequence chunk's head matmul and CE run under
+    checkpoint, so one chunk's logits are alive at a time."""
+    h, aux = lm_backbone(params, tokens, cfg)
+    S = h.shape[1]
+    n = loss_chunks if S % loss_chunks == 0 else 1
+    c = S // n
+    head = params["head"].to(cfg.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(n):
+        hb, tb = h[:, j * c:(j + 1) * c], targets[:, j * c:(j + 1) * c]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll_sum, hb, tb, head,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll_sum(hb, tb, head)
+    return total / targets.numel() + aux_weight * aux
 
 
 # ---------------------------------------------------------------- serving

@@ -1,7 +1,13 @@
-"""Training: the optimizer, the straggler watchdog, the batch seed, the
-recsys and GNN minibatches and the loop."""
-from .data import gnn_epoch_batches, minibatch_tensors, recsys_batches
-from .fault import StepWatchdog, deterministic_batch_seed
+"""Training: the optimizers, checkpoints, fault tolerance, data pipelines
+and the loop (the port of ``repro.train``; ``elastic_mesh`` waits for the
+distributed slice, ROADMAP §1 item 9)."""
+from .checkpoint import (AsyncCheckpointer, latest_step, restore_checkpoint,
+                         save_checkpoint)
+from .data import (Prefetcher, gnn_epoch_batches, lm_token_batches,
+                   minibatch_tensors, recsys_batches)
+from .fault import (RetryingStep, StepWatchdog, deterministic_batch_seed,
+                    resume)
 from .loop import TrainResult, fit, make_train_step
-from .optimizer import (Optimizer, adam, apply_updates, clip_by_global_norm,
-                        global_norm, tree_leaves, tree_map)
+from .optimizer import (OPTIMIZERS, Optimizer, adam, apply_updates,
+                        clip_by_global_norm, cosine_warmup_schedule,
+                        global_norm, lamb, sgd, tree_leaves, tree_map)

@@ -1,11 +1,13 @@
 """Generic training loop — port of ``repro/train/loop.py``.
 
 The loop is model-agnostic: the caller supplies ``loss_fn(params, batch)``
-and the optimizer.  A step runs eagerly: the loss, ``loss.backward()``
-through the plans' hand-written backwards, the global-norm clip and the
-optimizer update, all on the parameters' device.  The same obs spans,
-histogram, counters and gauges as the reference are kept.  Checkpoints
-(``ckpt_dir``) and the chaos fail point are not ported yet.
+and the optimizer.  A step runs eagerly: the loss, its gradients (through
+the plans' hand-written backwards where a model has them), the global-norm
+clip and the optimizer update, all on the parameters' device.  ``fit``
+resumes from the latest checkpoint in ``ckpt_dir``, writes checkpoints
+through an :class:`AsyncCheckpointer`, and passes the ``train.step`` chaos
+fail point before every step.  The same obs spans, histogram, counters and
+gauges as the reference are kept.
 """
 from __future__ import annotations
 
@@ -16,8 +18,11 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from .. import obs
-from .fault import StepWatchdog
-from .optimizer import Optimizer, apply_updates, clip_by_global_norm, tree_map
+from ..chaos import inject as chaos
+from .checkpoint import AsyncCheckpointer
+from .fault import StepWatchdog, resume
+from .optimizer import (Optimizer, apply_updates, clip_by_global_norm,
+                        clip_by_global_norm_, tree_leaves, tree_unflatten)
 
 
 @dataclasses.dataclass
@@ -31,23 +36,42 @@ class TrainResult:
 
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
-                    clip_norm: Optional[float] = 1.0):
-    """Returns ``(params, opt_state, batch) -> (params, opt_state, loss)``;
-    the returned params are new leaf tensors, the loss a detached 0-d
-    tensor on the device."""
+                    clip_norm: Optional[float] = 1.0, donate: bool = True):
+    """Returns ``(params, opt_state, batch) -> (params, opt_state, loss)``,
+    the loss a detached 0-d tensor on the device.
+
+    ``donate=True`` (the reference's default, where jit donates params and
+    optimizer state): the caller's parameter and state tensors are consumed
+    and updated **in place** — the clip scales the gradients in place, then
+    the optimizer's ``update_`` runs one leaf at a time — and the same trees
+    are returned.  The peak is then the parameters, their gradients, the
+    state and one leaf of transients; a caller that still needs the old
+    values passes ``donate=False``, which returns new trees (the functional
+    form) and leaves its arguments as they were."""
+    if donate and opt.update_ is None:
+        raise ValueError("this optimizer has no in-place form; pass "
+                         "donate=False")
+
+    def grads_of(params, batch):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(live, grads)]
 
     def step(params, opt_state, batch):
-        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(params, batch)
-        loss.backward()
+        loss, grads = grads_of(params, batch)
         with torch.no_grad():
-            grads = tree_map(lambda p: (p.grad if p.grad is not None
-                                        else torch.zeros_like(p)), params)
+            if donate:
+                if clip_norm:
+                    clip_by_global_norm_(grads, clip_norm)
+                opt.update_(grads, opt_state, params)
+                return params, opt_state, loss
+            grads = tree_unflatten(params, grads)
             if clip_norm:
                 grads, _ = clip_by_global_norm(grads, clip_norm)
-            params = tree_map(lambda p: p.detach(), params)
             updates, opt_state = opt.update(grads, opt_state, params)
-            return apply_updates(params, updates), opt_state, loss.detach()
+            return apply_updates(params, updates), opt_state, loss
 
     return step
 
@@ -68,11 +92,17 @@ def fit(loss_fn: Callable, opt: Optimizer, params, batches: Iterator,
         steps: int, ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
         log_every: int = 10, clip_norm: Optional[float] = 1.0,
         log: Callable = print) -> TrainResult:
-    if ckpt_dir:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP "
-                                  "§1 item 6, resilience)")
+    """Train ``params`` (updated in place: the step is donated) over
+    ``batches`` up to step ``steps``.  With ``ckpt_dir``: resume from its
+    latest checkpoint (the loop then starts at the step after it, drawing
+    from ``batches`` as given), save every ``ckpt_every`` steps and at the
+    last step, as the reference does; a failed write raises."""
     opt_state = opt.init(params)
+    start = 0
+    if ckpt_dir:
+        params, opt_state, start = resume(ckpt_dir, params, opt_state)
     step_fn = make_train_step(loss_fn, opt, clip_norm)
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     watchdog = StepWatchdog()
     losses = []
     # metric handles held outside the loop: the disabled path per step is
@@ -82,8 +112,9 @@ def fit(loss_fn: Callable, opt: Optimizer, params, batches: Iterator,
     loss_gauge = obs.gauge("train.loss")
     rows_gauge = obs.gauge("train.rows_per_s")
     t0 = time.time()
-    i = -1
-    for i, batch in zip(range(steps), batches):
+    i = start
+    for i, batch in zip(range(start, steps), batches):
+        chaos.fail_point("train.step")  # crash-drill injection (no-op unarmed)
         with obs.span("train.step", cat="train", step=i) as sp:
             ts = time.time()
             params, opt_state, loss = step_fn(params, opt_state, batch)
@@ -102,6 +133,14 @@ def fit(loss_fn: Callable, opt: Optimizer, params, batches: Iterator,
             log(f"[straggler] step {i} took {dt:.3f}s (flagged)")
         if log_every and i % log_every == 0:
             log(f"step {i:6d}  loss {loss:.4f}")
+        if ckpt and i and i % ckpt_every == 0:
+            ckpt.save(i, params, opt_state)
+    if ckpt:
+        try:
+            ckpt.save(i, params, opt_state)
+            ckpt.wait()                 # a failed write raises here
+        finally:
+            ckpt.close()
     return TrainResult(params=params, opt_state=opt_state, losses=losses,
-                       steps=i + 1, straggler_flags=watchdog.flagged,
+                       steps=i + 1 - start, straggler_flags=watchdog.flagged,
                        wall_time=time.time() - t0)

@@ -10,7 +10,11 @@ serving session, a tiny autotune on the card, the serving slice, wide & deep's
 kernel against the plain attention, and the reuse layer: ``blockell_aggregate``
 (``spmm_blockell`` forward, the same kernel over Aᵀ backward) and GCN's
 bare-``BlockEll`` path against their plain versions, and the shared-set
-executor, which launches no kernel.
+executor, which launches no kernel.  LM training on the card (no kernel of
+the port): the donated (in-place) ``train_4k`` step against the functional
+one, ``lm_loss``'s remat and chunks against the plain cross-entropy, a
+checkpoint of card tensors restored on the CPU bit-equal, and the
+``Prefetcher``'s side-stream copies.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -1309,3 +1313,124 @@ def test_shared_aggregate_on_the_card(op):
     ref = shared_aggregate(x, plan, op)
     torch.testing.assert_close(y.cpu(), ref, rtol=0,
                                atol=TOL * max(1.0, float(ref.abs().max())))
+
+
+# ------------------------------------------------------------ LM training
+def _lm_reduced(seed=0):
+    from repro_torch.configs.granite_8b import REDUCED
+    from repro_torch.models import lm_init
+    return REDUCED, lm_init(torch.Generator().manual_seed(seed), REDUCED,
+                            device="cuda")
+
+
+def test_donated_lm_step_matches_functional_on_the_card():
+    """granite-8b ``REDUCED`` on the card, 3 in-place (donated) steps
+    against 3 functional ones from the same params: the bundle's Adam step
+    (``LMBundle.loss_fn``, ``opt()``, clip 1.0) gives the same losses within 1e-6 (relative) with a lower peak; with
+    SGD, every parameter agrees within 1e-6 of its leaf's largest entry.
+    (Adam's first steps divide by |g| + 1e-8, so its parameters magnify
+    the run-to-run rounding of tiny gradients; the CPU tests hold the two
+    forms bit-equal on equal gradients.)"""
+    _need_cuda()
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.train import (lm_token_batches, make_train_step, sgd,
+                                   tree_leaves, tree_map)
+    cfg, params = _lm_reduced()
+    bundle = LMBundle(cfg)
+    batches = [next(lm_token_batches(cfg.vocab, 4, 64, start_step=s))
+               for s in range(3)]
+    out = {}
+    for opt_name in ("adam", "sgd"):
+        for donate in (False, True):
+            p = tree_map(lambda x: x.clone(), params)
+            opt = bundle.opt() if opt_name == "adam" else sgd(1e-2)
+            step = make_train_step(bundle.loss_fn, opt,
+                                   clip_norm=1.0 if opt_name == "adam"
+                                   else None, donate=donate)
+            state = opt.init(p)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses = []
+            for b in batches:
+                p, state, loss = step(p, state, b)
+                losses.append(float(loss))
+            out[opt_name, donate] = (losses, p,
+                                     torch.cuda.max_memory_allocated() - base)
+    for name in ("adam", "sgd"):
+        (lf, pf, mf), (ld, pd, md) = out[name, False], out[name, True]
+        np.testing.assert_allclose(ld, lf, rtol=1e-6)
+        assert md < mf, (name, md, mf)
+    for a, b in zip(tree_leaves(out["sgd", True][1]),
+                    tree_leaves(out["sgd", False][1])):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def test_lm_loss_remat_and_chunks_on_the_card():
+    """``lm_loss`` (remat, 8 chunks) against the plain full cross-entropy
+    over ``lm_forward(remat=False)`` on the card: loss and gradients within
+    1e-5 of the largest entry."""
+    _need_cuda()
+    from repro_torch.models import lm_forward, lm_loss
+    from repro_torch.nn.layers import cross_entropy
+    from repro_torch.train import tree_leaves
+    cfg, params = _lm_reduced(1)
+    rng = np.random.default_rng(4)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device="cuda")
+    tgt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device="cuda")
+    res = []
+    for remat in (True, False):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in tree_leaves(params)]
+        from repro_torch.train.optimizer import tree_unflatten
+        p = tree_unflatten(params, leaves)
+        loss = (lm_loss(p, tok, tgt, cfg) if remat else
+                cross_entropy(lm_forward(p, tok, cfg, remat=False)[0], tgt))
+        loss.backward()
+        res.append((loss.detach(), [t.grad for t in leaves]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-5, atol=0)
+    for a, b in zip(res[0][1], res[1][1]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_checkpoint_from_card_tensors_restores_on_the_cpu(tmp_path):
+    """Leaves on the card (fp32, bf16, int32) written by ``save_checkpoint``
+    and restored into CPU templates: bit-equal to their host copies; and
+    back onto the card into card templates."""
+    _need_cuda()
+    from repro_torch.train import checkpoint
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = {"w": torch.randn(33, 7, generator=gen, device="cuda"),
+              "h": torch.randn(5, 9, generator=gen,
+                               device="cuda").to(torch.bfloat16)}
+    opt = {"m": [torch.randn(33, 7, generator=gen, device="cuda")],
+           "step": torch.tensor(17, dtype=torch.int32, device="cuda")}
+    checkpoint.save_checkpoint(str(tmp_path), 17, params, opt)
+    zeros = lambda t, dev: torch.zeros(t.shape, dtype=t.dtype, device=dev)
+    for dev in ("cpu", "cuda"):
+        tp = {k: zeros(v, dev) for k, v in params.items()}
+        to = {"m": [zeros(opt["m"][0], dev)], "step": zeros(opt["step"], dev)}
+        p, o, step = checkpoint.restore_checkpoint(str(tmp_path), tp, to)
+        assert step == 17
+        pairs = [(p["w"], params["w"]), (p["h"], params["h"]),
+                 (o["m"][0], opt["m"][0]), (o["step"], opt["step"])]
+        for got, want in pairs:
+            assert got.device.type == dev and got.dtype == want.dtype
+            assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_prefetcher_copies_on_a_side_stream():
+    """The ``Prefetcher`` on the card: every array lands on the device with
+    its values, after the consumer's stream waited on the copy."""
+    _need_cuda()
+    from repro_torch.train import Prefetcher, lm_token_batches
+    src = lm_token_batches(512, 4, 256)
+    want = [next(lm_token_batches(512, 4, 256, start_step=s))
+            for s in range(5)]
+    got = [b for _, b in zip(range(5), Prefetcher(src, device="cuda"))]
+    for g, w in zip(got, want):
+        assert g["tokens"].is_cuda and g["step"] == w["step"]
+        total = g["tokens"].sum() + g["targets"].sum()   # consumer's stream
+        assert int(total) == int(w["tokens"].sum() + w["targets"].sum())

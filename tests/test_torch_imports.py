@@ -74,7 +74,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.obs.trace", "repro_torch.serve.batcher",
                 "repro_torch.serve.cache", "repro_torch.serve.engine",
                 "repro_torch.serve.registry", "repro_torch.train.fault",
-                "repro_torch.train.loop", "repro_torch.train.optimizer"}
+                "repro_torch.train.loop", "repro_torch.train.optimizer",
+                "repro_torch.train.checkpoint", "repro_torch.chaos",
+                "repro_torch.chaos.inject"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []

@@ -187,13 +187,15 @@ def test_launcher_other_executors_agree_with_fused(executor):
     ([], None),                          # --executor auto, the default
     (["--executor", "forward"], None),
     (["--dist"], "ROADMAP §1 item 9"),
-    (["--ckpt", "ckpts"], "ROADMAP §1 item 6")])
-def test_launcher_refuses_what_is_not_ported(argv, what, capsys):
-    """``--dist`` and ``--ckpt`` raise; ``auto`` and ``forward`` tune the
-    whole forward on the CPU grid into the temporary cache, print the
-    verdict and one line per layer, and train; a second ``auto`` run reads
-    the verdict from the cache and runs no trial."""
-    argv = ["--arch", "gcn-cora", "--steps", "2", "--device", "cpu", *argv]
+    (["--ckpt", "CKPT"], None)])
+def test_launcher_refuses_what_is_not_ported(argv, what, capsys, tmp_path):
+    """``--dist`` raises; ``auto`` and ``forward`` tune the whole forward
+    on the CPU grid into the temporary cache, print the verdict and one
+    line per layer, and train; a second ``auto`` run reads the verdict from
+    the cache and runs no trial.  ``--ckpt`` (ported) trains, saves the
+    last step, and the second run resumes past it with nothing left."""
+    argv = ["--arch", "gcn-cora", "--steps", "2", "--device", "cpu",
+            *[str(tmp_path / "ckpt") if a == "CKPT" else a for a in argv]]
     if what is not None:
         with pytest.raises(NotImplementedError, match=what):
             train_launcher.main(argv)
@@ -216,7 +218,12 @@ def test_launcher_refuses_what_is_not_ported(argv, what, capsys):
         assert verdict[0] + " (cached)" in out2
         assert [l for l in out2.splitlines() if l.startswith("layer ")] == \
             layers
-        assert again.losses == res.losses
+        if "--ckpt" in argv:
+            from repro_torch.train import checkpoint
+            assert checkpoint.available_steps(str(tmp_path / "ckpt")) == [2, 1]
+            assert again.losses == [] and "nothing to train" in out2
+        else:
+            assert again.losses == res.losses
 
 
 def test_registry_ports_gcn_cora_only():
@@ -229,8 +236,13 @@ def test_registry_ports_gcn_cora_only():
         GNNBundle("gat", {}).init_params(torch.Generator(), 4, device="cpu")
 
 
-def test_fit_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_fit_refuses_checkpoints(tmp_path):
+    """``fit`` resumes only from a checkpoint of its own tree: one whose
+    leaves the parameters lack is unreadable, and ``fit`` raises rather
+    than start from the untrained parameters."""
+    from repro_torch.train import checkpoint
+    checkpoint.save_checkpoint(str(tmp_path), 3, {"v": torch.zeros(2)}, {})
+    with pytest.raises(RuntimeError, match="unreadable"):
         fit(lambda p, b: p["w"].sum(), adam(1e-2),
-            {"w": torch.zeros(2)}, iter(lambda: None, 0), steps=1,
-            ckpt_dir="ckpts")
+            {"w": torch.zeros(2)}, iter(lambda: None, 0), steps=5,
+            ckpt_dir=str(tmp_path))
