@@ -48,6 +48,17 @@
    ``spmm_blockell`` at the step's three launches, d = 1433 among them,
    against its plain version and ``torch.sparse.mm``); GIN with
    ``executor="shared"`` against ``"segment"`` (fp32 and fp64, no launch).
+   Then the fallback chain (``exec.fallback.ResilientPlan``) on the
+   reordered Cora with a quarantine directory of its own: healthy compact,
+   padded and bucketed gcn plans answer on ``cuda`` (1, 1 and 2 launches)
+   within 1e-5 of ``torch``; weighted ``sum`` plans (seeded weights,
+   float32 tiles) at d = 64 and 1433 through rows 3 and 2, each held
+   against its plain version and timed beside its bound and
+   ``torch.sparse.mm`` of the weighted adjacency; the ``kernel_launch``
+   and ``nan_backend`` drills at ``exec.pallas_launch`` /
+   ``exec.kernel_result`` demote to ``torch``, quarantine ``cuda`` under
+   the card's device signature, and the cost oracle drops it; an armed
+   fused layer (row 5) propagates its ``InjectedFault``.
    Every path runs with each kernel's launch count set to 0 just before it
    and read just after, and fails if a kernel it needs was not launched.
 6. GraphSAGE on the paper's CITESEER-S stand-in at Table I's size
@@ -112,7 +123,19 @@
    and 4 timed steps (ms a step, tokens/s, busy share, device time by
    kind, one step timed in pieces), peak memory beside the 48.3 GB of
    state, the bf16 FLOP share.
-10. Writes the full report (every case, trial table and path) to
+10. GAT, PNA and NequIP (no kernel: the reference runs them on
+   ``jax.ops.segment_*``), last: ``launch.train --arch gat-cora|pna|nequip
+   --steps 10`` at full width on the card and with ``--device cpu`` (losses
+   within 1e-4; PNA, chaotic: step 0 within 1e-5 and 10 steps in float64
+   within 1e-4); then GAT (8 heads x 8) and PNA (75 x 4) on
+   ``ogb_products`` cut to ``products_like(scale=0.1)`` (244,902 nodes,
+   6,185,914 edges) and NequIP (32 channels, 5 layers) on ``molecule``
+   (128 molecules, 3,840 atoms, 8,192 edges, padded to 4,096 nodes): one
+   fp32 step against the same step in float64 (loss 1e-5; gradients 1e-2
+   of a leaf's largest entry for GAT and PNA, 1e-4 for NequIP), NequIP's
+   rotation check, then ms a step, busy share, device time by kind and
+   peak memory.
+11. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -122,6 +145,7 @@ It imports nothing of JAX and nothing of the JAX package.
 import contextlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -258,13 +282,15 @@ def assert_close_rows(got, ref, tol: float, what: str) -> tuple:
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
-def library_matrix(torch, dev, g, mode, transposed, self_coeff=None):
+def library_matrix(torch, dev, g, mode, transposed, self_coeff=None,
+                   weighted=False):
     """The aggregation one plan side computes, as a CSR matrix for
     ``torch.sparse.mm`` (the yardstick; the port never calls it):
-    ``M[v, u] = s_out[v] s_in[u]`` per edge u -> v, plus ``s_out s_in`` on
-    the diagonal in gcn mode; the transposed side is ``Mᵀ``.  With
-    ``self_coeff`` c, the update layer's unscaled self term ``c x_v`` is
-    added on the diagonal (GIN's ``(1 + eps) x_v``)."""
+    ``M[v, u] = s_out[v] s_in[u]`` per edge u -> v (times the edge's
+    weight when ``weighted``), plus ``s_out s_in`` on the diagonal in gcn
+    mode; the transposed side is ``Mᵀ``.  With ``self_coeff`` c, the update
+    layer's unscaled self term ``c x_v`` is added on the diagonal (GIN's
+    ``(1 + eps) x_v``)."""
     import numpy as np
     from repro_torch.exec.plan import _mode_scales
 
@@ -272,6 +298,8 @@ def library_matrix(torch, dev, g, mode, transposed, self_coeff=None):
     n = g.num_nodes
     rows, cols = g.dst.astype(np.int64), g.src.astype(np.int64)
     val = s_out[rows] * s_in[cols]
+    if weighted:
+        val = val * g.edge_weight
     loops = np.arange(n)
     if add_diag:
         rows, cols = np.concatenate([rows, loops]), np.concatenate([cols,
@@ -699,7 +727,7 @@ def bucket_tile_phase(torch, dev, g):
 
 def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
                 bm, weight, add_diag=False, plan_side=None, library=None,
-                update=None, composed=None):
+                update=None, composed=None, tol=None):
     """One padded-kernel case on the side arrays ``a`` of a padded plan:
     the kernel (raw launch, no Python checks) and its plain version, timed,
     held to each other on every row (the padded kernels write them all).
@@ -707,7 +735,9 @@ def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
     ``update = (w, bias, w_self, coeff, relu)``, spmm_blockell_update.
     With ``plan_side`` and ``library`` the plan's output is held against
     ``torch.sparse.mm`` and the library call is timed; with ``composed``
-    (a :func:`library_matrix`) the update kernel's two-call yardstick."""
+    (a :func:`library_matrix`) the update kernel's two-call yardstick.
+    ``tol`` is the bar against the plain version (default 1e-5, 1e-4 past
+    d = 512, where the update kernels sum 1433-term products)."""
     from repro_torch.kernels import ref as plain
     from repro_torch.kernels import spmm_blockell as sk
 
@@ -751,7 +781,8 @@ def padded_case(torch, dev, kernel, a, nnz, n_active, d, gen, name, *,
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{kernel} output not finite ({name})")
-    tol = 1e-4 if d > 512 else KERNEL_TOL
+    if tol is None:
+        tol = 1e-4 if d > 512 else KERNEL_TOL
     err = assert_close_scaled(got, ref, tol, f"{kernel} vs plain {name}")
 
     def launch():
@@ -937,15 +968,17 @@ def hold_against_plain(torch, what, make, loss_tol_steps, grad_tol,
 
 
 def step_breakdown(torch, what, step_fn, params, state, batch, warmup=3,
-                   timed=10, n_prof=3, watch=None):
+                   timed=10, n_prof=3, watch=None, kinds=None):
     """Median ms per training step (CUDA events around ``step_fn``, ``timed``
     steps after ``warmup`` steps), then ``torch.profiler`` over ``n_prof``
     more: the device time per step summed over the kernels the profiler
     saw, the busy share it makes of the step, the five kernels that take
     most, and for each ``watch`` label the device time per step of the
-    kernels whose name holds its substring (any case).  ``step_fn(params,
-    state, batch) -> (params, state, loss)`` as ``make_train_step`` builds
-    it."""
+    kernels whose name holds its substring (any case).  ``kinds``, an
+    ordered list of (label, substrings), puts each kernel in the first kind
+    one of whose substrings its name holds ("other" if none) and reports
+    the device time per step of each kind.  ``step_fn(params, state,
+    batch) -> (params, state, loss)`` as ``make_train_step`` builds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -981,6 +1014,15 @@ def step_breakdown(torch, what, step_fn, params, state, batch, warmup=3,
         report[f"{label}_ms_per_step"] = sum(
             e.self_device_time_total for e in kernels
             if part.lower() in e.key.lower()) / 1e3 / n_prof
+    if kinds:
+        by_kind = {label: 0.0 for label, _ in kinds}
+        by_kind["other"] = 0.0
+        for e in kernels:
+            name = e.key.lower()
+            label = next((lb for lb, parts in kinds
+                          if any(p in name for p in parts)), "other")
+            by_kind[label] += e.self_device_time_total / 1e3 / n_prof
+        report["device_ms_by_kind"] = by_kind
     if not device_ms:
         print(f"{what}: the profiler saw no device time; busy share not "
               "measured")
@@ -3177,6 +3219,557 @@ def lm_training_phases(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# the kernel fallback chain (exec/fallback.py) and weighted sum plans
+# ---------------------------------------------------------------------------
+FALLBACK_BUCKETS = "128@7+256"
+WEIGHTED_WIDTHS = (64, 1433)
+
+
+def fallback_phase(torch, dev, g):
+    """The fallback chain on the reordered Cora, with a quarantine directory
+    of its own, removed after (the tuning cache is not touched, so no
+    verdict of the drill reaches a later phase).
+
+    (a) Healthy ``ResilientPlan(g, "gcn")`` (compact, padded, bucketed
+    ``128@7+256``) at d = 64: answers on ``cuda``, not degraded, with the
+    launches of rows 3 / 2 its plan needs, within 1e-5 of the ``torch``
+    plan.  (b) Weighted ``sum`` ResilientPlans (seeded weights in [0, 1),
+    float32 tiles; compact and padded) at d = 64 and 1433: the same, and
+    each kernel case (row 3 compact, row 2 padded) held against its plain
+    version, timed beside its bound and ``torch.sparse.mm`` of the weighted
+    adjacency.  (c) The drills: ``kernel_launch`` at ``exec.pallas_launch``
+    hit 0 (no launch), then ``nan_backend`` at ``exec.kernel_result`` (one
+    launch, its output mangled): each call answers on ``torch`` within 1e-5
+    of the healthy answer, its attempts name the fault, the quarantine is
+    recorded under the card's device signature, a fresh ResilientPlan on
+    that directory starts at ``torch``, ``build_cost_oracle`` keeps no
+    ``cuda`` candidate, and ``exec.fallback`` / ``exec.quarantine`` count
+    one each.  (d) A real failure, no drill (the compact wrapper rejecting
+    a float64 x): it propagates, ``torch`` does not answer, and no verdict
+    is written.  (e) A fused layer (row 5) armed once at
+    ``exec.pallas_launch``: the ``InjectedFault`` propagates (layer plans
+    have no chain), and the layer is healthy after."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.chaos import Fault, FaultPlan, InjectedFault, armed
+    from repro_torch.exec import (FALLBACK_CHAIN, ResilientPlan,
+                                  build_cost_oracle, build_layer_plan,
+                                  build_plan, gcn_chain, graph_fingerprint,
+                                  quarantined_backends)
+    from repro_torch.exec.autotune import device_sig, quarantine_key
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((g.num_nodes, 64), generator=gen, device=dev)
+    fp = graph_fingerprint(g)
+    report = {"device_sig": device_sig("cuda"), "healthy": {},
+              "weighted": {}, "drills": {}}
+    total = {k: 0 for k in KERNELS}
+
+    def counted(fn, what):
+        reset_launches()
+        y = fn()
+        launches = read_launches(torch)
+        for k, v in launches.items():
+            total[k] += v
+        return y, {k: v for k, v in launches.items() if v}
+
+    def healthy(rp, xin, what, expect):
+        y, launches = counted(lambda: rp.apply(xin), what)
+        v = rp.verdict
+        if v.backend != "cuda" or v.degraded or v.attempts:
+            raise AssertionError(f"{what}: a healthy call gave {v}")
+        if launches != expect:
+            raise AssertionError(f"{what}: launched {launches}, expected "
+                                 f"{expect}")
+        return y, launches
+
+    compact_cases, fused_cases = [], []
+    with tempfile.TemporaryDirectory(prefix="quarantine-") as qdir:
+        ref = build_plan(g, "gcn", backend="torch", device=dev).apply(x)
+        y_healthy = None
+        for name, kw in (("compact", {}), ("padded", {"compact": False}),
+                         ("bucketed", {"buckets": FALLBACK_BUCKETS})):
+            rp = ResilientPlan(g, "gcn", device=dev, cache_dir=qdir, **kw)
+            plan = rp.plan_for("cuda")
+            if name == "padded":
+                expect = {"spmm_blockell_fused": 1}
+            elif name == "bucketed":
+                expect = {"spmm_blockell_compact": sum(
+                    1 for m in plan.meta_fwd.buckets
+                    if m.n_rows and m.n_active)}
+            else:
+                expect = {"spmm_blockell_compact": 1}
+            what = f"ResilientPlan gcn {name}"
+            y, launches = healthy(rp, x, what, expect)
+            report["healthy"][name] = {
+                "chain": rp.chain, "launches": launches,
+                "max_abs_err": assert_close_scaled(y, ref, KERNEL_TOL,
+                                                   f"{what} vs torch")}
+            if name == "compact":
+                y_healthy = y
+
+        w = np.random.default_rng(22).random(g.num_edges).astype(np.float32)
+        gw = dataclasses.replace(g, edge_weight=w)
+        lib = library_matrix(torch, dev, gw, "sum", False, weighted=True)
+        for compact, kernel in ((True, "spmm_blockell_compact"),
+                                (False, "spmm_blockell_fused")):
+            rp = ResilientPlan(gw, "sum", weighted=True, compact=compact,
+                               device=dev, cache_dir=qdir)
+            plan = rp.plan_for("cuda")
+            if plan._fwd["blocks"].dtype != torch.float32:
+                raise AssertionError("a weighted plan's tiles are "
+                                     f"{plan._fwd['blocks'].dtype}")
+            plain = build_plan(gw, "sum", weighted=True, compact=compact,
+                               backend="torch", device=dev)
+            nnz = int(plan.ell.density_stats()["nnz"])
+            for d in WEIGHTED_WIDTHS:
+                xd = torch.randn((g.num_nodes, d), generator=gen,
+                                 device=dev)
+                name = (f"weighted sum {'compact' if compact else 'padded'}"
+                        f" d={d} (f32 tiles)")
+                y, launches = healthy(rp, xd, f"ResilientPlan {name}",
+                                      {kernel: 1})
+                report["weighted"][name] = {
+                    "launches": launches,
+                    "max_abs_err": assert_close_scaled(
+                        y, plain.apply(xd), KERNEL_TOL,
+                        f"ResilientPlan {name} vs torch")}
+                if compact:
+                    compact_cases.append(compact_case(
+                        torch, dev, plan._fwd, nnz, d, False, "f32", False,
+                        gen, name, weight=1, plan_side=plan.raw_apply,
+                        library=lib))
+                else:
+                    fused_cases.append(padded_case(
+                        torch, dev, "spmm_blockell_fused", plan._fwd, nnz,
+                        plan.ell.n_active, d, gen, name, bm=BM, weight=1,
+                        plan_side=plan.raw_apply, library=lib,
+                        tol=KERNEL_TOL))
+
+        obs.reset()
+        obs.enable()
+        try:
+            for kind, site, reason, launched in (
+                    ("kernel_launch", "exec.pallas_launch", "kernel_launch",
+                     {}),
+                    ("nan_backend", "exec.kernel_result", "nonfinite_output",
+                     {"spmm_blockell_compact": 1})):
+                sub = os.path.join(qdir, kind)
+                rp = ResilientPlan(g, "gcn", device=dev, cache_dir=sub)
+                with armed(FaultPlan.of(Fault(site, kind))) as inj:
+                    y, launches = counted(lambda: rp.apply(x), kind)
+                v = rp.verdict
+                what = f"drill {kind} at {site}"
+                if (v.backend != "torch" or not v.degraded
+                        or v.attempts != (("cuda", reason),)):
+                    raise AssertionError(f"{what}: verdict {v}")
+                if launches != launched or len(inj.fired) != 1:
+                    raise AssertionError(f"{what}: launched {launches}, "
+                                         f"fired {inj.fired}")
+                err = assert_close_scaled(y, y_healthy, KERNEL_TOL,
+                                          f"{what} vs the healthy answer")
+                bad = quarantined_backends(fp, platform="cuda",
+                                           cache_dir=sub)
+                with open(os.path.join(sub, "autotune.json")) as f:
+                    keys = sorted(json.load(f))
+                key = quarantine_key(fp, "cuda", "cuda")
+                fresh = ResilientPlan(g, "gcn", device=dev, cache_dir=sub)
+                oracle = build_cost_oracle(g, gcn_chain(GCN_DIMS),
+                                           cache_dir=sub, use_cache=False,
+                                           platform="cuda")
+                kept = sorted({c[2] for cs in oracle.cands for c in cs})
+                report["drills"][kind] = {
+                    "site": site, "attempts": v.attempts, "served_by":
+                    v.backend, "launches": launches, "max_abs_err": err,
+                    "quarantined": sorted(bad), "cache_keys": keys,
+                    "fresh_chain": fresh.chain, "oracle_backends": kept}
+                print(f"fallback {what}: " + json.dumps(
+                    report["drills"][kind]))
+                if bad != {"cuda"} or keys != [key]:
+                    raise AssertionError(f"{what}: quarantine {bad}, keys "
+                                         f"{keys} (expected {key})")
+                if fresh.backend != "torch" or "cuda" in fresh.chain:
+                    raise AssertionError(f"{what}: a fresh plan's chain is "
+                                         f"{fresh.chain}")
+                if "cuda" in kept or not kept:
+                    raise AssertionError(f"{what}: the cost oracle kept "
+                                         f"{kept}")
+            counts = {name: _counter(obs, name)
+                      for name in ("exec.fallback", "exec.quarantine")}
+        finally:
+            obs.disable()
+            obs.reset()
+        report["counters"] = counts
+        if counts != {"exec.fallback": 2, "exec.quarantine": 2}:
+            raise AssertionError(f"fallback counters {counts}")
+
+        sub = os.path.join(qdir, "real")
+        rp = ResilientPlan(g, "gcn", device=dev, cache_dir=sub)
+        try:
+            rp.apply(x.double())
+        except TypeError as err:
+            report["real_failure"] = str(err)
+        else:
+            raise AssertionError("a real kernel failure was served by "
+                                 f"{rp.verdict}")
+        if (rp.verdict is not None or rp.chain != list(FALLBACK_CHAIN)
+                or os.path.exists(os.path.join(sub, "autotune.json"))):
+            raise AssertionError(f"a real kernel failure demoted: verdict "
+                                 f"{rp.verdict}, chain {rp.chain}")
+
+        lp = build_layer_plan(g, "gcn", d_in=64, d_out=16,
+                              order="aggregate_first", backend="cuda",
+                              device=dev)
+        lp_plain = build_layer_plan(g, "gcn", d_in=64, d_out=16,
+                                    order="aggregate_first", backend="torch",
+                                    device=dev)
+        wt = torch.randn((64, 16), generator=gen, device=dev) / 8
+        if not lp.fuse:
+            raise AssertionError("the cuda layer plan did not fuse")
+        try:
+            with armed(FaultPlan.of(Fault("exec.pallas_launch",
+                                          "kernel_launch"))):
+                counted(lambda: lp.apply(x, wt), "fused layer drill")
+        except InjectedFault as err:
+            report["fused_layer_fault"] = str(err)
+        else:
+            raise AssertionError("a launch fault on a fused layer did not "
+                                 "propagate")
+        y, launches = counted(lambda: lp.apply(x, wt), "fused layer")
+        if launches != {"spmm_blockell_update_compact": 1}:
+            raise AssertionError(f"fused layer launched {launches}")
+        report["fused_layer_max_abs_err"] = assert_close_scaled(
+            y, lp_plain.apply(x, wt), KERNEL_TOL, "fused layer vs torch")
+    print("fallback phase: " + json.dumps(
+        {k: v for k, v in report.items() if k != "drills"}))
+    return total, report, compact_cases, fused_cases
+
+
+# ---------------------------------------------------------------------------
+# the rest of the GNN zoo: GAT, PNA, NequIP
+# ---------------------------------------------------------------------------
+ZOO_ARCHS = ("gat-cora", "pna", "nequip")
+# ogbn-products at a tenth of its size (244,902 nodes, 6,185,914 edges): the
+# generator's host synthesis takes ~500 s at full size
+ZOO_PRODUCTS_SCALE = 0.1
+ZOO_MOLECULES = 128
+# the profiler's kernels by kind, first match wins
+ZOO_KINDS = [("scatter", ("scatter", "indexfunc", "index_add",
+                          "indexing_backward", "radix", "sort")),
+             ("gather", ("index_elementwise", "gather", "index_select",
+                         "indexselect")),
+             ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+             ("reduce", ("reduce_kernel",)),
+             ("elementwise", ("elementwise",)),
+             ("cat/copy", ("cat", "copy"))]
+
+
+def pna_fp64_fit(torch, dev):
+    """PNA's launcher problem (seed-0 parameters, the reordered Cora) in
+    float64, 10 ``fit`` steps of adam(1e-2) with float64 moments and clip
+    1.0, on the card and on the CPU: losses within 1e-4 (relative)."""
+    from repro_torch.configs import get
+    from repro_torch.launch.train import gnn_batch, training_graph
+    from repro_torch.train import adam, fit, tree_map
+
+    bundle = get("pna").bundle()
+    g = training_graph()
+    losses = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda t: t.double(), bundle.init_params(
+            torch.Generator().manual_seed(0), g.node_feat.shape[1],
+            device=d))
+        batch = {k: v.double() if v.is_floating_point() else v
+                 for k, v in gnn_batch(g, bundle.n_classes, d).items()}
+        losses[side] = fit(bundle.loss_fn("full_graph_sm"),
+                             adam(1e-2, moments_dtype=torch.float64), params,
+                             iter(lambda: batch, None), steps=COMPARE_STEPS,
+                             clip_norm=1.0, log=lambda s: None).losses
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(losses["card"], losses["cpu"])]
+    if max(rel) > 1e-4:
+        raise AssertionError(f"PNA fp64: card and CPU losses differ by "
+                             f"{max(rel):.3e} > 1e-4")
+    return {"card_losses": losses["card"], "cpu_losses": losses["cpu"],
+            "loss_rel_err": max(rel)}
+
+
+def gnn_zoo_launcher_phase(torch, dev):
+    """``launch.train --arch gat-cora|pna|nequip --steps 10`` (full width,
+    ``MODEL_KW``, the reordered Cora) on the card, then with ``--device
+    cpu`` in the same process: 10 losses within 1e-4 (relative), no kernel
+    launched.  PNA's run is chaotic (its loss jumps from 11.5 to ~814 on
+    step 1; fp32 rounding alone parts the reference from its own fp64 run,
+    ``tests/test_torch_gnn_zoo.py``): its step 0 is held within 1e-5 and
+    its 10 steps in float64 (:func:`pna_fp64_fit`)."""
+    report = {}
+    launches_all = {k: 0 for k in KERNELS}
+    for arch in ZOO_ARCHS:
+        reset_launches()
+        card, _, card_s = run_launcher(["--arch", arch, "--steps",
+                                        str(COMPARE_STEPS)])
+        launches = read_launches(torch)
+        cpu, _, cpu_s = run_launcher(["--arch", arch, "--steps",
+                                      str(COMPARE_STEPS), "--device", "cpu"])
+        rel = [abs(a - b) / max(abs(b), 1e-12)
+               for a, b in zip(card.losses, cpu.losses)]
+        held, tol = (1, 1e-5) if arch == "pna" else (COMPARE_STEPS, 1e-4)
+        entry = {"card_losses": card.losses, "cpu_losses": cpu.losses,
+                 "loss_rel_err": rel, "held_steps": held, "tolerance": tol,
+                 "card_s": card_s, "cpu_s": cpu_s, "launches": launches}
+        if arch == "pna":
+            entry["fp64"] = pna_fp64_fit(torch, dev)
+        print(f"{arch} training (launcher, card vs CPU): "
+              + json.dumps(entry))
+        if len(card.losses) != COMPARE_STEPS or max(rel[:held]) > tol:
+            raise AssertionError(f"{arch} launcher: card and CPU losses of "
+                                 f"steps 0-{held - 1} differ by "
+                                 f"{max(rel[:held]):.3e} > {tol}")
+        if not all(math.isfinite(v) for v in card.losses):
+            raise AssertionError(f"{arch} launcher: a loss is not finite")
+        if any(launches.values()):
+            raise AssertionError(f"{arch} training launched {launches}")
+        report[arch] = entry
+    return launches_all, report
+
+
+# fp32 against float64, each gradient held to this share of its leaf's
+# largest entry: 1e-4 for NequIP and GAT (on ogb_products at 0.1 they read
+# 9.7e-7 and 4.7e-6 on the H100); 1e-2 for PNA, which read 4.4e-3 there:
+# E[x²] - E[x]² cancels under its std and near-ties at max / min route a
+# gradient to another edge, and the reference's own fp32 gradients part from
+# its fp64 ones by up to 3e-3 on products_like(0.001)
+# (tests/test_torch_gnn_zoo.py::test_reference_fp32_grads_part_from_fp64_on_products)
+ZOO_GRAD_TOL = {"gat-cora": 1e-4, "pna": 1e-2, "nequip": 1e-4}
+
+
+def hold_fp64(torch, what, loss_fn, params, batch, loss_fn64=None,
+              grad_tol=1e-4):
+    """One step on the card in fp32 against the same step in float64: the
+    loss within 1e-5 (relative) and every gradient within ``grad_tol`` of
+    its leaf's largest entry (float64)."""
+    import gc
+    from repro_torch.train import tree_leaves, tree_map
+
+    p32 = leaf_copy(params)
+    loss = loss_fn(p32, batch)
+    loss.backward()
+    l32, g32 = float(loss.detach()), [p.grad for p in tree_leaves(p32)]
+    del loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    p64 = tree_map(lambda t: t.detach().double().requires_grad_(), params)
+    b64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
+           else v for k, v in batch.items()}
+    loss = (loss_fn64 or loss_fn)(p64, b64)
+    loss.backward()
+    l64 = float(loss.detach())
+    del loss
+    loss_rel = abs(l32 - l64) / max(abs(l64), 1e-30)
+    errs = []
+    for i, (a, b) in enumerate(zip(g32, (p.grad for p in tree_leaves(p64)))):
+        if a is None or b is None:
+            # a leaf the loss does not reach (NequIP's last layer's l=1 and
+            # l=2 channel mixing): no gradient on either side
+            if (a is None) != (b is None):
+                raise AssertionError(f"{what}: gradient {i} exists on one "
+                                     "side only")
+            errs.append(0.0)
+            continue
+        scale = float(b.abs().max())
+        errs.append(float((a.double() - b).abs().max()) / max(scale, 1e-30))
+        if errs[-1] > grad_tol:
+            raise AssertionError(f"{what}: gradient {i} differs from fp64 by "
+                                 f"{errs[-1]:.3e} of its largest entry > "
+                                 f"{grad_tol}")
+    if loss_rel > 1e-5:
+        raise AssertionError(f"{what}: loss {l32} vs fp64 {l64}: "
+                             f"{loss_rel:.3e} > 1e-5")
+    del p32, p64, b64, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_fp32": l32, "loss_fp64": l64, "loss_rel_err": loss_rel,
+            "grad_err_of_leaf_max": max(errs), "grad_errs": errs,
+            "grad_tol": grad_tol}
+
+
+def zoo_cell(torch, dev, what, arch, shape, batch, loss_fn64=None,
+             extra=None):
+    """One model on one cell at full width (``MODEL_KW``): seed-0 params
+    drawn on the CPU and moved, one step held against float64
+    (:func:`hold_fp64`), ``extra(params)`` if given, then
+    ``step_breakdown`` of ``bundle.step_fn(shape)`` (ms a step, busy share,
+    device time by kind) with its peak memory; no kernel may launch."""
+    import gc
+    from repro_torch.configs import get
+
+    bundle = get(arch).bundle()
+    d_feat = batch["x"].shape[1] if "x" in batch else \
+        bundle.geometry(shape)["d"]
+    params = bundle.init_params(torch.Generator().manual_seed(0), d_feat,
+                                device=dev)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = {"hold_fp64": hold_fp64(torch, what, bundle.loss_fn(shape),
+                                     params, batch, loss_fn64,
+                                     ZOO_GRAD_TOL[arch])}
+    report["hold_peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if extra is not None:
+        report.update(extra(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    br = step_breakdown(torch, what, bundle.step_fn(shape), params,
+                        bundle.opt().init(params), batch, kinds=ZOO_KINDS)
+    launches = read_launches(torch)
+    report.update(step_ms=br["step_ms"], busy_share=br["busy_share"],
+                  device_ms_per_step=br["device_ms_per_step"],
+                  device_ms_by_kind=br["device_ms_by_kind"],
+                  peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                  losses=br["losses"], launches=launches, breakdown=br)
+    print(f"{what}: " + json.dumps({k: v for k, v in report.items()
+                                    if k != "breakdown"}))
+    if not all(math.isfinite(v) for v in br["losses"]):
+        raise AssertionError(f"{what}: a loss is not finite {br['losses']}")
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def nequip_rotation(torch, batch):
+    """NequIP's per-molecule energies invariant and its forces equivariant
+    under a seeded rotation, on the card (1e-5 of the largest entry)."""
+    import numpy as np
+    from repro_torch.models import nequip_energy_forces
+
+    q, r = np.linalg.qr(np.random.default_rng(22).standard_normal((3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+
+    def check(params):
+        from repro_torch.models import nequip_energy
+        R = torch.as_tensor(q.astype(np.float32), device=batch["pos"].device)
+        kw = dict(edge_mask=batch["edge_mask"],
+                  node_mask=batch["train_mask"].to(torch.float32))
+        args = (params, batch["species"])
+        ij = (batch["src"], batch["dst"])
+        gid, n_mol = batch["graph_ids"], batch["num_graphs"]
+        with torch.no_grad():
+            e = nequip_energy(*args, batch["pos"], *ij, graph_ids=gid,
+                              num_graphs=n_mol, **kw)
+            e_r = nequip_energy(*args, batch["pos"] @ R.T, *ij,
+                                graph_ids=gid, num_graphs=n_mol, **kw)
+        _, f = nequip_energy_forces(*args, batch["pos"], *ij, **kw)
+        _, f_r = nequip_energy_forces(*args, batch["pos"] @ R.T, *ij, **kw)
+        return {"rotation": {
+            "energy_err": assert_close_scaled(e_r, e, 1e-5,
+                                              "NequIP rotated energies"),
+            "forces_err": assert_close_scaled(f_r, f @ R.T, 1e-5,
+                                              "NequIP rotated forces"),
+            "max_abs_energy": float(e.abs().max()),
+            "max_abs_force": float(f.abs().max())}}
+    return check
+
+
+def gnn_zoo_cells_phase(torch, dev):
+    """GAT (8 heads x 8) and PNA (75 x 4 layers) on ``ogb_products`` built
+    from ``products_like(scale=0.1)`` (244,902 nodes, 6,185,914 edges, 100
+    features; synthesized once for both), and NequIP (32 channels, 5
+    layers, l_max 2) on ``molecule``: a ``pack`` of
+    ``molecules_like(128)`` (3,840 atoms, 8,192 edges) padded to the
+    geometry's 4,096 nodes, nothing cut.  Each at full width through
+    :func:`zoo_cell`; NequIP's rotation check on the card; PNA's float64
+    step with each layer rematerialised (``loss_fn(remat=True)``)."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.graph import molecules_like, pack, products_like
+    from repro_torch.launch.train import gnn_batch
+
+    paths, report = {}, {}
+    t0 = time.perf_counter()
+    g = products_like(scale=ZOO_PRODUCTS_SCALE)
+    report["products_synthesis_s"] = time.perf_counter() - t0
+    report["products"] = {"nodes": g.num_nodes, "edges": g.num_edges,
+                          "features": int(g.node_feat.shape[1]),
+                          "scale": ZOO_PRODUCTS_SCALE}
+    print(f"ogb_products at {ZOO_PRODUCTS_SCALE}: {g.num_nodes} nodes, "
+          f"{g.num_edges} edges, synthesized in "
+          f"{report['products_synthesis_s']:.1f}s")
+    for arch, name in (("gat-cora", "GAT"), ("pna", "PNA")):
+        bundle = get(arch).bundle()
+        batch = gnn_batch(g, bundle.n_classes, dev)
+        what = f"{name} ogb_products (scale {ZOO_PRODUCTS_SCALE})"
+        paths[what], report[arch] = zoo_cell(
+            torch, dev, what, arch, "ogb_products", batch,
+            # PNA's float64 saved activations (~44 GB) would not fit beside
+            # the backward's: its hold recomputes each layer
+            loss_fn64=(bundle.loss_fn("ogb_products", remat=True)
+                       if arch == "pna" else None))
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    del g
+
+    bundle = get("nequip").bundle()
+    geo = bundle.geometry("molecule")
+    mols = molecules_like(ZOO_MOLECULES)
+    gb, _ = pack([m[0] for m in mols])
+    n, pad = gb.num_nodes, geo["n"] - gb.num_nodes
+    if gb.src.shape[0] != geo["e"] or pad < 0:
+        raise AssertionError(f"molecule pack {n} nodes / {gb.src.shape[0]} "
+                             f"edges vs geometry {geo}")
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+    batch = {"src": t(gb.src.astype(np.int64)),
+             "dst": t(gb.dst.astype(np.int64)), "edge_mask": t(gb.edge_mask),
+             "labels": t(np.zeros(geo["n"], np.int64)),
+             "train_mask": t(np.concatenate([gb.node_mask,
+                                             np.zeros(pad, bool)])),
+             "species": t(np.concatenate(
+                 [np.concatenate([m[2] for m in mols]),
+                  np.zeros(pad, np.int32)]).astype(np.int64)),
+             "pos": t(np.concatenate([np.concatenate([m[1] for m in mols]),
+                                      np.zeros((pad, 3), np.float32)])),
+             "energy_target": torch.zeros((), device=dev)}
+    rot_batch = dict(batch, graph_ids=t(np.concatenate(
+        [gb.graph_ids, np.full(pad, ZOO_MOLECULES - 1, np.int32)]).astype(
+            np.int64)), num_graphs=ZOO_MOLECULES)
+    report["molecule"] = {"molecules": ZOO_MOLECULES, "atoms": n,
+                          "edges": int(gb.src.shape[0]),
+                          "padded_nodes": geo["n"]}
+    what = "NequIP molecule (128 molecules)"
+    paths[what], report["nequip"] = zoo_cell(
+        torch, dev, what, "nequip", "molecule", batch,
+        extra=nequip_rotation(torch, rot_batch))
+    del batch, rot_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+def gnn_zoo_phases(torch, dev):
+    """GAT, PNA and NequIP, once the LM phases have freed the card: the
+    launcher at full width on Cora (card vs CPU), then the three models on
+    their cells.  None launches a kernel of the port: the reference runs
+    them on ``jax.ops.segment_*``."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths, report = {}, {}
+    paths["GAT / PNA / NequIP training (launcher)"], report["launcher"] = \
+        gnn_zoo_launcher_phase(torch, dev)
+    cell_paths, report["cells"] = gnn_zoo_cells_phase(torch, dev)
+    paths.update(cell_paths)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"GNN zoo phases: {report['wall_s']:.1f}s")
+    return paths, report
+
+
+# ---------------------------------------------------------------------------
 def ptxas_report(log: str) -> list:
     """ptxas's register and spill lines, each after the (demangled, where
     ``c++filt`` is installed) name of its kernel instantiation."""
@@ -3274,6 +3867,10 @@ def main() -> int:
     spmm_cases += ell_cases
     paths["GIN shared training"], gin_shared_report = gin_shared_phase(
         torch, dev, g_train)
+    (paths["ResilientPlan (healthy, weighted, drills)"], fallback_report,
+     weighted_compact, weighted_fused) = fallback_phase(torch, dev, g_train)
+    compact_cases += weighted_compact
+    fused_cases += weighted_fused
     sddmm_cases = sddmm_phase(torch, dev, g_train)
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
     sage_compact, sage_update, sage_paths, sage_report = sage_phases(torch,
@@ -3287,6 +3884,8 @@ def main() -> int:
     paths.update(lm_paths)
     lm_train_paths, lm_train_report = lm_training_phases(torch, dev)
     paths.update(lm_train_paths)
+    zoo_paths, zoo_report = gnn_zoo_phases(torch, dev)
+    paths.update(zoo_paths)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -3304,7 +3903,10 @@ def main() -> int:
                    total["spmm_blockell_fused"],
                    "one padded gcn-cora step's aggregations on the reordered "
                    "Cora, bm=128 (forward d=16, 7; transposed d=16, 7), as "
-                   "the padded candidates of the autotune race run them"),
+                   "the padded candidates of the autotune race run them, + "
+                   "the weighted sum ResilientPlan's padded forward at d=64 "
+                   "and d=1433 (f32 tiles, seeded weights); library: "
+                   "torch.sparse.mm of the same (weighted) adjacency"),
         kernel_row("spmm_blockell_compact", compact_cases,
                    total["spmm_blockell_compact"],
                    "one GCN serving forward on Cora (d=64 then 16) + one "
@@ -3312,9 +3914,11 @@ def main() -> int:
                    "d=16, 7) + one GIN step (forward d=128; 5 transposed "
                    "d=128) on the reordered Cora + one paper-width SAGE "
                    "training step on the reordered CITESEER-S (227,320 "
-                   "nodes; forward d=256, 41; transposed d=256, 41), "
-                   "bm=128; library: torch.sparse.mm of the same scaled "
-                   "adjacency"),
+                   "nodes; forward d=256, 41; transposed d=256, 41) + the "
+                   "weighted sum ResilientPlan's compact forward at d=64 "
+                   "and d=1433 on the reordered Cora (f32 tiles, seeded "
+                   "weights), bm=128; library: torch.sparse.mm of the same "
+                   "scaled (weighted) adjacency"),
         kernel_row("spmm_blockell_update", padded_update_cases,
                    total["spmm_blockell_update"],
                    "one padded GIN conv launch (sum 128->128, w_self is w, "
@@ -3365,7 +3969,8 @@ def main() -> int:
         "quickstart": quickstart_report, "gcn_blockell": gcn_ell_report,
         "gin_shared": gin_shared_report,
         "wide_deep": recsys_report, "lm": lm_report,
-        "lm_training": lm_train_report,
+        "lm_training": lm_train_report, "fallback": fallback_report,
+        "gnn_zoo": zoo_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

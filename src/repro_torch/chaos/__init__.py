@@ -9,9 +9,10 @@ point is one module-global load and a ``None`` check.
 
 The port places the ``train.step`` site (``train.loop.fit``): the crash
 drill stops a run there, and ``train.checkpoint``'s restore falls back
-past a file :func:`corrupt_file` damaged.  The reference's exec fallback
-chain and its sites, its serving traffic (``adversarial_trace``) and its
-drill runner are ROADMAP §1 items 6 and 10.
+past a file :func:`corrupt_file` damaged; and the kernel path's
+``exec.pallas_launch`` / ``exec.kernel_result`` sites, which
+``exec.fallback.ResilientPlan`` answers.  The reference's serving traffic
+(``adversarial_trace``) and its drill runner are ROADMAP §1 item 10.
 """
 from .inject import (KINDS, Fault, FaultInjector, FaultPlan, InjectedFault,
                      active, armed, corrupt_file, fail_point, fire, mangle)

@@ -22,9 +22,12 @@ check — no allocation, no RNG, no clock.
 
 Sites placed in the port: ``train.step``, the training step boundary
 (``fail_point`` in ``train.loop.fit``): ``crash`` stops the run for the
-resume drill.  The reference's ``exec.pallas_launch`` / ``exec.kernel_result``
-sites come with ``exec/fallback.py`` (ROADMAP §1 item 6), ``dist.halo``
-with the distributed slice (item 9).
+resume drill; ``exec.pallas_launch`` (``fail_point`` before each ``cuda``
+kernel launch of ``exec.plan``, one per sub-grid of a bucketed plan) and
+``exec.kernel_result`` (``mangle`` of each ``cuda`` result), which
+``exec.fallback.ResilientPlan`` answers by demoting the call.  The site
+strings are the reference's, so one ``FaultPlan`` arms either package.
+``dist.halo`` comes with the distributed slice (ROADMAP §1 item 9).
 
 File corruption (:func:`corrupt_file`) is applied directly by drills: it
 truncates or garbles bytes of a checkpoint or cache file deterministically

@@ -1,10 +1,11 @@
 """Architecture registry — port of ``repro/configs/base.py``.
 
 Every arch is an ``ArchSpec`` whose ``bundle()`` builds the family's
-bundle.  ``gcn-cora``, ``wide-deep`` and the dense LMs (``granite-8b``,
-``minitron-8b``, ``mistral-large-123b``) are ported; asking for another
-arch of the reference raises ``NotImplementedError`` naming the ROADMAP
-item."""
+bundle.  The four GNNs (``gcn-cora``, ``gat-cora``, ``pna``, ``nequip``)
+over the reference's four graph cells, ``wide-deep`` and the dense LMs
+(``granite-8b``, ``minitron-8b``, ``mistral-large-123b``) are ported;
+asking for one of the two MoE archs raises ``NotImplementedError`` naming
+the ROADMAP item."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,8 +14,7 @@ from typing import Any, Callable, Dict, Tuple
 REGISTRY: Dict[str, "ArchSpec"] = {}
 
 # the archs of repro.configs.registry that the port has no config for yet
-NOT_PORTED = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b", "pna",
-              "gat-cora", "nequip")
+NOT_PORTED = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +54,17 @@ LM_SHAPES = {
     "long_500k":   {"kind": "decode",  "seq": 524288,  "batch": 1},
 }
 
+# the reference's 4 graph cells
 GNN_SHAPES = {
     "full_graph_sm": {"kind": "train", "n_nodes": 2708, "n_edges": 10556,
                       "d_feat": 1433},
+    "minibatch_lg":  {"kind": "train", "n_nodes": 232_965,
+                      "n_edges": 114_615_892, "batch_nodes": 1024,
+                      "fanout": (15, 10), "d_feat": 602},
+    "ogb_products":  {"kind": "train", "n_nodes": 2_449_029,
+                      "n_edges": 61_859_140, "d_feat": 100},
+    "molecule":      {"kind": "train", "n_nodes": 30, "n_edges": 64,
+                      "batch": 128},
 }
 
 RECSYS_SHAPES = {
@@ -67,3 +75,7 @@ RECSYS_SHAPES = {
     "retrieval_cand": {"kind": "serve", "batch": 1,
                        "n_candidates": 1_048_576},
 }
+
+
+def pad_to(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult

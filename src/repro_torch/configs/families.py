@@ -1,5 +1,5 @@
 """Family bundles — port of ``LMBundle`` (training, prefill and decode),
-``GNNBundle`` (GCN only; GAT, PNA and NequIP are ROADMAP §1 item 8b) and
+``GNNBundle`` (gcn | gat | pna | nequip over the four graph cells) and
 ``RecsysBundle`` from ``repro/configs/families.py``.  The bundles'
 ``abstract_state`` and ``shardings`` are mesh work (ROADMAP §1 item 9)."""
 from __future__ import annotations
@@ -10,14 +10,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..models.gat import gat_init, gat_loss
 from ..models.gcn import gcn_init, gcn_loss
+from ..models.nequip import nequip_energy, nequip_init
+from ..models.pna import pna_init, pna_loss
 from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
                              widedeep_logits, widedeep_loss)
 from ..models.transformer import (LMConfig, lm_decode_step, lm_init,
                                   lm_loss, lm_prefill, make_kv_caches)
 from ..train.loop import make_train_step
 from ..train.optimizer import Optimizer, adam
-from .base import LM_SHAPES, RECSYS_SHAPES
+from .base import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, pad_to
 
 
 @dataclasses.dataclass
@@ -116,29 +119,70 @@ class LMBundle:
 
 @dataclasses.dataclass
 class GNNBundle:
+    """gcn | gat | pna | nequip over the four ``GNN_SHAPES``."""
     arch: str
     model_kw: Dict[str, Any]
     n_classes: int = 16
+    shapes = tuple(GNN_SHAPES)
 
-    def _require_ported(self) -> None:
-        if self.arch != "gcn":
-            raise NotImplementedError(f"GNN arch {self.arch!r} is not "
-                                      "ported yet (ROADMAP §1 item 8b)")
+    def geometry(self, shape: str) -> Dict[str, int]:
+        """The cell's node and edge counts padded to multiples of 512, and
+        its feature width (16 for ``molecule``: the species embedding's
+        cell has no features), as the reference sizes them."""
+        info = GNN_SHAPES[shape]
+        if shape == "minibatch_lg":
+            b, (f1, f2) = info["batch_nodes"], info["fanout"]
+            n = b + b * f1 + b * f1 * f2
+            e = b * f1 + b * f1 * f2
+            d = info["d_feat"]
+        elif shape == "molecule":
+            n = info["batch"] * info["n_nodes"]
+            e = info["batch"] * info["n_edges"]
+            d = 16
+        else:
+            n, e, d = info["n_nodes"], info["n_edges"], info["d_feat"]
+        return {"n": pad_to(n, 512), "e": pad_to(e, 512), "d": d}
 
     def init_params(self, generator: torch.Generator, d_feat: int,
                     device="cuda"):
-        self._require_ported()
-        return gcn_init(generator, [d_feat, *self.model_kw["hidden"],
-                                    self.n_classes], device=device)
+        kw = self.model_kw
+        if self.arch == "gcn":
+            return gcn_init(generator, [d_feat, *kw["hidden"],
+                                        self.n_classes], device=device)
+        if self.arch == "gat":
+            return gat_init(generator, d_feat, kw["d_hidden"], kw["n_heads"],
+                            self.n_classes, kw["n_layers"], device=device)
+        if self.arch == "pna":
+            return pna_init(generator, d_feat, kw["d_hidden"],
+                            kw["n_layers"], self.n_classes, device=device)
+        if self.arch == "nequip":
+            return nequip_init(generator, channels=kw["d_hidden"],
+                               n_layers=kw["n_layers"],
+                               n_rbf=kw.get("n_rbf", 8),
+                               cutoff=kw.get("cutoff", 5.0), device=device)
+        raise ValueError(f"unknown GNN arch {self.arch!r}")
 
     def loss_fn(self, shape: str, executor: str = "segment",
-                exec_plan=None):
-        """``executor="blockell"`` + a ``GraphExecutionPlan`` routes the
-        aggregation through the block-ELL plan; ``executor="fused"`` + one
-        ``LayerExecutionPlan`` per layer folds the update in too.  The plans
-        are closed over; their hand-written backwards keep the loss
-        differentiable.  Returns ``loss(params, batch)``."""
-        self._require_ported()
+                exec_plan=None, remat: bool = False):
+        """``loss(params, batch)``.  GCN: ``executor="blockell"`` + a
+        ``GraphExecutionPlan`` routes the aggregation through the block-ELL
+        plan; ``executor="fused"`` + one ``LayerExecutionPlan`` per layer
+        folds the update in too (the plans are closed over; their
+        hand-written backwards keep the loss differentiable).  GAT and PNA
+        run the reference's segment ops, with its ``mean_log_deg = 2.0``;
+        NequIP's loss is the squared error of the summed energy (over the
+        ``train_mask`` nodes) against ``energy_target``.  Those three have
+        no kernel executor: another ``executor`` than ``"segment"`` raises
+        (the reference ignores it).  ``remat`` runs PNA's layers under
+        ``torch.utils.checkpoint`` (other archs raise)."""
+        if self.arch not in ("gcn", "gat", "pna", "nequip"):
+            raise ValueError(f"unknown GNN arch {self.arch!r}")
+        if self.arch != "gcn" and executor != "segment":
+            raise ValueError(f"arch {self.arch!r} has no kernel executor "
+                             f"(got executor={executor!r}); its "
+                             "aggregations are segment ops")
+        if remat and self.arch != "pna":
+            raise ValueError(f"remat is PNA's only (arch {self.arch!r})")
         if executor == "blockell" and exec_plan is None:
             raise ValueError("executor='blockell' needs an exec_plan "
                              "(repro_torch.exec.build_plan)")
@@ -147,12 +191,37 @@ class GNNBundle:
                              "(repro_torch.exec.build_layer_plan)")
 
         def loss(params, batch):
+            if self.arch == "nequip":
+                e = nequip_energy(params, batch["species"], batch["pos"],
+                                  batch["src"], batch["dst"],
+                                  edge_mask=batch["edge_mask"],
+                                  node_mask=batch["train_mask"].to(
+                                      batch["pos"].dtype))
+                return torch.mean((torch.sum(e) - batch["energy_target"])
+                                  ** 2)
             graph = {"src": batch["src"], "dst": batch["dst"],
-                     "edge_mask": batch["edge_mask"], "deg": batch["deg"]}
-            return gcn_loss(params, batch["x"], graph, batch["labels"],
-                            batch["train_mask"], executor=executor,
-                            plans=exec_plan)
+                     "edge_mask": batch["edge_mask"], "deg": batch["deg"],
+                     "mean_log_deg": 2.0}
+            args = (params, batch["x"], graph, batch["labels"],
+                    batch["train_mask"])
+            if self.arch == "gat":
+                return gat_loss(*args)
+            if self.arch == "pna":
+                return pna_loss(*args, remat=remat)
+            return gcn_loss(*args, executor=executor, plans=exec_plan)
         return loss
+
+    def opt(self) -> Optimizer:
+        """The train step's optimizer, Adam(1e-3)."""
+        return adam(1e-3)
+
+    def step_fn(self, shape: str):
+        """``(params, opt_state, batch) -> (params, opt_state, loss)``:
+        :meth:`loss_fn` on the segment path, the clip at 1.0 and one step
+        of :meth:`opt`, as the reference's train step; donated (the params
+        and state are updated in place, ``make_train_step``)."""
+        return make_train_step(self.loss_fn(shape), self.opt(),
+                               clip_norm=1.0)
 
 
 @dataclasses.dataclass

@@ -18,9 +18,12 @@ def params_from_jax(tree, device="cuda"):
     -> the same tree (tuples stay tuples) of float32 tensors on ``device``,
     bfloat16 leaves as bfloat16: GCN's and GraphSAGE's ``{"layers":
     [{"w", "b"}, ...]}`` (a SAGE layer's ``w`` is the concat form's (2 d_in,
-    d_out): self half on top, neighbor half below), GIN's ``convs[i].mlp[j].{w, b}`` with its 0-d ``eps``, ``lin1`` and
-    ``lin2``, an LM's stacked ``dense_layers`` and its KV caches
-    ``{"dense": (k, v)}``."""
+    d_out): self half on top, neighbor half below), GIN's
+    ``convs[i].mlp[j].{w, b}`` with its 0-d ``eps``, ``lin1`` and ``lin2``,
+    GAT's ``layers[i].{w: {w}, a_src, a_dst}``, PNA's ``layers[i].{pre,
+    post}`` and ``head``, NequIP's ``embed``, ``layers[i].{radial: [mlp],
+    self0, self1, self2, gate}`` and ``readout``, an LM's stacked
+    ``dense_layers`` and its KV caches ``{"dense": (k, v)}``."""
     dev = resolve_device(device)
 
     def walk(t):

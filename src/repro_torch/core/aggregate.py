@@ -39,18 +39,40 @@ _OPS = ("sum", "mean", "max", "min")
 _EXTREME = {"max": ("amax", float("-inf")), "min": ("amin", float("inf"))}
 
 
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` over the leading axis (``index_add_``)."""
+    return data.new_zeros((num_segments, *data.shape[1:])).index_add_(
+        0, segment_ids, data)
+
+
+def _segment_extreme(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int, op: str) -> torch.Tensor:
+    """``jax.ops.segment_max`` (``op="max"``) / ``segment_min`` over the
+    leading axis: an empty segment is -inf / +inf, and a segment's
+    gradient is split evenly among the inputs that tie for it, as JAX
+    splits it (``scatter_reduce`` with ``include_self=False``)."""
+    reduce, fill = _EXTREME[op]
+    idx = segment_ids.reshape(-1, *([1] * (data.dim() - 1))).expand_as(data)
+    return data.new_full((num_segments, *data.shape[1:]), fill
+                         ).scatter_reduce(0, idx, data, reduce,
+                                          include_self=False)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_max`` (see :func:`_segment_extreme`)."""
+    return _segment_extreme(data, segment_ids, num_segments, "max")
+
+
 def _segment_reduce(msgs: torch.Tensor, seg: torch.Tensor, num_segments: int,
                     op: str) -> torch.Tensor:
     """``jax.ops.segment_{sum,max,min}``: rows of ``msgs`` reduced into
     ``num_segments`` rows by ``seg`` (int64); an empty segment is 0 for sum
     and mean, -inf for max, +inf for min."""
-    shape = (num_segments, msgs.shape[1])
     if op in ("sum", "mean"):
-        return msgs.new_zeros(shape).index_add_(0, seg, msgs)
-    reduce, fill = _EXTREME[op]
-    return msgs.new_full(shape, fill).scatter_reduce(
-        0, seg[:, None].expand(-1, msgs.shape[1]), msgs, reduce,
-        include_self=True)
+        return segment_sum(msgs, seg, num_segments)
+    return _segment_extreme(msgs, seg, num_segments, op)
 
 
 def _finite_or_zero(out: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Execution plans (aggregation and whole layers, with their backwards)
 over the block-ELL kernels, their plain versions, or a dst-sorted edge
 list; degree-bucketed multi-grid plans; the measuring autotuner and the
-whole-forward DP that pick every layer's configuration."""
+whole-forward DP that pick every layer's configuration; the fallback chain
+(``ResilientPlan``) that demotes a failing backend and quarantines it."""
 from .plan import (BACKENDS, MODES, ORDERS, GraphExecutionPlan,
                    LayerExecutionPlan, build_layer_plan, build_plan,
                    choose_order, layer_order_costs, spmm_cost)
@@ -22,3 +23,5 @@ from .forward import (LayerSpec, ForwardExecutionPlan, ForwardAutotuneRecord,
                       autotune_forward, gcn_chain, sage_chain, gin_chain,
                       chain_params, model_layer_cost, residual_edge_cost,
                       plan_switch_cost)
+from .fallback import (FALLBACK_CHAIN, BackendFailure, FallbackVerdict,
+                       ResilientPlan, parity_probe)

@@ -40,8 +40,16 @@ plain product per bucket on ``torch``; the outputs are stitched back
 through the inverse permutation.  Each direction buckets by its own
 in-degrees, so the transpose plan re-buckets.
 
-Not ported yet: weighted sum plans, the ``width``/``storage`` overrides and
-the chaos hooks of the reference.
+``weighted=True`` ``sum`` plans aggregate over the edge weights (float32
+tiles on ``cuda``, the weights folded into the coo edge list); otherwise
+the weights are dropped, as in the reference.  The reference's ``width``
+and ``storage`` overrides are left out: no caller of the port sets them.
+
+The kernel path carries the reference's two chaos sites (``chaos/inject``):
+``exec.pallas_launch`` (``fail_point``) before each ``cuda`` launch, one per
+sub-grid of a bucketed plan, and ``exec.kernel_result`` (``mangle``) on each
+``cuda`` result; ``exec/fallback.ResilientPlan`` demotes a call that trips
+either.  Disarmed, each is one global load and a ``None`` check.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..chaos import inject as chaos
 from ..core.blocksparse import (BlockEll, build_blockell, build_blockell_coo,
                                 transpose_graph, traffic_model)
 from ..device import resolve_device
@@ -119,13 +128,17 @@ def _run_side(meta, a: Dict[str, torch.Tensor], x: torch.Tensor
         return y
     if meta.backend not in ("cuda", "torch"):
         raise ValueError(meta.backend)
+    kernel = meta.backend == "cuda"
+    if kernel:
+        chaos.fail_point("exec.pallas_launch")   # no-op unless a drill armed it
     if meta.compact:
-        return _compact_blocks(meta, a, x)
-    spmm = (spmm_blockell_fused if meta.backend == "cuda"
-            else spmm_blockell_fused_ref)
-    # the padded kernel writes every row: no fallback patch
-    return spmm(a["block_cols"], a["blocks"], x.contiguous(), a["s_in"],
-                a["s_out"], bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag)
+        y = _compact_blocks(meta, a, x)
+    else:
+        spmm = spmm_blockell_fused if kernel else spmm_blockell_fused_ref
+        # the padded kernel writes every row: no fallback patch
+        y = spmm(a["block_cols"], a["blocks"], x.contiguous(), a["s_in"],
+                 a["s_out"], bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag)
+    return chaos.mangle("exec.kernel_result", y) if kernel else y
 
 
 def _diag_fallback(add_diag: bool, a: Dict[str, torch.Tensor],
@@ -173,6 +186,10 @@ def _run_bucketed(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
     for bmeta, ab in zip(meta.buckets, a["buckets"]):
         if not bmeta.n_rows:
             continue
+        # one fail point per sub-grid: a launch failure in ANY bucket aborts
+        # the whole call, so the fallback chain demotes it whole instead of
+        # stitching a half-bucketed output
+        chaos.fail_point("exec.pallas_launch")
         if not bmeta.n_active:
             # every row of this bucket takes the global diagonal fallback
             outs.append(x.new_zeros((bmeta.n_rows, x.shape[1])))
@@ -185,8 +202,9 @@ def _run_bucketed(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
             ab["s_out_sel"], xd, sd, bm=bmeta.bm, bk=bmeta.bk,
             add_diag=meta.add_diag))
     y = torch.cat(outs, dim=0)[a["inv_perm"]]
-    return torch.where(a["node_active"][:, None], y,
-                       _diag_fallback(meta.add_diag, a, x))
+    return chaos.mangle("exec.kernel_result",
+                        torch.where(a["node_active"][:, None], y,
+                                    _diag_fallback(meta.add_diag, a, x)))
 
 
 def _self_term(x: torch.Tensor, w_self: torch.Tensor,
@@ -224,21 +242,23 @@ def _fused_layer(meta, a: Dict[str, torch.Tensor], x: torch.Tensor,
     x, w = x.contiguous(), w.contiguous()
     if isinstance(meta, BucketedSideMeta):
         return _bucketed_layer(meta, a, x, w, b, relu, w_self, self_coeff)
+    chaos.fail_point("exec.pallas_launch")   # no-op unless a drill armed it
     if not meta.compact:
         # the padded kernel writes every row: no fallback patch
-        return spmm_blockell_update(
+        return chaos.mangle("exec.kernel_result", spmm_blockell_update(
             a["block_cols"], a["blocks"], x, a["s_in"], a["s_out"], w, b,
             w_self, self_coeff, bm=meta.bm, bk=meta.bk,
-            add_diag=meta.add_diag, relu=relu)
+            add_diag=meta.add_diag, relu=relu))
     fb = _layer_fallback(meta.add_diag, a, x, w, b, relu, w_self,
                          self_coeff)
     if not meta.n_active:
-        return fb
+        return chaos.mangle("exec.kernel_result", fb)
     y = spmm_blockell_update_compact(
         a["row_offsets"], a["cols"], a["blocks"], x, a["s_in"], a["s_out"],
         w, b, w_self, self_coeff, bm=meta.bm, bk=meta.bk,
         add_diag=meta.add_diag, relu=relu)
-    return torch.where(a["node_active"][:, None], y, fb)
+    return chaos.mangle("exec.kernel_result",
+                        torch.where(a["node_active"][:, None], y, fb))
 
 
 def _bucketed_layer(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
@@ -258,6 +278,9 @@ def _bucketed_layer(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
         if not bmeta.n_active:
             outs.append(x.new_zeros((bmeta.n_rows, d_out)))
             continue
+        # per-sub-grid fail point: any bucket's launch failure aborts the
+        # whole fused-layer call (consistent demotion, no half-stitched y)
+        chaos.fail_point("exec.pallas_launch")
         xg = (x[ab["idx"]] if meta.add_diag or w_self is not None
               else None)
         outs.append(spmm_blockell_update_compact(
@@ -270,7 +293,8 @@ def _bucketed_layer(meta: BucketedSideMeta, a: Dict[str, torch.Tensor],
     y = torch.cat(outs, dim=0)[a["inv_perm"]]
     fb = _layer_fallback(meta.add_diag, a, x, w, b, relu, w_self,
                          self_coeff)
-    return torch.where(a["node_active"][:, None], y, fb)
+    return chaos.mangle("exec.kernel_result",
+                        torch.where(a["node_active"][:, None], y, fb))
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +353,12 @@ class GraphExecutionPlan:
             self._ell_t = build_blockell(self._g_adj_t, bm=self.bm,
                                          bk=self.bk, storage="auto")
         return self._ell_t
+
+    @property
+    def device(self) -> torch.device:
+        """Where the plan's arrays (and the inputs it takes) live."""
+        return next(t.device for t in self._fwd.values()
+                    if isinstance(t, torch.Tensor))
 
     def raw_apply(self, x: torch.Tensor) -> torch.Tensor:
         """One forward aggregation with no autograd attached — the building
@@ -507,13 +537,15 @@ def _bucketed_side_arrays(g: Graph, scheme, s_in: np.ndarray,
 
 
 def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
-                add_diag: bool, device: torch.device
+                add_diag: bool, weighted: bool, device: torch.device
                 ) -> Dict[str, torch.Tensor]:
     valid = (g.edge_mask if g.edge_mask is not None
              else np.ones(g.num_edges, bool))
     src = g.src[valid].astype(np.int64)
     dst = g.dst[valid].astype(np.int64)
     w = s_out[dst] * s_in[src]
+    if weighted and g.edge_weight is not None:
+        w = w * g.edge_weight[valid]
     order = np.argsort(dst, kind="stable")   # dst-major: scatter locality
     t = _to(device)
     out = {"src": t(src[order]), "dst": t(dst[order]),
@@ -526,7 +558,8 @@ def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
 def build_plan(g: Graph, mode: str = "gcn", *,
                bm: Optional[int] = None, bk: Optional[int] = None,
                backend: Optional[str] = None, compact: bool = True,
-               buckets: str = "", device="cuda") -> GraphExecutionPlan:
+               weighted: bool = False, buckets: str = "",
+               device="cuda") -> GraphExecutionPlan:
     """Compile ``g`` into a :class:`GraphExecutionPlan` on ``device``.
 
     ``backend=None`` picks ``"cuda"`` on a CUDA device and ``"coo"`` on the
@@ -537,9 +570,10 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     ``bucketing.py``): one sub-grid per bucket at that bucket's square tile,
     on ``cuda`` (compact kernels) or ``torch`` (padded plain products);
     bucketed plans imply compaction and a block backend.  Tiles are the
-    exact 0/1 bitmask whenever it is exact (``storage="auto"``); edge
-    weights are ignored (the reference's ``weighted=True`` sum plans and
-    its ``width``/``storage`` overrides are not ported yet)."""
+    exact 0/1 bitmask whenever it is exact (``storage="auto"``).  Edge
+    weights are dropped unless ``weighted=True``, which composes with
+    ``mode="sum"`` only: the plan then computes ``A_w x`` over the weighted
+    adjacency, on float32 tiles for ``cuda``."""
     dev = resolve_device(device)
     scheme = parse_bucket_sig(buckets)
     if scheme:
@@ -559,8 +593,10 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     if scheme and not compact:
         raise ValueError("bucketed plans imply slot compaction "
                          "(compact=True)")
+    if weighted and mode != "sum":
+        raise ValueError("weighted adjacency only composes with mode='sum'")
     s_in, s_out, add_diag = _mode_scales(mode, g)
-    g_adj = dataclasses.replace(g, edge_weight=None)
+    g_adj = g if weighted else dataclasses.replace(g, edge_weight=None)
     g_adj_t = transpose_graph(g_adj)
     R = int(np.ceil(g.num_nodes / bm))
     C = int(np.ceil(g.num_nodes / bk))
@@ -597,8 +633,8 @@ def build_plan(g: Graph, mode: str = "gcn", *,
                    plan_bytes=plan_bytes)
         elif backend == "coo":
             # the coo path never touches tiles: block-ELL on first access
-            fwd = _coo_arrays(g_adj, s_in, s_out, add_diag, dev)
-            bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, dev)
+            fwd = _coo_arrays(g_adj, s_in, s_out, add_diag, weighted, dev)
+            bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, weighted, dev)
             meta_f, meta_b = meta_for(0), meta_for(0)
         else:
             ell = build_blockell(g_adj, bm=bm, bk=bk, storage="auto")
@@ -614,8 +650,7 @@ def build_plan(g: Graph, mode: str = "gcn", *,
         mode=mode, backend=backend, compact=compact, bm=bm, bk=bk,
         num_nodes=g.num_nodes, add_diag=add_diag, meta_fwd=meta_f,
         meta_bwd=meta_b, _fwd=fwd, _bwd=bwd, _ell=ell, _ell_t=ell_t,
-        _g_adj=g_adj, _g_adj_t=g_adj_t, buckets=buckets,
-        _plan_bytes=plan_bytes, _occupancy=occupancy)
+        _g_adj=g_adj, _g_adj_t=g_adj_t, buckets=buckets, _plan_bytes=plan_bytes, _occupancy=occupancy)
 
 
 # ===========================================================================

@@ -1,6 +1,6 @@
 """Synthetic graphs shaped like the paper's datasets (numpy copy of
-``repro/graph/datasets.py``): Cora, and the Table I stand-ins CITESEER-S
-and REDDIT at any scale.
+``repro/graph/datasets.py``): Cora, the Table I stand-ins CITESEER-S
+and REDDIT, ogbn-products at any scale, and NequIP's molecule batches.
 
 The generator draws from one numpy ``default_rng(seed)`` stream, so its
 output is byte-equal to the reference's for the same spec (the tests assert
@@ -143,3 +143,32 @@ def reddit_like(scale: float = 1.0, seed: int = 0) -> Graph:
 
 def citeseer_s_like(scale: float = 1.0, seed: int = 0) -> Graph:
     return synthesize(spec_for_paper("CITESEER-S", scale=scale, seed=seed))
+
+
+def products_like(scale: float = 1.0, seed: int = 0) -> Graph:
+    """ogbn-products-shaped: 2,449,029 nodes / 61,859,140 edges / 100 feats,
+    47 classes (scaled by ``scale``)."""
+    return synthesize(DatasetSpec(
+        "ogb_products", max(int(2_449_029 * scale), 64),
+        max(int(61_859_140 * scale), 128), 100, 47, seed=seed))
+
+
+def molecules_like(batch: int = 128, n_nodes: int = 30, n_edges: int = 64,
+                   seed: int = 0) -> list:
+    """A batch of small molecule-like graphs with 3D coordinates (NequIP):
+    ``[(Graph, pos (n_nodes, 3) float32, atomic numbers (n_nodes,) int32),
+    ...]``, each graph's edges its ``n_edges`` nearest ordered pairs."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(batch):
+        pos = rng.standard_normal((n_nodes, 3)).astype(np.float32) * 2.0
+        # connect near pairs until n_edges reached (cutoff-style)
+        d2 = ((pos[:, None] - pos[None]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        flat = np.argsort(d2, axis=None)[: n_edges]
+        dst, src = np.unravel_index(flat, d2.shape)
+        z = rng.integers(1, 10, size=n_nodes).astype(np.int32)
+        graphs.append((Graph(src=src.astype(np.int32),
+                             dst=dst.astype(np.int32), num_nodes=n_nodes),
+                       pos, z))
+    return graphs

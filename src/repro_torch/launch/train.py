@@ -4,6 +4,8 @@ LMs on the port (``repro/launch/train.py`` but ``--dist``).
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
       [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
+      --steps 50 [--device cpu]          (also pna, nequip)
   PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \\
       --steps 50 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
@@ -22,6 +24,9 @@ verdict is cached on disk (``$REPRO_TORCH_EXEC_CACHE`` or
 the DP over the cache or, cold, the FLOP/byte model, without measuring
 (``exec.plan_forward``).  ``blockell`` (one aggregation plan plus a separate
 matmul) and ``segment`` (the edge list) work as in the reference.
+``gat-cora``, ``pna`` and ``nequip`` train on the same graph through their
+segment ops (no kernel, as in the reference); an explicit kernel executor
+(``forward``, ``fused``, ``blockell``) raises for them.
 
 ``--arch wide-deep`` trains the ``REDUCED`` config as the reference does:
 batches of 256 from ``recsys_batches``, ``adam(1e-3)``, both sparse lookups
@@ -94,25 +99,42 @@ def schedule_plans(g, specs, executor: str, device="cuda"):
 
 def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "auto",
                device="cuda") -> TrainResult:
+    """The reference's ``gnn_driver``: seed-0 weights, ``adam(1e-2)``, clip
+    1.0, the full-graph batch of the reordered Cora.  GCN runs
+    ``executor``'s plans; GAT, PNA and NequIP run their segment ops under
+    ``auto`` and ``segment``, and their ``GNNBundle.loss_fn`` raises for a
+    kernel executor (the reference prints a warning and runs the segment
+    path).  NequIP takes
+    ``species = labels % 10``, ``pos = node_feat[:, :3]`` and an energy
+    target of 0."""
     dev = resolve_device(device)
     bundle = get(arch).bundle()
+    if executor not in ("auto", "forward", "fused", "blockell", "segment"):
+        raise ValueError(f"unknown executor {executor!r}")
     g = training_graph()
     exec_plan = None
     loss_executor = executor
-    if executor in ("auto", "forward", "fused"):
+    if bundle.arch != "gcn":
+        loss_executor = "segment" if executor == "auto" else executor
+    elif executor in ("auto", "forward", "fused"):
         specs = gcn_chain([g.node_feat.shape[1], *bundle.model_kw["hidden"],
                            bundle.n_classes])
         exec_plan = schedule_plans(g, specs, executor, dev)
         loss_executor = "fused"
     elif executor == "blockell":
         exec_plan = build_plan(g, "gcn", bm=128, backend="cuda", device=dev)
-    elif executor != "segment":
-        raise ValueError(f"unknown executor {executor!r}")
     loss_fn = bundle.loss_fn("full_graph_sm", executor=loss_executor,
                              exec_plan=exec_plan)
     params = bundle.init_params(torch.Generator().manual_seed(0),
                                 g.node_feat.shape[1], device=dev)
     batch = gnn_batch(g, bundle.n_classes, dev)
+    if bundle.arch == "nequip":
+        batch["species"] = torch.as_tensor(g.labels % 10).to(dev)
+        batch["pos"] = torch.as_tensor(
+            np.ascontiguousarray(g.node_feat[:, :3])).to(dev)
+        batch["energy_target"] = torch.zeros((), device=dev)
+        for k in ("x", "deg"):
+            batch.pop(k)
     return fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
                steps=steps, ckpt_dir=ckpt, clip_norm=1.0)
 

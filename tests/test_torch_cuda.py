@@ -14,7 +14,11 @@ executor, which launches no kernel.  LM training on the card (no kernel of
 the port): the donated (in-place) ``train_4k`` step against the functional
 one, ``lm_loss``'s remat and chunks against the plain cross-entropy, a
 checkpoint of card tensors restored on the CPU bit-equal, and the
-``Prefetcher``'s side-stream copies.
+``Prefetcher``'s side-stream copies.  The fallback chain and the GNN zoo:
+weighted ``sum`` plans (float32 tiles) on ``cuda`` against ``torch``,
+values and gradients; ``ResilientPlan``'s two drills on the card; the
+float64 loss and gradients of GAT, PNA and NequIP on the card against the
+CPU.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -1434,3 +1438,139 @@ def test_prefetcher_copies_on_a_side_stream():
         assert g["tokens"].is_cuda and g["step"] == w["step"]
         total = g["tokens"].sum() + g["targets"].sum()   # consumer's stream
         assert int(total) == int(w["tokens"].sum() + w["targets"].sum())
+
+
+# ---------------------------------------------------------------------------
+# the fallback chain, weighted sum plans and the GNN zoo on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("form", [dict(compact=True), dict(compact=False),
+                                  dict(buckets="32@8+128")],
+                         ids=["compact", "padded", "bucketed"])
+def test_weighted_sum_plan_gradient_on_the_card(form):
+    """A weighted ``sum`` plan (float32 tiles) on ``cuda`` against the same
+    plan on ``torch``: values and the gradient through the transpose plan
+    (1e-5 of the largest entry)."""
+    _need_cuda()
+    import dataclasses
+    g = _random_graph(seed=7)
+    g = dataclasses.replace(g, edge_weight=np.random.default_rng(7).random(
+        g.num_edges).astype(np.float32))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((g.num_nodes, 40), generator=gen, device="cuda")
+    cot = torch.randn((g.num_nodes, 40), generator=gen, device="cuda")
+    out = {}
+    for backend in ("cuda", "torch"):
+        plan = build_plan(g, "sum", backend=backend, weighted=True,
+                          device="cuda", **form)
+        if backend == "cuda" and not form.get("buckets"):
+            assert plan._fwd["blocks"].dtype == torch.float32
+        xg = x.clone().requires_grad_()
+        y = plan.apply(xg)
+        y.backward(cot)
+        out[backend] = (y.detach(), xg.grad)
+    for a, b in zip(out["cuda"], out["torch"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=TOL * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("site,kind,reason", [
+    ("exec.pallas_launch", "kernel_launch", "kernel_launch"),
+    ("exec.kernel_result", "nan_backend", "nonfinite_output")])
+def test_resilient_plan_drill_on_the_card(tmp_path, site, kind, reason):
+    """On a CUDA device the chain starts at ``cuda``; a fault at either site
+    demotes the call to ``torch`` (same answer), quarantines ``cuda`` under
+    the card's signature, and a fresh plan starts below it."""
+    _need_cuda()
+    from repro_torch.chaos import Fault, FaultPlan, armed
+    from repro_torch.exec import (ResilientPlan, graph_fingerprint,
+                                  quarantined_backends)
+    g = _random_graph(seed=8)
+    x = torch.randn((g.num_nodes, 16), device="cuda")
+    rp = ResilientPlan(g, "gcn", device="cuda", cache_dir=str(tmp_path))
+    assert rp.chain == ["cuda", "torch", "coo"]
+    healthy = rp.apply(x)
+    assert rp.verdict.backend == "cuda" and not rp.verdict.degraded
+    with armed(FaultPlan.of(Fault(site, kind))):
+        y = rp.apply(x)
+    assert rp.verdict.backend == "torch"
+    assert rp.verdict.attempts == (("cuda", reason),)
+    torch.testing.assert_close(y, healthy, rtol=0, atol=1e-5)
+    assert quarantined_backends(graph_fingerprint(g),
+                                cache_dir=str(tmp_path)) == {"cuda"}
+    assert ResilientPlan(g, "gcn", device="cuda",
+                         cache_dir=str(tmp_path)).backend == "torch"
+
+
+@pytest.mark.parametrize("form", [dict(), dict(compact=False),
+                                  dict(buckets="32@8+128")],
+                         ids=["compact", "padded", "bucketed"])
+def test_real_kernel_failure_propagates_on_the_card(tmp_path, form):
+    """A failure of the kernels that no drill injected (here the wrapper
+    rejecting a float64 x) propagates from ``ResilientPlan`` on the card:
+    no ``torch`` answer, no quarantine written, the chain unchanged."""
+    _need_cuda()
+    from repro_torch.exec import (ResilientPlan, graph_fingerprint,
+                                  quarantined_backends)
+    g = _random_graph(seed=9)
+    rp = ResilientPlan(g, "gcn", device="cuda", cache_dir=str(tmp_path),
+                       **form)
+    with pytest.raises(TypeError, match="float32"):
+        rp.apply(torch.randn((g.num_nodes, 16), device="cuda",
+                             dtype=torch.float64))
+    assert rp.verdict is None and rp.chain == ["cuda", "torch", "coo"]
+    assert quarantined_backends(graph_fingerprint(g),
+                                cache_dir=str(tmp_path)) == set()
+    assert not (tmp_path / "autotune.json").exists()
+    rp.apply(torch.randn((g.num_nodes, 16), device="cuda"))
+    assert rp.verdict.backend == "cuda" and not rp.verdict.degraded
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "pna", "nequip"])
+def test_gnn_zoo_step_on_the_card_matches_the_cpu(arch):
+    """The loss and every gradient of each new arch at full width on a
+    small products-shaped graph (NequIP: 8 molecules), in float64 on the
+    card and on the CPU.  GAT's and PNA's cross-entropy is fp32 on both,
+    as the reference takes it, so their loss is held to 1e-6 and each
+    gradient to 1e-6 of its leaf's largest entry; NequIP's loss is float64
+    throughout: 1e-9.  (Not the params after an Adam step: its first
+    update is g / (|g| + 1e-8), which turns the rounding of a near-zero
+    gradient entry into ~1e-7.)"""
+    _need_cuda()
+    from repro_torch.configs import get
+    from repro_torch.graph import molecules_like, pack, products_like
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.train import tree_leaves, tree_map
+    bundle = get(arch).bundle()
+    if arch == "nequip":
+        mols = molecules_like(8)
+        gb, _ = pack([m[0] for m in mols])
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+        batch = {"src": t(gb.src).long(), "dst": t(gb.dst).long(),
+                 "edge_mask": t(gb.edge_mask), "train_mask": t(gb.node_mask),
+                 "labels": torch.zeros(gb.num_nodes, dtype=torch.long),
+                 "species": t(np.concatenate([m[2] for m in mols])).long(),
+                 "pos": t(np.concatenate([m[1] for m in mols])),
+                 "energy_target": torch.zeros(())}
+        shape = "molecule"
+    else:
+        batch = gnn_batch(products_like(0.001), bundle.n_classes, "cpu")
+        shape = "ogb_products"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda v: v.double().requires_grad_(),
+                          bundle.init_params(torch.Generator().manual_seed(0),
+                                             100, device=dev))
+        b = {k: (v.double() if v.is_floating_point() else v).to(dev)
+             for k, v in batch.items()}
+        loss = bundle.loss_fn(shape)(params, b)
+        loss.backward()
+        out[dev] = (loss.detach(), [p.grad for p in tree_leaves(params)])
+    tol = 1e-9 if arch == "nequip" else 1e-6
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=tol, atol=0)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        if b is None:                 # a leaf the loss does not reach
+            assert a is None
+            continue
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=tol * float(b.abs().max()))

@@ -48,6 +48,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.configs.minitron_8b",
                 "repro_torch.configs.mistral_large_123b",
                 "repro_torch.configs.registry",
+                "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
+                "repro_torch.configs.nequip", "repro_torch.exec.fallback",
+                "repro_torch.models.gat", "repro_torch.models.pna",
+                "repro_torch.models.nequip",
                 "repro_torch.core.blocksparse", "repro_torch.core.reorder",
                 "repro_torch.core.cache_model",
                 "repro_torch.core.shared_set", "repro_torch.core.aggregate",

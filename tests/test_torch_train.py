@@ -227,13 +227,17 @@ def test_launcher_refuses_what_is_not_ported(argv, what, capsys, tmp_path):
 
 
 def test_registry_ports_gcn_cora_only():
-    assert get("gcn-cora").family == "gnn"
+    """The four GNN archs are ported (``tests/test_torch_gnn_zoo.py``); an
+    MoE arch of the reference raises, an unknown arch is a ``KeyError`` and
+    a bundle of an unknown GNN arch refuses to build parameters."""
+    for arch in ("gcn-cora", "gat-cora", "pna", "nequip"):
+        assert get(arch).family == "gnn"
     with pytest.raises(NotImplementedError, match="not ported"):
-        get("gat-cora")
+        get("granite-moe-3b-a800m")
     with pytest.raises(KeyError):
         get("no-such-arch")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GNNBundle("gat", {}).init_params(torch.Generator(), 4, device="cpu")
+    with pytest.raises(ValueError, match="unknown GNN arch"):
+        GNNBundle("gin", {}).init_params(torch.Generator(), 4, device="cpu")
 
 
 def test_fit_refuses_checkpoints(tmp_path):
