@@ -104,7 +104,8 @@
    shapes, granite-8b's ``decode_32k`` layer (B = 8), one ``long_500k``
    layer and ragged lengths with G = 1, 4, 12; ``launch.serve --arch
    granite-8b --tokens 16`` (``REDUCED``; exactly 32 launches, logits within
-   1e-4 of ``attn="plain"``); then ``CONFIG`` (36 layers, 16.5 GB of bf16
+   1e-4 of ``attn="plain"``, tokens equal to its and to the CPU run's);
+   then ``CONFIG`` (36 layers, 16.5 GB of bf16
    params drawn on the card): a B = 8 x 512 prefill, a 32,768-long cache,
    one step on the kernel and the plain path (logits within 3e-2 of the
    largest), 32 greedy steps (36 launches each; ms per step, tokens/s,
@@ -123,7 +124,23 @@
    and 4 timed steps (ms a step, tokens/s, busy share, device time by
    kind, one step timed in pieces), peak memory beside the 48.3 GB of
    state, the bf16 FLOP share.
-10. GAT, PNA and NequIP (no kernel: the reference runs them on
+10. The MoE LMs, once the LM training state is freed:
+   ``decode_attention`` at granite-moe-3b-a800m's (G = 3, d = 64, B = 24)
+   and llama4-maverick-400b-a17b's (G = 5, d = 128, B = 64) decode_32k
+   layers against its plain version and SDPA; ``launch.serve`` and
+   ``launch.train`` for both at ``REDUCED`` (exactly 32 launches a serve
+   run, the kernel path's tokens equal to ``attn="plain"``'s and the CPU
+   run's, 10 training losses within 1e-4 of ``--device cpu``); each
+   ``CONFIG`` served at full width (llama4 cut to one superblock, 2 of 48
+   layers): a B x 512 prefill, one decode step rerun bit-identical, the
+   teacher-forced hold of every layer's attention (3e-2), the free-running
+   plain step's route agreement, flips and drop share, then 32 greedy
+   steps (32 / 2 launches each; ms a step, tokens/s, busy share,
+   decode_attention's share, peak memory); and granite-moe ``train_4k``
+   at full depth, B = 2 (ms a step, busy share, peak beside 53.99 GB of
+   state, the bf16 FLOP share of the active FLOPs; two 3-step runs from
+   one seed bit-identical; no kernel).
+11. GAT, PNA and NequIP (no kernel: the reference runs them on
    ``jax.ops.segment_*``), last: ``launch.train --arch gat-cora|pna|nequip
    --steps 10`` at full width on the card and with ``--device cpu`` (losses
    within 1e-4; PNA, chaotic: step 0 within 1e-5 and 10 steps in float64
@@ -135,7 +152,7 @@
    of a leaf's largest entry for GAT and PNA, 1e-4 for NequIP), NequIP's
    rotation check, then ms a step, busy share, device time by kind and
    peak memory.
-11. Writes the full report (every case, trial table and path) to
+12. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -2538,7 +2555,7 @@ def recsys_phases(torch, dev):
 # LM serving (decode_attention)
 # ---------------------------------------------------------------------------
 def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
-                weight=0, library=True, big=False):
+                weight=0, library=True, big=False, plain_rows=None):
     """One ``decode_attention`` case: the kernel (raw launch, no Python
     checks) against ``decode_attention_ref`` on the same inputs (fp32 1e-4,
     bf16 3e-2, each times its (b, h) row's largest |entry|: an output's
@@ -2550,7 +2567,10 @@ def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
     plain version; all three timed.  The bound counts the K and V rows
     below each row's length, read once, q read and the output written once;
     4 operations per head, position and column, at the inputs' peak rate.
-    ``weight``: this case's launches in one full-width decode step."""
+    ``weight``: this case's launches in one full-width decode step.
+    ``plain_rows``: run (and time) the plain version over pieces of that
+    many batch rows (its fp32 expansion of the whole cache would not fit
+    beside the inputs at llama4's B = 64)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels.ref import decode_attention_ref
@@ -2560,7 +2580,13 @@ def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
     q, k, v = r(B, H, d), r(B, S, KV, d), r(B, S, KV, d)
     cl = torch.tensor(lengths, dtype=torch.int32, device=dev)
     y = kd.decode_attention(q, k, v, cl)
-    ref = decode_attention_ref(q, k, v, cl)
+    rows = plain_rows or B
+
+    def plain():
+        return torch.cat([decode_attention_ref(q[i:i + rows], k[i:i + rows],
+                                               v[i:i + rows], cl[i:i + rows])
+                          for i in range(0, B, rows)])
+    ref = plain()
     torch.cuda.synchronize()
     if not torch.isfinite(y).all():
         raise AssertionError(f"decode_attention output not finite ({name})")
@@ -2601,8 +2627,7 @@ def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
 
     reps = dict(n_inner=5, reps=10) if big else {}
     ms = gpu_ms(launch, **reps)
-    plain_ms = gpu_ms(lambda: decode_attention_ref(q, k, v, cl), n_inner=2,
-                      reps=5, warmup=1)
+    plain_ms = gpu_ms(plain, n_inner=2, reps=5, warmup=1)
     library_ms = gpu_ms(lib_fn, **reps) if library else None
     n_valid = sum(min(max(n, 0), S) for n in lengths)
     nbytes = (2 * n_valid * KV * d * esize + 2 * B * H * d * esize + 4 * B)
@@ -2612,7 +2637,8 @@ def decode_case(torch, dev, name, B, S, KV, G, d, dtype, lengths, gen,
             "lengths": lengths if len(lengths) <= 8 else
             f"{len(lengths)} rows of {lengths[0]}",
             "plan": {k: plan[k] for k in ("tile", "n_split", "chunk")},
-            "vec_bytes": vb, "max_abs_err": err, "max_err_over_row_max": rel,
+            "vec_bytes": vb, "plain_rows": rows,
+            "max_abs_err": err, "max_err_over_row_max": rel,
             "tolerance": tol, "tolerance_of": "each (b, h) row's max |ref|",
             "library_vs_plain_err": lib_err,
             "library_vs_plain_over_row_max": lib_rel, "ms": ms,
@@ -2664,35 +2690,134 @@ def decode_kernel_phase(torch, dev):
     return cases
 
 
-def lm_launcher_phase(torch):
-    """``launch.serve --arch granite-8b --tokens 16 --batch 2
-    --prompt-len 16`` (``REDUCED``, fp32): exactly 2 x 16 ``decode_attention``
+def lm_launcher_phase(torch, arch="granite-8b"):
+    """``launch.serve --arch ARCH --tokens 16 --batch 2 --prompt-len 16``
+    (``REDUCED``, fp32): exactly n_layers x 16 ``decode_attention``
     launches and no other kernel's; its 16 steps' logits within 1e-4 of the
-    same run on ``attn="plain"``, and the same greedy tokens."""
+    same run on ``attn="plain"``, and the same greedy tokens as that run
+    and as the run with ``--device cpu``."""
+    import importlib
     from repro_torch.launch import serve
 
-    argv = ["--arch", "granite-8b", "--tokens", "16", "--batch", "2",
+    cfg = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_")).REDUCED
+    argv = ["--arch", arch, "--tokens", "16", "--batch", "2",
             "--prompt-len", "16", "--device", "cuda"]
     reset_launches()
     res = serve.main(argv)
     launches = read_launches(torch)
     plain = serve.serve_lm(serve.parse_args(argv), attn="plain")
     err = assert_close_scaled(res.logits, plain.logits, ORACLE_TOL,
-                              "LM launcher kernel vs plain logits")
+                              f"{arch} launcher kernel vs plain logits")
     report = {"launches": launches, "logits_err": err,
               "max_abs_logit": float(plain.logits.abs().max()),
               "tokens_equal": bool(torch.equal(res.tokens, plain.tokens)),
               "decode_s": res.seconds, "plain_decode_s": plain.seconds,
               "tokens": res.tokens[0].tolist()}
-    print("granite-8b serving (launcher): " + json.dumps(report))
-    if not report["tokens_equal"]:
-        raise AssertionError("LM launcher: kernel and plain attention "
-                             "generated other tokens")
-    want = {k: (32 if k == "decode_attention" else 0) for k in KERNELS}
+    on_cpu = serve.main(argv[:-1] + ["cpu"])
+    report["cpu_tokens_equal"] = bool(torch.equal(res.tokens, on_cpu.tokens))
+    print(f"{arch} serving (launcher): " + json.dumps(report))
+    if not (report["tokens_equal"] and report["cpu_tokens_equal"]):
+        raise AssertionError(f"{arch} launcher: the kernel path generated "
+                             "other tokens than the plain or CPU run")
+    want = {k: (cfg.n_layers * 16 if k == "decode_attention" else 0)
+            for k in KERNELS}
     if launches != want:
-        raise AssertionError(f"LM launcher launched {launches}; expected "
-                             f"{want}")
+        raise AssertionError(f"{arch} launcher launched {launches}; "
+                             f"expected {want}")
     return launches, report
+
+
+def repeat_prefill(caches, pre) -> None:
+    """Fill every stack of the padded caches by repeating the prefill's own
+    K/V along the sequence axis (-3), whatever the stack's rank: the
+    ``dense`` (n_layers, B, S, KV, hd) stack of a dense model, a MoE
+    config's ``moe`` stack and its (n_moe, per, B, S, KV, hd) ``dense``
+    one."""
+    for name, pair in pre.items():
+        for buf, c in zip(caches[name], pair):
+            *lead, S, KV, hd = buf.shape
+            P = c.shape[-3]
+            buf.view(*lead, S // P, P, KV, hd).copy_(c.unsqueeze(-4))
+
+
+def timed_decode(torch, params, tok, caches, cfg, S, what):
+    """``LM_STEPS`` greedy ``lm_decode_step``s on the kernel path at the
+    cache's end (cache_len S - 1 - LM_STEPS to S - 2), with no host
+    synchronisation between steps: ms per step and tokens/s over one
+    CUDA-event window around all timed steps after ``LM_WARMUP`` of
+    warm-up (each step's own events give the median and spread, an extra
+    statistic), and over the last ``LM_PROFILED`` steps, under the
+    profiler, the busy share and decode_attention's share (device time
+    over the same steps' window); peak memory.  Returns (report, the
+    steps' launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+
+    B = tok.shape[0]
+    start = S - 1 - LM_STEPS
+    timed = LM_STEPS - LM_PROFILED
+    tokens = [tok]
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    marks = [event() for _ in range(timed + 1)]
+    reset_launches()
+    for i in range(timed):
+        marks[i].record()
+        lg, caches = tf.lm_decode_step(params, tok, caches, start + i,
+                                       cfg, S)
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        tokens.append(tok)
+    marks[timed].record()
+    marks[timed].synchronize()
+    times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    window_ms = marks[LM_WARMUP].elapsed_time(marks[timed])
+    p0, p1 = event(), event()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p0.record()
+        for i in range(timed, LM_STEPS):
+            lg, caches = tf.lm_decode_step(params, tok, caches,
+                                           start + i, cfg, S)
+            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            tokens.append(tok)
+        p1.record()
+        torch.cuda.synchronize()
+    profiled_ms = p0.elapsed_time(p1) / LM_PROFILED
+    launches = read_launches(torch)
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"{what}: decode logits not finite")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / LM_PROFILED
+    attn_ms = sum(e.self_device_time_total for e in kernels
+                  if "decode_split" in e.key
+                  or "decode_merge_kernel" in e.key) / 1e3 / LM_PROFILED
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    n_window = timed - LM_WARMUP
+    step_ms = window_ms / n_window
+    report = {
+        "step_ms": step_ms, "window_steps": n_window,
+        "window_ms": window_ms, "tokens_per_s": B * n_window / window_ms
+        * 1e3, "step_ms_median": statistics.median(times[LM_WARMUP:]),
+        "step_ms_all": times,
+        "device_ms_per_step": device_ms,
+        "profiled_ms_per_step": profiled_ms,
+        "busy_share": device_ms / profiled_ms if device_ms else None,
+        "decode_attention_ms_per_step": attn_ms,
+        "decode_attention_share": attn_ms / profiled_ms if device_ms
+        else None,
+        "top_kernels_ms_per_step": [
+            [e.key[:60], e.self_device_time_total / 1e3 / LM_PROFILED,
+             e.count // LM_PROFILED] for e in top],
+        "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(tok.device) / 1e9,
+        "tokens": torch.cat(tokens, dim=1)[0].tolist()}
+    if not device_ms:
+        print(f"{what}: the profiler saw no device time; busy share not "
+              "measured")
+    return report, launches
 
 
 def lm_config_phase(torch, dev):
@@ -2711,9 +2836,7 @@ def lm_config_phase(torch, dev):
     step's own events give the median and spread, an extra statistic), and
     over the last 4 steps, under the profiler, the busy share and
     decode_attention's share (device time over the same steps' window);
-    peak memory."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    peak memory (``timed_decode``)."""
     from repro_torch.configs import LM_SHAPES
     from repro_torch.configs.families import LMBundle
     from repro_torch.configs.granite_8b import CONFIG as cfg
@@ -2748,9 +2871,7 @@ def lm_config_phase(torch, dev):
         # decode_32k's batch at B = 8: zero caches, cache_len S - 1
         batch = bundle.make_batch("decode_32k", gen, dev, batch=B)
         caches = batch["caches"]
-        for buf, c in zip(caches["dense"], pre["dense"]):
-            L, _, _, KV, hd = buf.shape
-            buf.view(L, B, S // P, P, KV, hd).copy_(c[:, :, None])
+        repeat_prefill(caches, pre)
         del pre
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         batch["token"] = tok
@@ -2769,69 +2890,11 @@ def lm_config_phase(torch, dev):
             "check_launches": check})
         del lk, lp
         torch.cuda.synchronize()
-        start = S - 1 - LM_STEPS
-        timed = LM_STEPS - LM_PROFILED
-        tokens = [tok]
-        event = lambda: torch.cuda.Event(enable_timing=True)
-        marks = [event() for _ in range(timed + 1)]
-        reset_launches()
-        for i in range(timed):
-            marks[i].record()
-            lg, caches = tf.lm_decode_step(params, tok, caches, start + i,
-                                           cfg, S)
-            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
-            tokens.append(tok)
-        marks[timed].record()
-        marks[timed].synchronize()
-        times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-        window_ms = marks[LM_WARMUP].elapsed_time(marks[timed])
-        p0, p1 = event(), event()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            p0.record()
-            for i in range(timed, LM_STEPS):
-                lg, caches = tf.lm_decode_step(params, tok, caches,
-                                               start + i, cfg, S)
-                tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
-                tokens.append(tok)
-            p1.record()
-            torch.cuda.synchronize()
-        profiled_ms = p0.elapsed_time(p1) / LM_PROFILED
-        launches = read_launches(torch)
-        paths[f"granite-8b CONFIG decode ({LM_STEPS} steps)"] = launches
-        if not torch.isfinite(lg).all():
-            raise AssertionError("CONFIG decode logits not finite")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
-        / LM_PROFILED
-    attn_ms = sum(e.self_device_time_total for e in kernels
-                  if "decode_split" in e.key
-                  or "decode_merge_kernel" in e.key) / 1e3 / LM_PROFILED
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    n_window = timed - LM_WARMUP
-    step_ms = window_ms / n_window
-    report.update({
-        "step_ms": step_ms, "window_steps": n_window,
-        "window_ms": window_ms, "tokens_per_s": B * n_window / window_ms
-        * 1e3, "step_ms_median": statistics.median(times[LM_WARMUP:]),
-        "step_ms_all": times,
-        "device_ms_per_step": device_ms,
-        "profiled_ms_per_step": profiled_ms,
-        "busy_share": device_ms / profiled_ms if device_ms else None,
-        "decode_attention_ms_per_step": attn_ms,
-        "decode_attention_share": attn_ms / profiled_ms if device_ms
-        else None,
-        "top_kernels_ms_per_step": [
-            [e.key[:60], e.self_device_time_total / 1e3 / LM_PROFILED,
-             e.count // LM_PROFILED] for e in top],
-        "launches": launches,
-        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "tokens": torch.cat(tokens, dim=1)[0].tolist()})
+        timing, launches = timed_decode(torch, params, tok, caches, cfg, S,
+                                        "granite-8b decode")
+    paths[f"granite-8b CONFIG decode ({LM_STEPS} steps)"] = launches
+    report.update(timing)
     print("granite-8b decode (CONFIG): " + json.dumps(report))
-    if not device_ms:
-        print("granite-8b decode: the profiler saw no device time; busy "
-              "share not measured")
     for what, got, steps in (("check step", check, 1),
                              (f"{LM_STEPS} steps", launches, LM_STEPS)):
         want = {k: (cfg.n_layers * steps if k == "decode_attention" else 0)
@@ -2879,27 +2942,27 @@ LM_CHECK_STEPS = 3
 LM_STATE_BYTES_PER_PARAM = 16
 
 
-def lm_train_launcher_phase(torch):
-    """``launch.train --arch granite-8b --steps 10`` (``REDUCED``) on the
-    card, then with ``--device cpu`` in the same process: the 10 losses
-    within 1e-4 (relative), falling; no kernel launched."""
+def lm_train_launcher_phase(torch, arch="granite-8b"):
+    """``launch.train --arch ARCH --steps 10`` (``REDUCED``) on the card,
+    then with ``--device cpu`` in the same process: the 10 losses within
+    1e-4 (relative), falling; no kernel launched."""
     reset_launches()
-    card, _, card_s = run_launcher(["--arch", "granite-8b", "--steps", "10"])
+    card, _, card_s = run_launcher(["--arch", arch, "--steps", "10"])
     launches = read_launches(torch)
-    cpu, _, cpu_s = run_launcher(["--arch", "granite-8b", "--steps", "10",
+    cpu, _, cpu_s = run_launcher(["--arch", arch, "--steps", "10",
                                   "--device", "cpu"])
-    check_curve(card.losses, "granite-8b launcher (card)")
+    check_curve(card.losses, f"{arch} launcher (card)")
     rel = [abs(a - b) / max(abs(b), 1e-12)
            for a, b in zip(card.losses, cpu.losses)]
     report = {"card_losses": card.losses, "cpu_losses": cpu.losses,
               "loss_rel_err": max(rel), "card_s": card_s, "cpu_s": cpu_s,
               "launches": launches}
-    print("granite-8b training (launcher, REDUCED): " + json.dumps(report))
+    print(f"{arch} training (launcher, REDUCED): " + json.dumps(report))
     if len(card.losses) != 10 or max(rel) > 1e-4:
-        raise AssertionError(f"LM launcher: card and CPU losses differ by "
-                             f"{max(rel):.3e} > 1e-4")
+        raise AssertionError(f"{arch} launcher: card and CPU losses differ "
+                             f"by {max(rel):.3e} > 1e-4")
     if any(launches.values()):
-        raise AssertionError(f"LM training launched {launches}")
+        raise AssertionError(f"{arch} training launched {launches}")
     return launches, report
 
 
@@ -3000,16 +3063,22 @@ def lm_resilience_phase(torch, dev):
 
 def lm_train_flops(cfg, B: int, S: int) -> dict:
     """bf16 operations of one ``train_4k`` step as the port computes it:
-    6 T N over the matmul parameters (the layers and the head), the
-    layers' remat forward (2 T N_layers), the loss chunks' recomputed head
-    (2 T N_head), and the flash core's QKᵀ and PV over all S x S positions
-    (no causal skip): forward, remat forward and a backward of twice the
-    forward, 16 B S² H hd a layer."""
+    6 T N over the matmul parameters a token runs through (the layers and
+    the head; a MoE layer's ``top_k`` experts and its shared expert, the
+    router not counted, as ``active_param_count``), the layers' remat
+    forward (2 T N_layers), the loss chunks' recomputed head (2 T N_head),
+    and the flash core's QKᵀ and PV over all S x S positions (no causal
+    skip): forward, remat forward and a backward of twice the forward, 16
+    B S² H hd a layer.  A MoE layer's expert GEMMs run over E x C slots,
+    ``capacity`` / (T k / E) = ~1.25 x the assignments they hold: that
+    extra work is not counted."""
     T = B * S
     D, hd = cfg.d_model, cfg.hd
-    per_layer = (D * cfg.n_heads * hd * 2 + D * cfg.n_kv * hd * 2
-                 + 3 * D * cfg.d_ff)
-    n_layers = cfg.n_layers * per_layer
+    attn_params = D * cfg.n_heads * hd * 2 + D * cfg.n_kv * hd * 2
+    ffn_layers = cfg.n_dense_layers + cfg.n_moe_layers * (
+        cfg.top_k + int(cfg.shared_expert))
+    n_layers = (cfg.n_layers * attn_params
+                + ffn_layers * 3 * D * cfg.d_ff)
     n_head = D * cfg.vocab
     attn = 16 * B * S * S * cfg.n_heads * hd * cfg.n_layers
     parts = {"6TN": 6 * T * (n_layers + n_head), "remat": 2 * T * n_layers,
@@ -3017,10 +3086,11 @@ def lm_train_flops(cfg, B: int, S: int) -> dict:
     return {**parts, "total": sum(parts.values())}
 
 
-def lm_train_check_phase(torch, dev, cfg, batch):
+def lm_train_check_phase(torch, dev, cfg, batch, what="granite-8b"):
     """At ``LM_CHECK_LAYERS`` layers of the full width (no remat fits
     there): ``lm_loss`` (remat, 8 chunks) against ``cross_entropy`` over
-    ``lm_forward(remat=False)`` on the same params and batch; the loss
+    ``lm_forward(remat=False)`` plus 0.01 x its aux loss (0 for a dense
+    model) on the same params and batch; the loss
     within 1e-3 (relative), every gradient within 3e-2 of its leaf's
     largest entry (the reference's bf16 bar).  Then ``LM_CHECK_STEPS``
     steps of the bundle's train step, donated against functional (the
@@ -3043,8 +3113,9 @@ def lm_train_check_phase(torch, dev, cfg, batch):
         if remat:
             loss = lm_loss(p, batch["tokens"], batch["targets"], small)
         else:
-            logits, _ = lm_forward(p, batch["tokens"], small, remat=False)
-            loss = cross_entropy(logits, batch["targets"])
+            logits, aux = lm_forward(p, batch["tokens"], small,
+                                     remat=False)
+            loss = cross_entropy(logits, batch["targets"]) + 0.01 * aux
             del logits
         grads = torch.autograd.grad(loss, leaves)
         out[remat] = (float(loss.detach()), grads)
@@ -3081,7 +3152,7 @@ def lm_train_check_phase(torch, dev, cfg, batch):
               "functional_losses": steps[False][0],
               "donated_vs_functional_loss_rel": form_rel,
               "donated_vs_functional_param_rel": form_param_rel}
-    print("granite-8b train_4k remat/chunks vs plain, donated vs "
+    print(f"{what} train_4k remat/chunks vs plain, donated vs "
           f"functional (full width, {LM_CHECK_LAYERS} layers): "
           + json.dumps(report))
     if loss_rel > 1e-3 or max(gaps) > 3e-2:
@@ -3216,6 +3287,431 @@ def lm_training_phases(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return paths, report
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs (nn/moe and the superblock transformer): decode_attention on
+# every layer of a decode step, dense or MoE; the experts are batched
+# matmuls and the dispatch plain indexing, as the reference's are XLA ops
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b")
+# decode_32k's batch, cut from 128: granite-moe's cache is 65,536 B a token
+# (51.5 GB at 24, 68.7 GB at 32 beside 6.75 GB of weights); llama4's, at
+# its 2 layers, 8,192 B (17.2 GB at 64; 34.4 GB at 128 leaves no room for
+# the prefill beside 37.1 GB of weights)
+MOE_DECODE_BATCH = {"granite-moe-3b-a800m": 24,
+                    "llama4-maverick-400b-a17b": 64}
+# llama4 cut to 2 of 48 layers: one superblock (a dense layer, then a MoE
+# layer of 128 experts and the shared expert), 18.55 G parameters; a second
+# superblock would need 69.5 GB of bf16 weights
+MOE_LAYERS = {"granite-moe-3b-a800m": None, "llama4-maverick-400b-a17b": 2}
+# the plain attention's (and decode_attention_ref's) expansion of the cache
+# to every query head, at most this many bytes a batch piece
+MOE_PLAIN_BYTES = 8e9
+# a route that flips between the kernel and the plain path with a top-k
+# margin above this (in probability) is a disagreement, not a near-tie
+MOE_FLIP_MARGIN = 1e-2
+# granite-moe train_4k at full width and depth (32 layers), batch cut from
+# 256 to 2: 16 B x 3.374 G parameters of state = 53.99 GB (at B = 4 the
+# peak was 76.57 GB, past the 75 GB limit: the plain flash core keeps ~18
+# GB for one layer's recompute)
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_WARMUP = 1
+MOE_TRAIN_TIMED = 2
+MOE_RERUN_STEPS = 3
+
+
+def moe_config(arch):
+    """The arch's ``CONFIG``, cut to ``MOE_LAYERS`` layers where set."""
+    import dataclasses
+    import importlib
+    cfg = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_")).CONFIG
+    if MOE_LAYERS[arch]:
+        cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS[arch])
+    return cfg
+
+
+def plain_rows(cfg, S, B, esize) -> int:
+    """Batch rows a piece of the plain attention takes: its expansion of a
+    row's K and V to every query head at ``esize`` bytes an entry."""
+    row = 2 * S * cfg.n_heads * cfg.hd * esize
+    return max(1, min(B, int(MOE_PLAIN_BYTES // row)))
+
+
+def moe_decode_kernel_phase(torch, dev):
+    """``decode_attention`` at the two MoE archs' GQA shapes at
+    ``decode_32k`` (cache_len 32,767) and their serving batches:
+    granite-moe (H 24 / KV 8, G = 3, d = 64, B = 24; 32 launches a step)
+    and llama4 (H 40 / KV 8, G = 5, d = 128, B = 64; 2 launches a step at
+    its 2 layers), each against its plain version (in pieces of batch rows)
+    at the reference's bf16 bar and timed beside SDPA and its bound."""
+    from repro_torch.configs import LM_SHAPES
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    S = LM_SHAPES["decode_32k"]["seq"]
+    cases = []
+    for arch in MOE_ARCHS:
+        cfg, B = moe_config(arch), MOE_DECODE_BATCH[arch]
+        cases.append(decode_case(
+            torch, dev, f"{arch} decode_32k layer, B={B}", B, S, cfg.n_kv,
+            cfg.n_heads // cfg.n_kv, cfg.hd, torch.bfloat16, [S - 1] * B,
+            gen, weight=cfg.n_layers, big=True,
+            plain_rows=plain_rows(cfg, S, B, 4)))
+        torch.cuda.empty_cache()
+    return cases
+
+
+class RouteRecorder:
+    """While entered, ``nn.moe.moe_routes`` (which ``_moe_apply_impl``
+    looks up at each call) is wrapped: each call's sorted top-k expert
+    set, the router's top-k margin (the k-th largest probability less the
+    (k+1)-th) and the share of its assignments within capacity are kept,
+    one entry a MoE layer, until ``take``."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.inner = torch, moe, moe.moe_routes
+        self.calls = []
+
+    def __enter__(self):
+        self.moe.moe_routes = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_routes = self.inner
+
+    def _record(self, p, x, top_k, *args, **kw):
+        r = self.inner(p, x, top_k, *args, **kw)
+        vals = self.torch.sort(r.probs, dim=-1, descending=True).values
+        self.calls.append({
+            "ids": self.torch.sort(r.expert_ids, dim=1).values,
+            "margin": vals[:, top_k - 1] - vals[:, top_k],
+            "kept": float(r.keep.float().mean())})
+        return r
+
+    def take(self) -> list:
+        out, self.calls = self.calls, []
+        return out
+
+
+def compare_routes(torch, kernel, plain):
+    """The share of (token, MoE layer) routes whose expert sets agree, and
+    each flip with the kernel path's margin; a token's first flip (its
+    earlier layers routed alike, so its inputs differ only by the
+    attention's rounding) is marked ``first``: later ones follow from it."""
+    agree, flips, flipped = [], [], set()
+    for layer, (a, b) in enumerate(zip(kernel, plain)):
+        same = (a["ids"] == b["ids"]).all(dim=1)
+        agree.append(same)
+        for t in (~same).nonzero().flatten().tolist():
+            flips.append({"layer": layer, "token": t,
+                          "margin": float(a["margin"][t]),
+                          "first": t not in flipped})
+            flipped.add(t)
+    return float(torch.cat(agree).float().mean()), flips
+
+
+def decode_walk(torch, params, cfg, tok, caches, pos, S, follow, rows,
+                hold=False):
+    """One decode step at cache_len ``pos``, walked layer by layer with
+    the port's own pieces (``layer_schedule``, ``nn.attention.
+    decode_attention``, each layer's FFN, dense or MoE): the walk goes on
+    with ``follow``'s attention output ("kernel" or "plain"); the plain
+    attention runs over pieces of ``rows`` batch rows (its expanded cache
+    would not fit whole at llama4's B = 64); with ``hold``, both run at
+    every layer on the same hidden state.  Returns (logits, each layer's
+    (max |kernel - plain|, max |plain|) under ``hold``)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn.attention import decode_attention, rope_freqs
+    from repro_torch.nn.layers import rmsnorm_apply
+
+    cos, sin = rope_freqs(cfg.hd, S + 1, cfg.rope_theta, dtype=cfg.dtype,
+                          device=tok.device)
+    B = tok.shape[0]
+    h = tf._embed(params, tok, cfg)
+    errs = []
+    for kind, lp, idx in tf.layer_schedule(params, cfg):
+        kc, vc = (t[idx] for t in caches[kind])
+        h2 = rmsnorm_apply(lp["ln1"], h)
+        args = (cfg.n_heads, cfg.n_kv, cfg.hd, cos, sin)
+        att = {}
+        if hold or follow == "kernel":
+            att["kernel"], _ = decode_attention(lp["attn"], h2, (kc, vc),
+                                                pos, *args, attn="kernel")
+        if hold or follow == "plain":
+            att["plain"] = torch.cat([decode_attention(
+                lp["attn"], h2[i:i + rows], (kc[i:i + rows], vc[i:i + rows]),
+                pos, *args, attn="plain")[0] for i in range(0, B, rows)])
+        if hold:
+            a, b = att["kernel"].float(), att["plain"].float()
+            errs.append((float((a - b).abs().max()), float(b.abs().max())))
+        h = tf._ffn(kind, lp, h + att[follow], cfg)
+    h = rmsnorm_apply(params["ln_f"], h)
+    return h @ params["head"].to(cfg.dtype), errs
+
+
+def moe_config_phase(torch, dev, arch):
+    """A MoE arch's ``CONFIG`` served at full width (llama4 cut to
+    ``MOE_LAYERS`` layers), its bf16 parameters drawn on the card expert by
+    expert: a B x 512 prefill (``MOE_DECODE_BATCH``); ``decode_32k``'s
+    caches filled by repeating the prefill's K/V along the sequence; at
+    cache_len 32,767 one step through ``LMBundle.step_fn("decode_32k")``
+    on the kernel path (n_layers launches), rerun bit-identical; the
+    teacher-forced hold: the step walked layer by layer, each layer's
+    attention on the kernel path's hidden state through both ``attn=
+    "kernel"`` and ``"plain"``, outputs within 3e-2 of the largest entry;
+    the free-running plain step: the share of (token, layer) routes that
+    agree with the kernel path's, each flip with its top-k margin (a
+    token's first flip above ``MOE_FLIP_MARGIN`` fails; the logits are
+    held at 3e-2 of the largest only if no route flipped), the share of
+    assignments dropped by capacity; then 32 greedy steps timed as
+    granite-8b's (``timed_decode``), n_layers launches each."""
+    from repro_torch.configs import LM_SHAPES
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import moe
+
+    cfg = moe_config(arch)
+    B, P, S = (MOE_DECODE_BATCH[arch], LM_PROMPT,
+               LM_SHAPES["decode_32k"]["seq"])
+    bundle = LMBundle(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    t0 = time.perf_counter()
+    params = bundle.init_params(gen, dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rows = plain_rows(cfg, S, B, 2)
+    report = {"layers": cfg.n_layers, "batch": B, "prompt": P, "seq": S,
+              "params": cfg.param_count(),
+              "active_params": cfg.active_param_count(),
+              "param_gb": cfg.param_count() * 2 / 1e9,
+              "cache_gb": cfg.kv_bytes_per_token() * B * S / 1e9,
+              "capacity": moe.capacity(B, cfg.top_k, cfg.n_experts),
+              "plain_rows": rows, "init_s": time.perf_counter() - t0}
+    print(f"{arch} CONFIG ({cfg.n_layers} layers): {report['params']} "
+          f"params ({report['param_gb']:.2f} GB bf16) drawn on the card in "
+          f"{report['init_s']:.2f}s; caches {report['cache_gb']:.2f} GB at "
+          f"B={B}; capacity {report['capacity']} slots an expert")
+    paths = {}
+    with torch.inference_mode():
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                               device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, pre = tf.lm_prefill(params, prompt, cfg)
+        torch.cuda.synchronize()
+        report["prefill_s"] = time.perf_counter() - t0
+        paths[f"{arch} CONFIG prefill"] = read_launches(torch)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch} CONFIG prefill logits not finite")
+        batch = bundle.make_batch("decode_32k", gen, dev, batch=B)
+        caches = batch["caches"]
+        repeat_prefill(caches, pre)
+        del pre
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        batch["token"] = tok
+        step = bundle.step_fn("decode_32k")
+        with RouteRecorder(torch, moe) as rec:
+            reset_launches()
+            lk, _ = step(params, batch)
+            check = read_launches(torch)
+            kernel_routes = rec.take()
+            rerun, _ = step(params, batch)
+            rec.take()
+            walked, errs = decode_walk(torch, params, cfg, tok, caches,
+                                       S - 1, S, "kernel", rows, hold=True)
+            rec.take()
+            lp, _ = decode_walk(torch, params, cfg, tok, caches, S - 1, S,
+                                "plain", rows)
+            plain_routes = rec.take()
+        paths[f"{arch} CONFIG decode (check step)"] = check
+        share, flips = compare_routes(torch, kernel_routes, plain_routes)
+        kept = [r["kept"] for r in kernel_routes]
+        hold = max(e / max(m, 1e-30) for e, m in errs)
+        report.update({
+            "check_launches": check,
+            "rerun_bit_identical": bool(torch.equal(lk, rerun)),
+            "walk_equals_step": bool(torch.equal(walked, lk)),
+            "teacher_forced_attn_err_of_largest": hold,
+            "teacher_forced_attn_errs": errs,
+            "logits_err": float((lk.float() - lp.float()).abs().max()),
+            "max_abs_logit": float(lp.float().abs().max()),
+            "argmax_agree": float((lk.argmax(-1) == lp.argmax(-1))
+                                  .float().mean()),
+            "route_agree_share": share, "route_flips": flips,
+            "drop_share": 1 - sum(kept) / len(kept),
+            "drop_share_by_layer": [1 - k for k in kept]})
+        del lk, rerun, walked, lp
+        torch.cuda.synchronize()
+        timing, launches = timed_decode(torch, params, tok, caches, cfg, S,
+                                        f"{arch} decode")
+    paths[f"{arch} CONFIG decode ({LM_STEPS} steps)"] = launches
+    report.update(timing)
+    print(f"{arch} decode (CONFIG, {cfg.n_layers} layers, B={B}): "
+          + json.dumps(report))
+    if not report["rerun_bit_identical"]:
+        raise AssertionError(f"{arch} CONFIG: a rerun of the decode step "
+                             "is not bit-identical")
+    if hold > DECODE_TOL["bfloat16"]:
+        raise AssertionError(f"{arch} CONFIG teacher-forced hold: kernel vs "
+                             f"plain attention {hold:.3e} of the largest "
+                             f"entry > {DECODE_TOL['bfloat16']}")
+    bad = [f for f in flips if f["first"] and f["margin"] > MOE_FLIP_MARGIN]
+    if bad:
+        raise AssertionError(f"{arch} CONFIG: routes flipped between the "
+                             f"kernel and plain paths with margins above "
+                             f"{MOE_FLIP_MARGIN}: {bad}")
+    if not flips:
+        if report["logits_err"] > DECODE_TOL["bfloat16"] * \
+                report["max_abs_logit"]:
+            raise AssertionError(f"{arch} CONFIG decode step kernel vs "
+                                 f"plain logits {report['logits_err']:.3e} "
+                                 "> 3e-2 of the largest")
+    for what, got, steps in (("check step", check, 1),
+                             (f"{LM_STEPS} steps", launches, LM_STEPS)):
+        want = {k: (cfg.n_layers * steps if k == "decode_attention" else 0)
+                for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"{arch} CONFIG decode {what} launched "
+                                 f"{got}; expected {want}")
+    del params, caches, batch
+    return paths, report
+
+
+def moe_train_phase(torch, dev):
+    """granite-moe-3b-a800m ``train_4k`` at full width and depth (32
+    layers, 40 experts top-8), batch ``MOE_TRAIN_BATCH`` of 256: the
+    reference's recipe (fp32 master params drawn on the card, fp32 Adam
+    moments, bf16 compute, Adam(3e-4), clip 1.0, donated) through
+    ``LMBundle(CONFIG).step_fn("train_4k")``.  First the remat/chunking
+    check at ``LM_CHECK_LAYERS`` layers (``lm_train_check_phase``); then
+    1 warm-up, 2 timed and 1 profiled step (ms a step, tokens/s, busy
+    share, device time by kind), peak memory beside the predicted state,
+    the bf16 FLOP share against the active FLOPs; then the params drawn
+    again from the same seed and 3 more steps, whose losses must equal
+    the first 3 bit for bit (the MoE forward is deterministic, so the
+    checkpointed recompute routes as the forward did).  No kernel."""
+    import gc
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG as cfg
+    from repro_torch.nn.moe import capacity
+    from repro_torch.train import lm_token_batches
+
+    arch, B, S = "granite-moe-3b-a800m", MOE_TRAIN_BATCH, LM_TRAIN_SEQ
+    raw = next(lm_token_batches(cfg.vocab, B, S))
+    batch = {k: torch.as_tensor(raw[k], device=dev)
+             for k in ("tokens", "targets")}
+    check = lm_train_check_phase(torch, dev, cfg, batch, what=arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = LMBundle(cfg)
+
+    def fresh():
+        params = bundle.init_params(
+            torch.Generator(device=dev).manual_seed(21), dev)
+        return params, bundle.opt().init(params)
+
+    t0 = time.perf_counter()
+    params, state = fresh()
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    state_gb = n_params * LM_STATE_BYTES_PER_PARAM / 1e9
+    print(f"{arch} train_4k: {cfg.n_layers} layers, B={B}, {n_params} "
+          f"params (fp32), predicted state {state_gb:.2f} GB (params, "
+          f"grads, m, v); drawn on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    reset_launches()
+    br = step_breakdown(
+        torch, f"{arch} train_4k", bundle.step_fn("train_4k"), params,
+        state, batch, warmup=MOE_TRAIN_WARMUP, timed=MOE_TRAIN_TIMED,
+        n_prof=1, kinds=[("gemm", ("gemm", "nvjet", "cutlass")),
+                         ("elementwise", ("elementwise",)),
+                         ("reduce", ("reduce_kernel",)),
+                         ("sort_scan", ("sort", "scan")),
+                         ("index", ("index", "gather", "scatter"))])
+    launches = read_launches(torch)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, state = fresh()
+    step = bundle.step_fn("train_4k")
+    rerun = []
+    for _ in range(MOE_RERUN_STEPS):
+        params, state, loss = step(params, state, batch)
+        rerun.append(float(loss))
+    first = br["losses"][:MOE_RERUN_STEPS]
+    flops = lm_train_flops(cfg, B, S)
+    T = B * S
+    slots = cfg.n_experts * capacity(T, cfg.top_k, cfg.n_experts)
+    report = {
+        "layers": cfg.n_layers, "batch": B, "seq": S, "params": n_params,
+        "active_params": cfg.active_param_count(),
+        "predicted_state_gb": state_gb, "peak_memory_gb": peak_gb,
+        "step_ms": br["step_ms"], "step_ms_all": br["step_ms_all"],
+        "tokens_per_s": T / br["step_ms"] * 1e3,
+        "busy_share": br["busy_share"],
+        "device_ms_per_step": br["device_ms_per_step"],
+        "device_ms_by_kind": br.get("device_ms_by_kind"),
+        "losses": br["losses"], "rerun_losses": rerun,
+        "rerun_bit_identical": first == rerun, "flops": flops,
+        "bf16_flop_share": flops["total"] / (br["step_ms"] / 1e3)
+        / PEAK_BF16_FLOPS,
+        "expert_slots_over_assignments": slots / (T * cfg.top_k),
+        "check": check, "launches": launches, "breakdown": br}
+    print(f"{arch} train_4k ({cfg.n_layers} layers, B={B}): " + json.dumps(
+        {k: v for k, v in report.items()
+         if k not in ("breakdown", "check", "step_ms_all")}))
+    if not all(math.isfinite(v) for v in br["losses"] + rerun):
+        raise AssertionError(f"{arch} train_4k: a loss is not finite "
+                             f"{br['losses']} {rerun}")
+    if first != rerun:
+        raise AssertionError(f"{arch} train_4k: two runs of "
+                             f"{MOE_RERUN_STEPS} steps from the same seed "
+                             f"gave other losses: {first} vs {rerun}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch} train_4k launched {launches}")
+    del params, state, batch
+    return (f"{arch} train_4k ({cfg.n_layers} layers, B={B})", launches,
+            report)
+
+
+def moe_phases(torch, dev):
+    """The MoE LMs, after the LM training phases have freed the card: the
+    ``decode_attention`` cases at their GQA shapes; both archs through
+    ``launch.serve`` (against ``attn="plain"`` and the CPU run) and
+    ``launch.train`` (against ``--device cpu``) at ``REDUCED``; each
+    ``CONFIG`` served at full width; granite-moe ``train_4k`` at full
+    depth."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"MoE phases: {left:.2f} GB still allocated")
+    if left > 4:
+        raise AssertionError(f"{left:.2f} GB left allocated before the MoE "
+                             "phases; llama4's 37.1 GB of weights and "
+                             "17.2 GB of cache will not fit")
+    t0 = time.perf_counter()
+    cases = moe_decode_kernel_phase(torch, dev)
+    paths, report = {}, {"launcher": {}, "train_launcher": {}}
+    for arch in MOE_ARCHS:
+        paths[f"{arch} serving (launcher)"], report["launcher"][arch] = \
+            lm_launcher_phase(torch, arch)
+        (paths[f"{arch} training (launcher, REDUCED)"],
+         report["train_launcher"][arch]) = lm_train_launcher_phase(torch,
+                                                                   arch)
+    for arch in MOE_ARCHS:
+        config_paths, report[arch] = moe_config_phase(torch, dev, arch)
+        paths.update(config_paths)
+        gc.collect()
+        torch.cuda.empty_cache()
+    what, paths[what], report["train_4k"] = moe_train_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"MoE phases: {report['wall_s']:.1f}s")
+    return cases, paths, report
 
 
 # ---------------------------------------------------------------------------
@@ -3884,6 +4380,9 @@ def main() -> int:
     paths.update(lm_paths)
     lm_train_paths, lm_train_report = lm_training_phases(torch, dev)
     paths.update(lm_train_paths)
+    moe_cases, moe_paths, moe_report = moe_phases(torch, dev)
+    decode_cases += moe_cases
+    paths.update(moe_paths)
     zoo_paths, zoo_report = gnn_zoo_phases(torch, dev)
     paths.update(zoo_paths)
     print("launches by path: " + json.dumps(paths))
@@ -3950,9 +4449,13 @@ def main() -> int:
                    "F.embedding_bag(mode='sum', per_sample_weights)"),
         kernel_row("decode_attention", decode_cases,
                    total["decode_attention"],
-                   "one full-width granite-8b decode step's 36 launches at "
-                   "decode_32k with B=8 (q (8, 32, 128), one layer's k/v "
-                   "(8, 32768, 8, 128) bf16, cache_len 32,767); library: "
+                   "one full-width decode step at decode_32k (cache_len "
+                   "32,767, bf16) of each of granite-8b (36 launches, B=8, "
+                   "q (8, 32, 128), one layer's k/v (8, 32768, 8, 128)), "
+                   "granite-moe-3b-a800m (32 launches, B=24, q (24, 24, "
+                   "64), k/v (24, 32768, 8, 64)) and llama4-maverick-400b-"
+                   "a17b cut to 2 of 48 layers (2 launches, B=64, q (64, "
+                   "40, 128), k/v (64, 32768, 8, 128)); library: "
                    "F.scaled_dot_product_attention(q, k, v, bool mask, "
                    "enable_gqa=True)"),
     ]
@@ -3969,7 +4472,8 @@ def main() -> int:
         "quickstart": quickstart_report, "gcn_blockell": gcn_ell_report,
         "gin_shared": gin_shared_report,
         "wide_deep": recsys_report, "lm": lm_report,
-        "lm_training": lm_train_report, "fallback": fallback_report,
+        "lm_training": lm_train_report, "moe": moe_report,
+        "fallback": fallback_report,
         "gnn_zoo": zoo_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

@@ -1,20 +1,17 @@
 """Architecture registry — port of ``repro/configs/base.py``.
 
 Every arch is an ``ArchSpec`` whose ``bundle()`` builds the family's
-bundle.  The four GNNs (``gcn-cora``, ``gat-cora``, ``pna``, ``nequip``)
-over the reference's four graph cells, ``wide-deep`` and the dense LMs
-(``granite-8b``, ``minitron-8b``, ``mistral-large-123b``) are ported;
-asking for one of the two MoE archs raises ``NotImplementedError`` naming
-the ROADMAP item."""
+bundle.  Every arch of the reference is ported: the four GNNs
+(``gcn-cora``, ``gat-cora``, ``pna``, ``nequip``) over its four graph
+cells, ``wide-deep``, the dense LMs (``granite-8b``, ``minitron-8b``,
+``mistral-large-123b``) and the MoE LMs (``granite-moe-3b-a800m``,
+``llama4-maverick-400b-a17b``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 REGISTRY: Dict[str, "ArchSpec"] = {}
-
-# the archs of repro.configs.registry that the port has no config for yet
-NOT_PORTED = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +36,6 @@ def get(name: str) -> ArchSpec:
         _load_all()
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not ported yet "
-                                  "(ROADMAP §1 item 8b); ported: "
-                                  f"{sorted(REGISTRY)}")
     raise KeyError(f"unknown arch {name!r}")
 
 

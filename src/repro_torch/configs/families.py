@@ -16,8 +16,9 @@ from ..models.nequip import nequip_energy, nequip_init
 from ..models.pna import pna_init, pna_loss
 from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
                              widedeep_logits, widedeep_loss)
-from ..models.transformer import (LMConfig, lm_decode_step, lm_init,
-                                  lm_loss, lm_prefill, make_kv_caches)
+from ..models.transformer import (LMConfig, kv_cache_shapes, lm_decode_step,
+                                  lm_init, lm_loss, lm_prefill,
+                                  make_kv_caches)
 from ..train.loop import make_train_step
 from ..train.optimizer import Optimizer, adam
 from .base import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, pad_to
@@ -25,7 +26,7 @@ from .base import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, pad_to
 
 @dataclasses.dataclass
 class LMBundle:
-    """A dense LM at one config over the four ``LM_SHAPES``: the
+    """An LM (dense or MoE) at one config over the four ``LM_SHAPES``: the
     ``train`` step, ``prefill`` and ``decode``."""
     cfg: LMConfig
     moments_dtype: Any = torch.float32
@@ -46,8 +47,9 @@ class LMBundle:
     def input_specs(self, shape: str, batch: Optional[int] = None
                     ) -> Dict[str, Any]:
         """name -> (shape, dtype) of each step input; the decode caches as
-        their ``{"dense": (k, v)}`` tree.  ``batch`` overrides the cell's
-        batch (``decode_32k``'s 128 x 32,768 cache is 618 GB at
+        their tree (``kv_cache_shapes``: ``{"dense": (k, v)}``, or a MoE
+        config's ``{"moe": ..., "dense": ...}``).  ``batch`` overrides the
+        cell's batch (``decode_32k``'s 128 x 32,768 cache is 618 GB at
         granite-8b)."""
         info = LM_SHAPES[shape]
         B, S = batch or info["batch"], info["seq"]
@@ -56,10 +58,9 @@ class LMBundle:
                     "targets": ((B, S), torch.int32)}
         if info["kind"] == "prefill":
             return {"tokens": ((B, S), torch.int32)}
-        c = self.cfg
-        kv = ((c.n_layers, B, S, c.n_kv, c.hd), c.dtype)
-        return {"token": ((B, 1), torch.int32),
-                "caches": {"dense": (kv, kv)},
+        caches = {name: ((shape, self.cfg.dtype),) * 2 for name, shape
+                  in kv_cache_shapes(self.cfg, B, S).items()}
+        return {"token": ((B, 1), torch.int32), "caches": caches,
                 "cache_len": ((), torch.int32)}
 
     def make_batch(self, shape: str, generator: torch.Generator,

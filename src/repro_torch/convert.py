@@ -23,7 +23,10 @@ def params_from_jax(tree, device="cuda"):
     GAT's ``layers[i].{w: {w}, a_src, a_dst}``, PNA's ``layers[i].{pre,
     post}`` and ``head``, NequIP's ``embed``, ``layers[i].{radial: [mlp],
     self0, self1, self2, gate}`` and ``readout``, an LM's stacked
-    ``dense_layers`` and its KV caches ``{"dense": (k, v)}``."""
+    ``dense_layers`` (and a MoE config's ``moe_layers``, each with
+    ``moe.{router, wg, wu, wd}`` and llama4's ``moe.shared``; llama4's
+    bf16 parameters stay bf16) and its KV caches ``{"dense": (k, v)}`` or
+    ``{"moe": (k, v), "dense": (k, v)}``."""
     dev = resolve_device(device)
 
     def walk(t):

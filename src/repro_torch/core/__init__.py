@@ -4,6 +4,7 @@ cache/perf models of the paper (host numpy, byte-equal to the reference's)
 with the aggregation executors in torch."""
 from .reorder import (lsh_reorder, minhash_reorder, degree_reorder, bfs_reorder,
                       identity_order, mean_reuse_distance, bandwidth,
+                      lsh_order_from_projection, lsh_reorder_torch,
                       REORDERINGS)
 from .shared_set import SharedSetPlan, build_shared_plan
 from .blocksparse import (BlockEll, BlockCompaction, build_blockell,

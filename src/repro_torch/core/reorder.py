@@ -11,14 +11,21 @@ LSH over adjacency rows (§IV-A) and its baselines.
 All return an *execution order* ``perm`` with ``perm[k]`` = old id of the
 node run k-th; apply with ``Graph.permute(perm)``.  Reordering never changes
 the graph, only the order.  The tests hold every permutation byte-equal to
-the reference's.  ``lsh_reorder_jax`` (the on-line reorder) is not ported
-yet (ROADMAP §1 item 8b).
+the reference's.
+
+``lsh_reorder_torch`` is the on-line SimHash reorder (the reference's
+``lsh_reorder_jax``) on device tensors: ``lsh_order_from_projection``
+turns a random projection into the order, and ``lsh_reorder_torch`` draws
+that projection from a ``torch.Generator`` seeded with ``seed``, another
+stream than ``jax.random``'s (given the reference's projection, the order
+is the reference's, byte for byte).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..graph.structure import Graph
 
@@ -185,6 +192,52 @@ def _bfs_reorder_queue(g: Graph, start: Optional[int] = None) -> np.ndarray:
                     visited[u] = True
                     queue.append(int(u))
     return order
+
+
+# --------------------------------------------------------------------------
+# on-line reorder on device tensors (paper §VI future work)
+# --------------------------------------------------------------------------
+def lsh_order_from_projection(src: torch.Tensor, dst: torch.Tensor,
+                              num_nodes: int, r: torch.Tensor,
+                              edge_mask: Optional[torch.Tensor] = None,
+                              weight_by_degree: bool = True
+                              ) -> torch.Tensor:
+    """The SimHash order of the graph under the projection ``r`` (N, bits)
+    fp32: each node's code is the sign pattern of the sum of its in-edges'
+    ``r[src]`` (masked edges add nothing; with ``weight_by_degree`` each
+    source damped by ``1/sqrt(out-degree)``), nodes sorted stably by the
+    Gray code of their bucket key (int64 keys).  The sums are
+    ``index_add`` in fp32: on a CUDA device their order, and so the sign of
+    a projection within rounding of 0, may vary from run to run."""
+    N, bits = r.shape
+    src, dst = src.long(), dst.long()
+    valid = (torch.ones(src.shape[0], dtype=torch.float32, device=r.device)
+             if edge_mask is None else edge_mask.to(torch.float32))
+    if weight_by_degree:
+        deg = torch.zeros(N, dtype=torch.float32, device=r.device
+                          ).index_add(0, src, valid)
+        r = r * torch.rsqrt(torch.clamp(deg, min=1.0))[:, None]
+    proj = torch.zeros((N, bits), dtype=torch.float32, device=r.device
+                       ).index_add(0, dst, r[src] * valid[:, None])
+    weights = torch.ones((), dtype=torch.int64, device=r.device) << \
+        torch.arange(bits, dtype=torch.int64, device=r.device)
+    keys = torch.sum((proj > 0).to(torch.int64) * weights[None, :], dim=1)
+    gray = keys ^ (keys >> 1)
+    return torch.argsort(gray, stable=True)
+
+
+def lsh_reorder_torch(src: torch.Tensor, dst: torch.Tensor, num_nodes: int,
+                      num_bits: int = 16, seed: int = 0,
+                      edge_mask: Optional[torch.Tensor] = None,
+                      weight_by_degree: bool = True) -> torch.Tensor:
+    """SimHash reorder of an edge list on its device (for per-batch
+    reordering of sampled subgraphs): ``lsh_order_from_projection`` under
+    an N(0, 1) projection (num_nodes, num_bits) drawn from a generator on
+    the edges' device seeded with ``seed``.  Returns the order (int64)."""
+    gen = torch.Generator(device=src.device).manual_seed(seed)
+    r = torch.randn((num_nodes, num_bits), generator=gen, device=src.device)
+    return lsh_order_from_projection(src, dst, num_nodes, r, edge_mask,
+                                     weight_by_degree)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Graph containers, the paper's stand-in datasets, the neighbor sampler
 and serving expanders, small-graph packing, and window partitions."""
-from .structure import Graph, CSR
+from .structure import Graph, CSR, from_dense, to_dense
 from .datasets import (DatasetSpec, PAPER_TABLE_I, spec_for_paper, synthesize,
                        cora_like, reddit_like, citeseer_s_like,
                        products_like, molecules_like)

@@ -123,3 +123,23 @@ class CSR:
 
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+
+def from_dense(adj: np.ndarray, **kw) -> Graph:
+    """A graph of a dense adjacency whose row v lists v's in-neighbors
+    (row = destination)."""
+    dst, src = np.nonzero(adj)
+    return Graph(src=src.astype(np.int32), dst=dst.astype(np.int32),
+                 num_nodes=adj.shape[0], **kw)
+
+
+def to_dense(g: Graph) -> np.ndarray:
+    """The (N, N) float32 adjacency, ``adj[dst, src]`` summing the edges'
+    weights (1 without ``edge_weight``; 0 for a masked edge)."""
+    adj = np.zeros((g.num_nodes, g.num_nodes), dtype=np.float32)
+    w = (g.edge_weight if g.edge_weight is not None
+         else np.ones(g.num_edges, np.float32))
+    if g.edge_mask is not None:
+        w = np.where(g.edge_mask, w, 0.0)
+    np.add.at(adj, (g.dst, g.src), w)
+    return adj

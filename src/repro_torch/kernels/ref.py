@@ -153,6 +153,15 @@ def spmm_blockell_update_ref(
     return y
 
 
+def spmm_edges_ref(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                   x: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Edge-list (COO) reference: ``y[v] = Σ_{e: dst_e = v} w_e x[src_e]``,
+    (num_nodes, d)."""
+    msgs = x[src.long()] * w[:, None]
+    return torch.zeros((num_nodes, x.shape[1]), dtype=msgs.dtype,
+                       device=x.device).index_add(0, dst.long(), msgs)
+
+
 def embedding_bag_ref(ids: torch.Tensor, bag_ids: torch.Tensor,
                       weights: torch.Tensor, table: torch.Tensor,
                       num_bags: int) -> torch.Tensor:

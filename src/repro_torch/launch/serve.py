@@ -7,11 +7,14 @@ LM path (the ``REDUCED`` config, as the reference runs it), taken when
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --tokens 16 --batch 2 --prompt-len 16 [--device cpu]
 
-Parameters and the prompt come from a generator seeded 0 (on the CPU, so
-every device gets the same ones); ``lm_prefill`` fills caches padded to
-``max(64, prompt + tokens + 1)`` positions, then ``--tokens`` greedy
-``lm_decode_step``s run, each layer's attention through the flash-decode
-kernel on ``cuda``.  Prints the generated ids and tokens/s.
+Every LM arch of the reference serves: the dense ones and the MoE ones
+(``granite-moe-3b-a800m``, ``llama4-maverick-400b-a17b``).  Parameters and
+the prompt come from a generator seeded 0 (on the CPU, so every device gets
+the same ones); ``lm_prefill``'s caches are copied into caches padded to
+``max(64, prompt + tokens + 1)`` positions along the sequence axis of
+every stack, then ``--tokens`` greedy ``lm_decode_step``s run, each
+layer's attention through the flash-decode kernel on ``cuda``.  Prints the
+generated ids and tokens/s.
 
 Graph path:
 
@@ -29,8 +32,8 @@ offline full-graph forward runs through the block-ELL kernels on ``cuda``.
 ``wide_deep``: each of the graph's nodes is a user of the reduced wide &
 deep model, scored by the user tower, whose field lookup is the
 ``embedding_bag`` kernel on ``cuda``.  Runs on ``cuda`` unless ``--device
-cpu`` is given.  The MoE LMs and ``--metrics-out`` / ``--trace`` are not
-ported yet.
+cpu`` is given.  ``--metrics-out`` / ``--trace`` are not ported yet
+(ROADMAP §1 item 7).
 """
 import argparse
 import dataclasses
@@ -43,8 +46,8 @@ from ..configs import get
 from ..core import identity_order, minhash_reorder
 from ..device import resolve_device
 from ..graph import citeseer_s_like, cora_like, reddit_like
-from ..models.transformer import (lm_decode_step, lm_init, lm_prefill,
-                                  make_kv_caches)
+from ..models.transformer import (fill_caches, lm_decode_step, lm_init,
+                                  lm_prefill, make_kv_caches)
 from ..serve import (EmbeddingCache, MicroBatcher, ServeEngine, ServeReport,
                      make_session, zipfian_trace)
 
@@ -56,11 +59,19 @@ class LMServeResult:
     seconds: float            # the decode loop, synchronised
 
 
+def draw_prompt(gen: torch.Generator, vocab: int, batch: int,
+                prompt_len: int) -> torch.Tensor:
+    """The launcher's (batch, prompt_len) prompt, uniform over the
+    vocabulary, drawn where ``gen`` lives (after the parameters)."""
+    return torch.randint(0, vocab, (batch, prompt_len), generator=gen,
+                         device=gen.device)
+
+
 def serve_lm(args, attn: str = "kernel") -> LMServeResult:
     """The reference's ``serve_lm`` at ``REDUCED``; ``attn`` picks the
     decode attention (``"plain"``: the reference's einsums)."""
     dev = resolve_device(args.device)
-    get(args.arch)                      # raises for an arch not ported
+    get(args.arch)                      # raises KeyError for an unknown arch
     mod = importlib.import_module(
         "repro_torch.configs." + args.arch.replace("-", "_"))
     cfg = mod.REDUCED
@@ -68,14 +79,12 @@ def serve_lm(args, attn: str = "kernel") -> LMServeResult:
     max_seq = max(64, prompt_len + args.tokens + 1)
     gen = torch.Generator().manual_seed(0)
     params = lm_init(gen, cfg, device=dev)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, prompt_len),
-                           generator=gen).to(dev)
+    prompt = draw_prompt(gen, cfg.vocab, args.batch, prompt_len).to(dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     with torch.inference_mode():
         logits, caches = lm_prefill(params, prompt, cfg)
         full = make_kv_caches(cfg, args.batch, max_seq, device=dev)
-        for buf, c in zip(full["dense"], caches["dense"]):
-            buf[:, :, :prompt_len] = c
+        fill_caches(full, caches)
         del caches
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         out_tokens, out_logits = [tok], []

@@ -1,5 +1,5 @@
-"""Training launcher: full-graph GNN training, wide & deep and the dense
-LMs on the port (``repro/launch/train.py`` but ``--dist``).
+"""Training launcher: full-graph GNN training, wide & deep and the LMs
+(dense and MoE) on the port (``repro/launch/train.py`` but ``--dist``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
@@ -31,10 +31,11 @@ segment ops (no kernel, as in the reference); an explicit kernel executor
 ``--arch wide-deep`` trains the ``REDUCED`` config as the reference does:
 batches of 256 from ``recsys_batches``, ``adam(1e-3)``, both sparse lookups
 through the ``embedding_bag`` kernel (forward and the table's gradient).
-An LM arch (``granite-8b``, ``minitron-8b``, ``mistral-large-123b``)
-trains its ``REDUCED`` config as the reference does (``--reduced`` is
-always on): batches of 4 x 64 tokens from ``lm_token_batches``,
-``adam(1e-3)``, ``lm_loss``.  ``--ckpt DIR`` resumes from the latest
+An LM arch (``granite-8b``, ``minitron-8b``, ``mistral-large-123b``, and
+the MoE ``granite-moe-3b-a800m`` and ``llama4-maverick-400b-a17b``) trains
+its ``REDUCED`` config as the reference does (``--reduced`` is always on):
+batches of 4 x 64 tokens from ``lm_token_batches``, ``adam(1e-3)``,
+``lm_loss`` (with the MoE layers' aux loss at weight 0.01).  ``--ckpt DIR`` resumes from the latest
 checkpoint in DIR and writes one every 100 steps and at the end.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
 """

@@ -1,6 +1,5 @@
-"""Linear layers, MLPs, RMSNorm, SwiGLU and the masked cross-entropy as
-plain functions on dicts of tensors (the port of the ``linear_*``,
-``mlp_*``, ``rmsnorm_*``, ``swiglu`` and ``cross_entropy`` parts of
+"""Linear layers, MLPs, LayerNorm, RMSNorm, embeddings, SwiGLU and the
+masked cross-entropy as plain functions on dicts of tensors (the port of
 ``repro/nn/layers.py``).
 
 ``linear_init`` draws from an explicit ``torch.Generator`` where the
@@ -63,6 +62,22 @@ def mlp_apply(params: Sequence[dict], x: torch.Tensor,
     return x
 
 
+def layernorm_init(d: int, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {"scale": torch.ones(d, device=dev),
+            "bias": torch.zeros(d, device=dev)}
+
+
+def layernorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` over the last axis,
+    in x's dtype."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+
+
 def rmsnorm_init(d: int, device="cuda") -> dict:
     return {"scale": torch.ones(d, device=resolve_device(device))}
 
@@ -76,6 +91,21 @@ def rmsnorm_apply(p: dict, x: torch.Tensor, eps: float = 1e-6
     sq = torch.einsum("...d,...d->...", xf, xf)
     inv = torch.rsqrt(sq[..., None] / x.shape[-1] + eps)
     return (x * inv.to(x.dtype)) * p["scale"].to(x.dtype)
+
+
+def embedding_init(generator: torch.Generator, vocab: int, d: int,
+                   scale: float = 0.02, device="cuda") -> dict:
+    """``{"table": (vocab, d)}`` of N(0, scale²), drawn where ``generator``
+    lives."""
+    t = torch.randn((vocab, d), generator=generator,
+                    device=generator.device) * scale
+    return {"table": t.to(resolve_device(device))}
+
+
+def embedding_apply(p: dict, ids: torch.Tensor, dtype=torch.float32
+                    ) -> torch.Tensor:
+    """The rows ``ids`` of the table, in ``dtype``."""
+    return p["table"].to(dtype)[ids.long()]
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

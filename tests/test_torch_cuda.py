@@ -18,7 +18,9 @@ checkpoint of card tensors restored on the CPU bit-equal, and the
 weighted ``sum`` plans (float32 tiles) on ``cuda`` against ``torch``,
 values and gradients; ``ResilientPlan``'s two drills on the card; the
 float64 loss and gradients of GAT, PNA and NequIP on the card against the
-CPU.
+CPU.  The MoE LMs at ``REDUCED``: decode steps with the kernel against the
+plain attention (logits and routes), and bit-identical reruns of a decode
+step and of ``lm_loss`` with its gradients.
 
 Every test here needs an NVIDIA GPU with nvcc; it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false.  The file imports
@@ -1574,3 +1576,106 @@ def test_gnn_zoo_step_on_the_card_matches_the_cpu(arch):
             continue
         torch.testing.assert_close(a.cpu(), b, rtol=0,
                                    atol=tol * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the MoE LMs: decode_attention on every layer, deterministic MoE steps
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ["granite-moe-3b-a800m", "llama4-maverick-400b-a17b"]
+
+
+def _moe_reduced(arch, seed=0):
+    import importlib
+    from repro_torch.models import lm_init
+    cfg = importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_")).REDUCED
+    return cfg, lm_init(torch.Generator().manual_seed(seed), cfg,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_kernel_matches_plain_attention(arch):
+    """``REDUCED`` (fp32): prefill, the caches copied into padded ones
+    along the sequence axis of every stack, then 4 decode steps with the
+    kernel (n_layers launches a step, dense and MoE layers alike) against
+    the same steps on ``attn="plain"``: logits within 1e-4 of their
+    largest entry, the same routes."""
+    _need_cuda()
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import moe
+    cfg, params = _moe_reduced(arch)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (3, 16), generator=gen).cuda()
+    steps = torch.randint(0, cfg.vocab, (3, 4), generator=gen).cuda()
+    out, routes = {}, {}
+    inner = moe.moe_routes
+    with torch.inference_mode():
+        _, caches = tf.lm_prefill(params, prompt, cfg)
+        for attn in ("kernel", "plain"):
+            seen = []
+
+            def recording(p, x, *a, **kw):
+                r = inner(p, x, *a, **kw)
+                seen.append(r.expert_ids.clone())
+                return r
+            moe.moe_routes = recording
+            try:
+                full = tf.make_kv_caches(cfg, 3, 64, device="cuda")
+                tf.fill_caches(full, caches)
+                before = kd.decode_attention.launches
+                out[attn] = torch.stack([
+                    tf.lm_decode_step(params, steps[:, i:i + 1], full,
+                                      16 + i, cfg, 64, attn=attn)[0]
+                    for i in range(4)])
+                launched = kd.decode_attention.launches - before
+            finally:
+                moe.moe_routes = inner
+            routes[attn] = seen
+            assert launched == (4 * cfg.n_layers if attn == "kernel" else 0)
+    ref = out["plain"]
+    torch.testing.assert_close(out["kernel"], ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+    assert len(routes["kernel"]) == 4 * cfg.n_moe_layers
+    for a, b in zip(routes["kernel"], routes["plain"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_reruns_are_bit_identical_on_the_card(arch):
+    """The MoE forward and backward use no atomics where several terms meet
+    a row: a decode step rerun over the same caches, and ``lm_loss`` with
+    its gradients (remat: the checkpointed recompute routes as the forward
+    did) computed twice, give the same bits; in bf16 too."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree_leaves
+    from repro_torch.train.optimizer import tree_unflatten
+    base, _ = _moe_reduced(arch)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = tf.lm_init(torch.Generator().manual_seed(2), cfg,
+                            device="cuda")
+        rng = np.random.default_rng(3)
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
+                              device="cuda")
+        tgt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
+                              device="cuda")
+        with torch.inference_mode():
+            _, caches = tf.lm_prefill(params, tok[:, :32], cfg)
+            full = tf.make_kv_caches(cfg, 4, 64, device="cuda")
+            tf.fill_caches(full, caches)
+            a = tf.lm_decode_step(params, tok[:, 32:33], full, 32, cfg, 64)[0]
+            b = tf.lm_decode_step(params, tok[:, 32:33], full, 32, cfg, 64)[0]
+        assert torch.equal(a, b)
+        runs = []
+        for _ in range(2):
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in tree_leaves(params)]
+            loss = tf.lm_loss(tree_unflatten(params, leaves), tok, tgt, cfg)
+            loss.backward()
+            runs.append((loss.detach(), [t.grad for t in leaves]))
+        assert torch.equal(runs[0][0], runs[1][0])
+        for x, y in zip(runs[0][1], runs[1][1]):
+            assert torch.equal(x, y)

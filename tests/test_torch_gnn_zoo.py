@@ -40,7 +40,7 @@ from repro.models import nequip as ref_nequip
 from repro.models import pna as ref_pna
 from repro.train import adam as ref_adam
 from repro_torch.configs import get
-from repro_torch.configs.base import GNN_SHAPES, NOT_PORTED
+from repro_torch.configs.base import GNN_SHAPES
 from repro_torch.configs.families import GNNBundle
 from repro_torch.convert import params_from_jax
 from repro_torch.graph import molecules_like, products_like
@@ -536,12 +536,19 @@ def test_configs_and_geometry_match_reference(arch):
         assert port_cfg.REDUCED == ref_cfg.REDUCED
 
 
-def test_only_the_moe_archs_are_not_ported():
-    assert set(NOT_PORTED) == {"granite-moe-3b-a800m",
-                               "llama4-maverick-400b-a17b"}
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get(name)
+def test_every_reference_arch_is_ported():
+    """Nothing of the reference's registry is left unported: both MoE
+    archs resolve to ``lm`` specs over ``LM_SHAPES``, and the port
+    registers exactly the reference's archs."""
+    from repro.configs import all_archs
+    from repro_torch.configs import LM_SHAPES, REGISTRY
+    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
+        spec = get(name)
+        assert spec.family == ref_get(name).family == "lm"
+        assert spec.shapes == tuple(LM_SHAPES)
+    assert set(REGISTRY) == set(all_archs())
+    with pytest.raises(KeyError, match="unknown arch"):
+        get("no-such-arch")
 
 
 def _reduced_bundles(arch):

@@ -47,6 +47,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.configs.granite_8b",
                 "repro_torch.configs.minitron_8b",
                 "repro_torch.configs.mistral_large_123b",
+                "repro_torch.configs.granite_moe_3b_a800m",
+                "repro_torch.configs.llama4_maverick_400b_a17b",
+                "repro_torch.nn.moe",
                 "repro_torch.configs.registry",
                 "repro_torch.configs.gat_cora", "repro_torch.configs.pna",
                 "repro_torch.configs.nequip", "repro_torch.exec.fallback",

@@ -357,13 +357,12 @@ def test_graph_flag_defaults_to_none():
     assert (args.tokens, args.batch, args.prompt_len) == (16, 2, 16)
 
 
-def test_registry_ports_the_dense_lms_only():
-    for arch in ("granite-8b", "minitron-8b", "mistral-large-123b"):
+def test_registry_ports_every_lm():
+    for arch in ("granite-8b", "minitron-8b", "mistral-large-123b",
+                 "granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
         spec = get(arch)
         assert spec.family == "lm" and spec.shapes == tuple(LM_SHAPES)
-    for arch in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            get(arch)
+        assert isinstance(spec.bundle(), LMBundle)
     # LM training is ported: the train cell gives a train step
     assert callable(LMBundle(granite_8b.REDUCED).step_fn("train_4k"))
 

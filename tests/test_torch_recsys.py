@@ -35,7 +35,6 @@ from repro.train import adam as ref_adam
 from repro.train import fit as ref_fit
 from repro.train import recsys_batches as ref_recsys_batches
 from repro_torch.configs import RECSYS_SHAPES, get
-from repro_torch.configs.base import NOT_PORTED
 from repro_torch.configs.families import RecsysBundle
 from repro_torch.configs.wide_deep import REDUCED
 from repro_torch.convert import params_from_jax
@@ -260,7 +259,6 @@ def test_launcher_trains_wide_deep_on_cpu(capsys):
                                "--device", "cpu"])
     assert res.steps == 3 and np.all(np.isfinite(res.losses))
     assert "wide-deep: 3 steps" in capsys.readouterr().out
-    assert "wide-deep" not in NOT_PORTED
     assert isinstance(get("wide-deep").bundle(), RecsysBundle)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -228,12 +228,12 @@ def test_launcher_refuses_what_is_not_ported(argv, what, capsys, tmp_path):
 
 def test_registry_ports_gcn_cora_only():
     """The four GNN archs are ported (``tests/test_torch_gnn_zoo.py``); an
-    MoE arch of the reference raises, an unknown arch is a ``KeyError`` and
-    a bundle of an unknown GNN arch refuses to build parameters."""
+    MoE arch of the reference is an LM spec (``tests/test_torch_lm_moe.py``),
+    an unknown arch is a ``KeyError`` and a bundle of an unknown GNN arch
+    refuses to build parameters."""
     for arch in ("gcn-cora", "gat-cora", "pna", "nequip"):
         assert get(arch).family == "gnn"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get("granite-moe-3b-a800m")
+    assert get("granite-moe-3b-a800m").family == "lm"
     with pytest.raises(KeyError):
         get("no-such-arch")
     with pytest.raises(ValueError, match="unknown GNN arch"):
