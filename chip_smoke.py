@@ -59,6 +59,25 @@
    ``exec.kernel_result`` demote to ``torch``, quarantine ``cuda`` under
    the card's device signature, and the cost oracle drops it; an armed
    fused layer (row 5) propagates its ``InjectedFault``.
+   Then observability (``obs_phase``): ``launch.serve`` on Cora under
+   ``--metrics-out --trace --summary`` (exactly 2 compact launches; both
+   files valid under ``repro_torch.obs.validate``, stamped ``cuda``, the
+   card's name and the power limit printed at the top; 200 requests, as
+   many ``serve.request`` instants, ``serve.batches`` equal to the
+   ``serve.batch`` spans, the per-layer hit-rate gauges); ``launch.train
+   --executor auto`` on a fresh cache under ``--metrics-out --trace``
+   (measured trial spans equal ``exec.autotune.trials``, one
+   ``exec.forward.verdict{source}``, 10 ``train.steps``) and two cached
+   reruns, with the flags and without, whose losses must be bit-identical
+   (deterministic algorithms when the verdict holds a ``coo`` layer);
+   10 traced ``fit`` steps on the fused plan, each ``train.step`` span no
+   shorter than its step's CUDA-event time; ``python -m
+   repro_torch.obs.audit`` writing the card's calibration table
+   (``n_obs`` equal to the cache's measured rows; the trace's audit the
+   same classes and signature); ``--executor fused`` cold without and with
+   that table (launches counted a step, the calibrated run's losses within
+   1e-4 of the plain path); the fused step's ms with telemetry off / on /
+   on / off.
    Every path runs with each kernel's launch count set to 0 just before it
    and read just after, and fails if a kernel it needs was not launched.
 6. GraphSAGE on the paper's CITESEER-S stand-in at Table I's size
@@ -1385,6 +1404,438 @@ def gin_training_phase(torch, dev, g):
                                 grad_tol=1e-4, loss_tol=1e-3)
     report["breakdown"] = breakdown
     return launches, res.losses, breakdown["step_ms"], report
+
+
+# ---------------------------------------------------------------------------
+# observability: the launchers' --metrics-out / --trace / --summary, the
+# spans against device time, the audit's calibration from the card's trials
+# ---------------------------------------------------------------------------
+OBS_STEPS = 10
+# the card's power limit as nvidia-smi printed it at the top (main sets it)
+SMI_POWER_LIMIT = None
+
+
+def read_observed(torch, dev, metrics_path, trace_path, what):
+    """Both files of an observed run: each valid under the port's
+    validator, both stamped with the device the run resolved (``cuda``:
+    the card's name and the power limit printed at the top).  Returns
+    ``({full metric name: record}, trace doc)``."""
+    from repro_torch.obs import validate
+
+    problems = (validate.validate_metrics_file(metrics_path)
+                + validate.validate_trace_file(trace_path))
+    if problems:
+        raise AssertionError(f"{what}: invalid telemetry: {problems}")
+    with open(metrics_path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    with open(trace_path) as f:
+        doc = json.load(f)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    for where, prov in (("metrics", records[0]),
+                        ("trace", doc.get("otherData") or {})):
+        if (prov.get("backend"), prov.get("device_kind")) != (dev.type,
+                                                               kind):
+            raise AssertionError(f"{what}: {where} provenance names "
+                                 f"{prov.get('backend')} / "
+                                 f"{prov.get('device_kind')}, the run "
+                                 f"resolved {dev.type} / {kind}")
+        if dev.type == "cuda" and \
+                f"{prov.get('power_limit_w')} W" != SMI_POWER_LIMIT:
+            raise AssertionError(f"{what}: {where} provenance power limit "
+                                 f"{prov.get('power_limit_w')!r}; "
+                                 f"nvidia-smi printed {SMI_POWER_LIMIT!r}")
+    metrics = {}
+    for rec in records[1:]:
+        if rec.get("schema") == "repro.obs/metric@1":
+            labels = ",".join(f"{k}={v}" for k, v in
+                              sorted(rec["labels"].items()))
+            metrics[rec["name"] + (f"{{{labels}}}" if labels else "")] = rec
+    return metrics, doc
+
+
+def trace_names(doc, ph):
+    return [e["name"] for e in doc["traceEvents"] if e.get("ph") == ph]
+
+
+def observed_serving(torch, dev, d):
+    """``launch.serve`` on Cora under ``--metrics-out --trace --summary``:
+    exactly the 2 compact launches of ``serving_phase``, valid files with
+    the card's provenance, 200 requests in as many ``serve.request``
+    instants, ``serve.batches`` equal to the ``serve.batch`` spans, the
+    per-layer hit-rate gauges, the summary printed."""
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    m, t = os.path.join(d, "serve.jsonl"), os.path.join(d, "serve.json")
+    argv = ["--graph", "cora", "--model", "gcn", "--requests", "200",
+            "--cache-kb", "500", "--warm", "reorder", "--device", "cuda",
+            "--metrics-out", m, "--trace", t, "--summary"]
+    obs.reset()
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rep = serve.main(argv)
+    launches = read_launches(torch)
+    out = buf.getvalue()
+    print(out, end="")
+    want = dict.fromkeys(KERNELS, 0)
+    want["spmm_blockell_compact"] = 2
+    if launches != want:
+        raise AssertionError(f"observed serving launched {launches}; "
+                             f"expected {want}")
+    metrics, doc = read_observed(torch, dev, m, t, "observed serving")
+    batches = trace_names(doc, "X").count("serve.batch")
+    requests = trace_names(doc, "i").count("serve.request")
+    got = {"serve.requests": metrics["serve.requests"]["value"],
+           "serve.batches": metrics["serve.batches"]["value"],
+           "serve.batch spans": batches, "serve.request instants": requests}
+    if got != {"serve.requests": 200, "serve.batches": batches,
+               "serve.batch spans": batches,
+               "serve.request instants": 200} or not batches:
+        raise AssertionError(f"observed serving counted {got}")
+    layers = sorted(k for k in metrics
+                    if k.startswith("serve.cache.hit_rate{layer="))
+    if len(layers) != 3:
+        raise AssertionError(f"per-layer hit-rate gauges: {layers}")
+    if f"=== {m} ===" not in out or f"=== {t} ===" not in out:
+        raise AssertionError("the --summary one-pager was not printed")
+    if rep.max_oracle_err >= ORACLE_TOL:
+        raise AssertionError(f"observed serving oracle {rep.max_oracle_err}")
+    return launches, {"counted": got, "hit_rate_gauges": {
+        k: metrics[k]["value"] for k in layers},
+        "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms}
+
+
+def observed_training(torch, dev, d, cache_dir):
+    """``launch.train --executor auto`` under ``--metrics-out --trace`` on
+    a fresh tuning cache: the measured trial spans equal the
+    ``exec.autotune.trials`` counter, one ``exec.forward.verdict{source}``,
+    10 ``train.steps``.  Then two cached runs, with the flags and without:
+    the same schedule, the same launches, the same losses bit for bit
+    (telemetry changes no arithmetic).  A ``coo`` layer's ``index_add_``
+    sums with atomics, in another order each run, so when the verdict
+    holds one both runs take PyTorch's deterministic algorithms."""
+    from repro_torch import obs
+
+    argv = ["--arch", "gcn-cora", "--steps", str(OBS_STEPS)]
+    m2, t2 = os.path.join(d, "train.jsonl"), os.path.join(d, "train.json")
+    obs.reset()
+    reset_launches()
+    res, lines, wall = run_launcher(argv + ["--metrics-out", m2,
+                                            "--trace", t2])
+    launches = read_launches(torch)
+    metrics, doc = read_observed(torch, dev, m2, t2, "observed training")
+    trials = [e for e in doc["traceEvents"]
+              if e.get("name") == "exec.autotune.trial"
+              and "us" in (e.get("args") or {})]
+    verdicts = {k: v["value"] for k, v in metrics.items()
+                if k.startswith("exec.forward.verdict{")}
+    counted = {"trial spans": len(trials),
+               "exec.autotune.trials":
+                   metrics["exec.autotune.trials"]["value"],
+               "exec.forward.verdict": verdicts,
+               "train.steps": metrics["train.steps"]["value"]}
+    if (counted["trial spans"] != counted["exec.autotune.trials"]
+            or not trials or sum(verdicts.values()) != 1
+            or len(verdicts) != 1 or counted["train.steps"] != OBS_STEPS):
+        raise AssertionError(f"observed training counted {counted}")
+    schedule = schedule_of(lines)
+
+    # the cached verdict, with the flags and without
+    coo = any(" coo " in ln for ln in schedule)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(coo or was, warn_only=True)
+    try:
+        obs.reset()
+        reset_launches()
+        res_on, lines_on, _ = run_launcher(
+            argv + ["--metrics-out", os.path.join(d, "cached.jsonl"),
+                    "--trace", os.path.join(d, "cached.json")])
+        cached_on = read_launches(torch)
+        with obs.enabled_scope(False):
+            obs.reset()
+            reset_launches()
+            res_off, lines_off, _ = run_launcher(argv)
+            cached_off = read_launches(torch)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for what, ls in (("with the flags", lines_on),
+                     ("without the flags", lines_off)):
+        if not any("(cached)" in ln for ln in ls):
+            raise AssertionError(f"the rerun {what} did not read the cache")
+        if schedule_of(ls) != schedule:
+            raise AssertionError(f"the rerun {what} changed the schedule")
+    if cached_on != cached_off:
+        raise AssertionError(f"the cached runs launched {cached_on} and "
+                             f"{cached_off}")
+    if res_on.losses != res_off.losses:
+        raise AssertionError("telemetry changed the arithmetic: losses "
+                             f"{res_on.losses} with the flags, "
+                             f"{res_off.losses} without")
+    print(f"observed gcn-cora: {json.dumps(counted)}; cached losses "
+          "bit-identical with and without the flags"
+          + (" (deterministic algorithms: a coo layer)" if coo else ""))
+    total = {k: launches[k] + cached_on[k] + cached_off[k] for k in KERNELS}
+    return total, trials, {
+        "counted": counted, "schedule": schedule, "launcher_wall_s": wall,
+        "losses": res.losses, "cached_losses_on": res_on.losses,
+        "cached_losses_off": res_off.losses, "coo_layer": coo,
+        "trace": t2}
+
+
+def spans_against_events(torch, dev, g):
+    """10 ``fit`` steps of gcn-cora on the ``--executor fused`` plan with
+    the tracer on and CUDA events around each step (the step function's
+    call): each ``train.step`` span must be no shorter than its step's
+    event time, i.e. the span ends after the step's device work."""
+    from repro_torch import obs
+    from repro_torch.configs import get
+    from repro_torch.exec import gcn_chain, plan_forward
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.train import adam, fit
+    from repro_torch.train import loop
+
+    bundle = get("gcn-cora").bundle()
+    dims = [g.node_feat.shape[1], *bundle.model_kw["hidden"],
+            bundle.n_classes]
+    fplan = plan_forward(g, gcn_chain(dims), device=dev)
+    loss_fn = bundle.loss_fn("full_graph_sm", executor="fused",
+                             exec_plan=fplan)
+    params = bundle.init_params(torch.Generator().manual_seed(0), dims[0],
+                                device=dev)
+    batch = gnn_batch(g, bundle.n_classes, dev)
+    events = []
+    real = loop.make_train_step
+
+    def timed_step(*args, **kw):
+        step = real(*args, **kw)
+
+        def run(p, s, b):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(p, s, b)
+            end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    loop.make_train_step = timed_step
+    reset_launches()
+    try:
+        with obs.enabled_scope():
+            obs.start_trace()
+            try:
+                fit(loss_fn, adam(1e-2), params, iter(lambda: batch, None),
+                    steps=OBS_STEPS, clip_norm=1.0, log=lambda s: None)
+            finally:
+                doc = obs.stop_trace()
+    finally:
+        loop.make_train_step = real
+    launches = read_launches(torch)
+    check_step_launches(launches, fplan, OBS_STEPS,
+                        "traced gcn-cora fit (--executor fused)")
+    span_ms = [e["dur"] / 1e3 for e in doc["traceEvents"]
+               if e.get("name") == "train.step"]
+    event_ms = [s.elapsed_time(e) for s, e in events]
+    if len(span_ms) != OBS_STEPS or len(event_ms) != OBS_STEPS:
+        raise AssertionError(f"{len(span_ms)} spans, {len(event_ms)} "
+                             "event pairs")
+    short = [(i, s, e) for i, (s, e) in enumerate(zip(span_ms, event_ms))
+             if s < e]
+    if short:
+        raise AssertionError(f"train.step spans shorter than their steps' "
+                             f"device time (step, span ms, event ms): "
+                             f"{short}")
+    out = {"span_ms": span_ms, "event_ms": event_ms,
+           "span_median_ms": statistics.median(span_ms),
+           "event_median_ms": statistics.median(event_ms)}
+    print(f"train.step spans vs CUDA events: median "
+          f"{out['span_median_ms']:.4f} ms span, "
+          f"{out['event_median_ms']:.4f} ms device window")
+    return launches, out
+
+
+def audit_on_card(dev, cache_dir, trace_path):
+    """``python -m repro_torch.obs.audit --cache-dir DIR`` writes the
+    card's table from the trials it measured: ``n_obs`` is the number of
+    measured rows in the cache; the trace alone (``--no-write``) gives the
+    same classes under the same signature."""
+    import importlib
+    from repro_torch.obs import audit
+    at = importlib.import_module("repro_torch.exec.autotune")
+
+    sig = at.device_sig(dev.type)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.audit", "--cache-dir",
+         cache_dir, "--device", dev.type], capture_output=True, text=True,
+        env=env, timeout=300)
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        raise AssertionError(f"the audit exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    table = audit.load_calibration(sig, cache_dir)
+    if table is None:
+        raise AssertionError(f"no calibration table under {sig}")
+    with open(os.path.join(cache_dir, "autotune.json")) as f:
+        entries = json.load(f)
+    rows = sum(1 for e in entries.values()
+               if e.get("device_sig") == sig and e.get("n")
+               for r in e["table"] if r[-1] > 0)
+    if table["n_obs"] != rows or not rows:
+        raise AssertionError(f"the audit joined {table['n_obs']} rows; the "
+                             f"cache holds {rows} measured rows")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    trace_sig = audit.trace_device_sig(doc)
+    trace_classes = {o.ckey for o in audit.observations_from_trace(doc)}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = audit.main([trace_path, "--no-write", "--cache-dir", cache_dir,
+                         "--device", dev.type])
+    if rc != 0 or trace_sig != sig or trace_classes != set(table["classes"]):
+        raise AssertionError(f"the trace's audit: rc {rc}, signature "
+                             f"{trace_sig} (cache {sig}), classes "
+                             f"{sorted(trace_classes)} vs "
+                             f"{sorted(table['classes'])}")
+    print(f"audit {sig}: n_obs {table['n_obs']}, global ratio "
+          f"{table['global_ratio']:.6g} us per byte-equivalent")
+    for ck, c in table["classes"].items():
+        print(f"  class {ck}: ratio {c['ratio']:.6g} n {c['n']} "
+              f"rel_err_p50 {c['rel_err_p50']:.3f}")
+    for grp, v in table["groups"].items():
+        print(f"  group {grp}: spearman {v['spearman']:+.3f} cands "
+              f"{v['n_cands']}")
+    return table
+
+
+def calibrated_cold_dp(torch, dev, g, table):
+    """``launch.train --executor fused`` cold (an empty cache), then on a
+    cache holding only the audit's calibration table: both schedules
+    printed, every step's launches counted against the plan that ran, the
+    calibrated run's losses held against the plain path within 1e-4."""
+    from repro_torch.configs import get
+    from repro_torch.exec import gcn_chain, plan_forward
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.obs import audit
+
+    bundle = get("gcn-cora").bundle()
+    dims = [g.node_feat.shape[1], *bundle.model_kw["hidden"],
+            bundle.n_classes]
+    specs = gcn_chain(dims)
+    argv = ["--arch", "gcn-cora", "--steps", str(OBS_STEPS), "--executor",
+            "fused"]
+    out, total = {}, dict.fromkeys(KERNELS, 0)
+    for label in ("uncalibrated", "calibrated"):
+        with tuning_cache() as d:
+            if label == "calibrated":
+                audit.save_calibration(table, d)
+            reset_launches()
+            res, lines, _ = run_launcher(argv)
+            launches = read_launches(torch)
+            fplan = plan_forward(g, specs, device=dev)
+        check_curve(res.losses, f"gcn-cora fused ({label})")
+        check_step_launches(launches, fplan, OBS_STEPS,
+                            f"gcn-cora fused ({label})")
+        for k in KERNELS:
+            total[k] += launches[k]
+        out[label] = {"schedule": schedule_of(lines),
+                      "configs": [list(c) for c in fplan.configs],
+                      "launches": launches, "losses": res.losses}
+        print(f"gcn-cora fused, {label} cold DP: "
+              + "; ".join(schedule_of(lines)))
+    batch = gnn_batch(g, bundle.n_classes, dev)
+    cal_configs = [tuple(c) for c in out["calibrated"]["configs"]]
+    hold = hold_against_plain(
+        torch, "gcn-cora fused (calibrated cold DP)",
+        gcn_make(g, bundle, dims, specs, batch, cal_configs, dev),
+        COMPARE_STEPS, grad_tol=1e-5, loss_tol=1e-4)
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in
+           zip(out["calibrated"]["losses"], hold["plain_losses"])]
+    if max(rel) > 1e-4:
+        raise AssertionError(f"the calibrated launcher's losses part from "
+                             f"the plain path by {max(rel)}")
+    out["hold"] = hold
+    out["launcher_vs_plain_rel"] = rel
+    out["schedule_changed"] = (out["calibrated"]["schedule"]
+                               != out["uncalibrated"]["schedule"])
+    print(f"calibration changed the cold schedule: "
+          f"{out['schedule_changed']}")
+    return total, out
+
+
+def telemetry_cost(torch, dev, g):
+    """gcn-cora ``--executor fused`` ms a step under ``step_breakdown``
+    with the registry and tracer off, on, on, off."""
+    from repro_torch import obs
+    from repro_torch.configs import get
+    from repro_torch.exec import gcn_chain, plan_forward
+    from repro_torch.launch.train import gnn_batch
+    from repro_torch.train import adam, make_train_step
+
+    bundle = get("gcn-cora").bundle()
+    dims = [g.node_feat.shape[1], *bundle.model_kw["hidden"],
+            bundle.n_classes]
+    fplan = plan_forward(g, gcn_chain(dims), device=dev)
+    loss_fn = bundle.loss_fn("full_graph_sm", executor="fused",
+                             exec_plan=fplan)
+    batch = gnn_batch(g, bundle.n_classes, dev)
+    runs = []
+    for on in (False, True, True, False):
+        params = bundle.init_params(torch.Generator().manual_seed(0),
+                                    dims[0], device=dev)
+        with obs.enabled_scope(on):
+            if on:
+                obs.start_trace()
+            try:
+                rep = step_breakdown(
+                    torch, f"gcn-cora fused, telemetry {'on' if on else 'off'}",
+                    make_train_step(loss_fn, adam(1e-2), 1.0), params,
+                    adam(1e-2).init(params), batch)
+            finally:
+                obs.stop_trace()
+        runs.append({"telemetry": on, "step_ms": rep["step_ms"],
+                     "busy_share": rep["busy_share"]})
+    print("telemetry cost (gcn-cora fused ms a step, off/on/on/off): "
+          + json.dumps([r["step_ms"] for r in runs]))
+    return runs
+
+
+def obs_phase(torch, dev):
+    """The observability slice on the card (section 5 of the docstring):
+    an observed Cora serve, an observed ``--executor auto`` gcn-cora run
+    with its cached reruns, ``train.step`` spans against CUDA events, the
+    audit writing the card's calibration table from that run's trials, the
+    calibrated cold DP, and the cost of telemetry."""
+    from repro_torch.launch.train import training_graph
+
+    t0 = time.perf_counter()
+    g = training_graph()
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="obs-") as d:
+        serve_launches, report["serving"] = observed_serving(torch, dev, d)
+        with tuning_cache() as cache_dir:
+            train_launches, trials, report["training"] = observed_training(
+                torch, dev, d, cache_dir)
+            table = audit_on_card(dev, cache_dir,
+                                  report["training"].pop("trace"))
+        report["audit"] = {k: table[k] for k in
+                           ("device_sig", "n_obs", "global_ratio",
+                            "classes", "groups", "misranks")}
+        report["trials"] = len(trials)
+    span_launches, report["spans"] = spans_against_events(torch, dev, g)
+    fused_launches, report["calibrated"] = calibrated_cold_dp(torch, dev, g,
+                                                              table)
+    report["telemetry_cost"] = telemetry_cost(torch, dev, g)
+    launches = {k: serve_launches[k] + train_launches[k] + span_launches[k]
+                + fused_launches[k] for k in KERNELS}
+    report["launches"] = launches
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"observability phase: {report['wall_s']:.1f}s, launches "
+          f"{launches}")
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -4036,7 +4487,7 @@ def gnn_zoo_launcher_phase(torch, dev):
 # E[x²] - E[x]² cancels under its std and near-ties at max / min route a
 # gradient to another edge, and the reference's own fp32 gradients part from
 # its fp64 ones by up to 3e-3 on products_like(0.001)
-# (tests/test_torch_gnn_zoo.py::test_reference_fp32_grads_part_from_fp64_on_products)
+# (tests/test_torch_gnn_zoo_train.py::test_reference_fp32_grads_part_from_fp64_on_products)
 ZOO_GRAD_TOL = {"gat-cora": 1e-4, "pna": 1e-2, "nequip": 1e-4}
 
 
@@ -4319,6 +4770,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    global SMI_POWER_LIMIT
+    SMI_POWER_LIMIT = smi.stdout.strip().splitlines()[0].rsplit(", ", 1)[1]
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke: src/repro_torch not found beside this "
                          "script; run it from a checkout of the repository")
@@ -4369,6 +4822,8 @@ def main() -> int:
     fused_cases += weighted_fused
     sddmm_cases = sddmm_phase(torch, dev, g_train)
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
+    paths["observability (serve + train + audit)"], obs_report = obs_phase(
+        torch, dev)
     sage_compact, sage_update, sage_paths, sage_report = sage_phases(torch,
                                                                      dev)
     compact_cases += sage_compact
@@ -4473,7 +4928,7 @@ def main() -> int:
         "gin_shared": gin_shared_report,
         "wide_deep": recsys_report, "lm": lm_report,
         "lm_training": lm_train_report, "moe": moe_report,
-        "fallback": fallback_report,
+        "fallback": fallback_report, "observability": obs_report,
         "gnn_zoo": zoo_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

@@ -32,8 +32,13 @@ offline full-graph forward runs through the block-ELL kernels on ``cuda``.
 ``wide_deep``: each of the graph's nodes is a user of the reduced wide &
 deep model, scored by the user tower, whose field lookup is the
 ``embedding_bag`` kernel on ``cuda``.  Runs on ``cuda`` unless ``--device
-cpu`` is given.  ``--metrics-out`` / ``--trace`` are not ported yet
-(ROADMAP §1 item 7).
+cpu`` is given.
+
+Either path takes ``--metrics-out FILE.jsonl`` (enable telemetry, dump the
+registry with the run's provenance on exit), ``--trace FILE.json`` (a
+Perfetto trace: ``serve.batch`` spans, a ``serve.request`` instant per
+request) and ``--summary`` (print ``obs.summary`` of those files after the
+run, on error too).
 """
 import argparse
 import dataclasses
@@ -42,6 +47,7 @@ import time
 
 import torch
 
+from .. import obs
 from ..configs import get
 from ..core import identity_order, minhash_reorder
 from ..device import resolve_device
@@ -184,16 +190,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="dataset scale for the citeseer-s/reddit stand-ins")
     ap.add_argument("--no-oracle", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return ap.parse_args(argv)
+    obs.add_cli_flags(ap)
+    ap.add_argument("--summary", action="store_true",
+                    help="after the run, print the repro_torch.obs.summary "
+                         "one-pager for --metrics-out / --trace files "
+                         "(per-layer cache hit rates, queue-depth "
+                         "high-watermark, latency percentiles)")
+    args = ap.parse_args(argv)
+    if args.summary and not (args.metrics_out or args.trace):
+        ap.error("--summary needs --metrics-out and/or --trace")
+    return args
 
 
 def main(argv=None):
     """The graph path's ``ServeReport``, or the LM path's
     ``LMServeResult``."""
     args = parse_args(argv)
-    if args.graph is not None:
-        return serve_graph(args)
-    return serve_lm(args)
+    try:
+        with obs.observed_run(args.metrics_out, args.trace,
+                              device=args.device):
+            if args.graph is not None:
+                return serve_graph(args)
+            return serve_lm(args)
+    finally:
+        if args.summary:
+            from ..obs import summary as _summary
+            _summary.main([f for f in (args.metrics_out, args.trace) if f])
 
 
 if __name__ == "__main__":

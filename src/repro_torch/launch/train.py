@@ -37,7 +37,12 @@ its ``REDUCED`` config as the reference does (``--reduced`` is always on):
 batches of 4 x 64 tokens from ``lm_token_batches``, ``adam(1e-3)``,
 ``lm_loss`` (with the MoE layers' aux loss at weight 0.01).  ``--ckpt DIR`` resumes from the latest
 checkpoint in DIR and writes one every 100 steps and at the end.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+``cuda`` unless ``--device cpu`` is given.  ``--metrics-out`` /
+``--trace`` / ``--summary`` work as in ``launch.serve``: the registry
+(``train.steps``, ``exec.plan.compiles``, ``exec.autotune.trials``, the
+schedule's ``exec.forward.verdict{source}``, ...) and a trace of the
+``train.step`` and ``exec.autotune.trial`` spans, stamped with the run's
+provenance.
 """
 import argparse
 import importlib
@@ -45,6 +50,7 @@ import importlib
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs import get
 from ..configs.wide_deep import REDUCED
 from ..core import minhash_reorder
@@ -77,10 +83,14 @@ def gnn_batch(g, n_classes: int, device="cuda") -> dict:
 
 def schedule_plans(g, specs, executor: str, device="cuda"):
     """The whole-forward plan of ``--executor``: ``autotune_forward`` for
-    ``auto`` / ``forward`` (printing the verdict), ``plan_forward`` for
-    ``fused``; then one line per layer, as the reference prints them."""
+    ``auto`` / ``forward`` (printing the verdict and counting it in
+    ``exec.forward.verdict{source}`` / ``exec.forward.verdict_us``, as the
+    reference does), ``plan_forward`` for ``fused``; then one line per
+    layer, as the reference prints them."""
     if executor in ("auto", "forward"):
         fplan, rec = autotune_forward(g, specs, device=device)
+        obs.counter("exec.forward.verdict", source=rec.source).inc()
+        obs.gauge("exec.forward.verdict_us").set(rec.us)
         greedy = rec.greedy_us
         print(f"forward autotune: schedule={rec.source} "
               f"{rec.us:.0f}us whole-chain"
@@ -197,7 +207,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "aggregation plan plus a separate matmul; "
                          "'segment' the edge list")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return ap.parse_args(argv)
+    obs.add_cli_flags(ap)
+    ap.add_argument("--summary", action="store_true",
+                    help="after the run, print the repro_torch.obs.summary "
+                         "one-pager for --metrics-out / --trace files")
+    args = ap.parse_args(argv)
+    if args.summary and not (args.metrics_out or args.trace):
+        ap.error("--summary needs --metrics-out and/or --trace")
+    return args
 
 
 def main(argv=None) -> TrainResult:
@@ -206,6 +223,17 @@ def main(argv=None) -> TrainResult:
         raise NotImplementedError("--dist is not ported yet (ROADMAP §1 "
                                   "item 9)")
     spec = get(args.arch)
+    try:
+        with obs.observed_run(args.metrics_out, args.trace,
+                              device=args.device):
+            return _train(args, spec)
+    finally:
+        if args.summary:
+            from ..obs import summary as _summary
+            _summary.main([f for f in (args.metrics_out, args.trace) if f])
+
+
+def _train(args, spec) -> TrainResult:
     if spec.family == "gnn":
         res = gnn_driver(args.arch, args.steps, args.ckpt,
                          executor=args.executor, device=args.device)

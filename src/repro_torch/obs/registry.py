@@ -1,8 +1,7 @@
 """Process-local telemetry registry: counters, gauges, streaming histograms.
 
-A framework-free copy of ``repro/obs/registry.py`` (the Prometheus text
-export and the JSONL/provenance export of ``repro.obs.export`` are not
-ported yet).
+A framework-free copy of ``repro/obs/registry.py``; the JSONL dump with
+the run's provenance lives in :mod:`repro_torch.obs.export`.
 
 Design constraints:
 
@@ -18,7 +17,9 @@ Design constraints:
   ``gated=False`` so it records regardless of the global flag; the flag
   then only gates *telemetry*, never correctness.
 
-``snapshot()`` returns the whole registry as a nested dict.
+``snapshot()`` returns the whole registry as a nested dict;
+``to_prometheus()`` renders Prometheus text exposition format (byte-equal
+to the reference's for the same metric operations).
 """
 from __future__ import annotations
 
@@ -48,6 +49,23 @@ def disable() -> None:
 
 def enabled() -> bool:
     return _STATE.enabled
+
+
+class enabled_scope:
+    """``with obs.enabled_scope():`` — enable within a block, restore after."""
+
+    def __init__(self, on: bool = True):
+        self._on = on
+        self._prev = False
+
+    def __enter__(self):
+        self._prev = _STATE.enabled
+        _STATE.enabled = self._on
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.enabled = self._prev
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +276,52 @@ class Registry:
                 out["histograms"][full_name(m)] = payload
         return out
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (counters/gauges native; histograms as
+        summaries: ``_count``, ``_sum``, and ``quantile`` series)."""
+        lines = []
+        seen_types = set()
+        for m in sorted(self.metrics(), key=full_name):
+            base = _prom_name(m.name)
+            if m.kind in ("counter", "gauge"):
+                if base not in seen_types:
+                    lines.append(f"# TYPE {base} {m.kind}")
+                    seen_types.add(base)
+                lines.append(f"{base}{_prom_labels(m.labels)} "
+                             f"{m.payload()['value']}")
+            else:
+                if base not in seen_types:
+                    lines.append(f"# TYPE {base} summary")
+                    seen_types.add(base)
+                p = m.payload()
+                for q, v in (("0.5", p["p50"]), ("0.9", p["p90"]),
+                             ("0.99", p["p99"])):
+                    lines.append(
+                        f"{base}{_prom_labels(m.labels, quantile=q)} {v}")
+                lines.append(f"{base}_sum{_prom_labels(m.labels)} "
+                             f"{p['sum']}")
+                lines.append(f"{base}_count{_prom_labels(m.labels)} "
+                             f"{p['count']}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
 
 def full_name(m) -> str:
     if not m.labels:
         return m.name
     inner = ",".join(f"{k}={v}" for k, v in m.labels)
     return f"{m.name}{{{inner}}}"
+
+
+def _prom_name(name: str) -> str:
+    return "".join(c if c.isalnum() or c == "_" else "_" for c in name)
+
+
+def _prom_labels(labels: LabelKey, **extra) -> str:
+    items = list(labels) + sorted(extra.items())
+    if not items:
+        return ""
+    inner = ",".join(f'{_prom_name(k)}="{v}"' for k, v in items)
+    return f"{{{inner}}}"
 
 
 # the process-global default registry and its module-level helpers
@@ -286,6 +344,10 @@ def histogram(name: str, gated: bool = True, lo: float = 1e-7,
 
 def snapshot() -> dict:
     return REGISTRY.snapshot()
+
+
+def to_prometheus() -> str:
+    return REGISTRY.to_prometheus()
 
 
 def reset() -> None:

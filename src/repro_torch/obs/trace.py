@@ -1,14 +1,16 @@
 """Span tracer emitting Perfetto / chrome://tracing-compatible JSON.
 
-A framework-free copy of ``repro/obs/trace.py``: plan compiles and serve
-request batches become *complete* events (``ph: "X"``) on one
-``time.perf_counter`` timeline.  Host clock only — device time on the card
-comes from CUDA events (see ``chip_smoke.py``).
+A framework-free copy of ``repro/obs/trace.py``: autotune trials, DP
+scheduling, serve request batches and train steps become *complete* events
+(``ph: "X"``) on one ``time.perf_counter`` timeline.  Host clock only —
+device time on the card comes from CUDA events (see ``chip_smoke.py``); a
+``train.step`` span covers its step's device work because the loop reads
+the loss inside it.
 
 Zero overhead when idle: ``span()``/``instant()`` return a shared no-op
 singleton while no tracer is installed — no allocation, no clock read, no
 formatting.  Install one with :func:`start_trace`, write it out with
-:func:`stop_trace`.
+:func:`stop_trace` (or use the :func:`tracing_to` context manager).
 
 Output format (the JSON Object Format of the Trace Event spec, which
 Perfetto and chrome://tracing both accept):
@@ -164,6 +166,14 @@ def stop_trace(path: Optional[str] = None,
     return t.to_json(other_data)
 
 
+def tracing() -> bool:
+    return _TRACE.tracer is not None
+
+
+def current_tracer() -> Optional[Tracer]:
+    return _TRACE.tracer
+
+
 def span(name: str, cat: str = "repro", **args):
     """A span on the installed tracer, or the shared no-op when idle.
 
@@ -182,3 +192,19 @@ def instant(name: str, cat: str = "repro", **args) -> None:
     if t is None:
         return
     t.instant(name, cat, **args)
+
+
+class tracing_to:
+    """``with obs.tracing_to("run.json"):`` — trace a block, write on exit."""
+
+    def __init__(self, path: str, other_data: Optional[dict] = None):
+        self.path = path
+        self.other_data = other_data
+        self.doc: Optional[dict] = None
+
+    def __enter__(self) -> Tracer:
+        return start_trace()
+
+    def __exit__(self, *exc):
+        self.doc = stop_trace(self.path, self.other_data)
+        return False

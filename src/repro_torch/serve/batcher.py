@@ -55,17 +55,26 @@ def pow2_bucket(n: int, cap: Optional[int] = None) -> int:
 
 
 class MicroBatcher:
-    """Deadline/size-triggered request coalescing (admission control lives
-    in the engine's SLO mode, :class:`repro_torch.serve.ServeSLO`)."""
+    """Deadline/size-triggered request coalescing.
 
-    def __init__(self, max_batch: int = 64, max_wait: float = 2e-3):
+    ``max_queue`` bounds the pending queue: :meth:`try_submit` sheds (refuses)
+    arrivals once the bound is reached instead of queueing without limit —
+    the admission-control half of the serve SLO story (:class:`repro_torch.
+    serve.ServeSLO`).  The default (``None``) keeps the queue unbounded and
+    :meth:`submit` unconditional.
+    """
+
+    def __init__(self, max_batch: int = 64, max_wait: float = 2e-3,
+                 max_queue: Optional[int] = None):
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError("max_batch must be a power of two "
                              "(bucket discipline)")
         self.max_batch = max_batch
         self.max_wait = float(max_wait)
+        self.max_queue = max_queue
         self.pending: List[Request] = []
         self.depth_hwm = 0            # deepest the queue ever got
+        self.shed = 0                 # arrivals refused by try_submit
 
     def _flush(self, t: float, reason: str) -> MicroBatch:
         obs.counter("serve.flush", reason=reason).inc()
@@ -92,6 +101,23 @@ class MicroBatcher:
         if len(self.pending) >= self.max_batch:
             return self._flush(req.t_arrival, "full")
         return None
+
+    @property
+    def queue_full(self) -> bool:
+        return (self.max_queue is not None
+                and len(self.pending) >= self.max_queue)
+
+    def try_submit(self, req: Request):
+        """Admission-controlled submit: ``(admitted, batch)``.
+
+        Sheds the request (returns ``(False, None)``, counts ``serve.shed``)
+        when the bounded queue is full; otherwise behaves like
+        :meth:`submit`."""
+        if self.queue_full:
+            self.shed += 1
+            obs.counter("serve.shed", reason="queue_full").inc()
+            return False, None
+        return True, self.submit(req)
 
     def due(self) -> Optional[float]:
         """Deadline of the oldest pending request (None when queue empty)."""

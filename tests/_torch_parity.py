@@ -6,13 +6,25 @@ The three structural graphs are the ones ``tests/test_exec.py`` uses (same
 builders, same seeds): a random graph, a skewed graph whose hub row
 inflates the ELL width, and a graph whose later row blocks have no active
 slot.
+
+Under pytest-xdist each worker takes its share of the machine's cores for
+torch's intra-op threads: every worker imports this module while it
+collects, and without a share each would start an OpenMP pool as large as
+the machine, the pools spinning against each other (a CPU autotune of Cora
+that takes 5 s alone took two minutes beside two other test processes).
 """
 import dataclasses
+import os
 
 import numpy as np
+import torch
 
 from repro.graph import Graph as RefGraph
 from repro_torch.graph import Graph as PortGraph
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+        os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def random_graph(n=300, e=2000, seed=0) -> RefGraph:

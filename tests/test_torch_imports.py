@@ -83,7 +83,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.serve.registry", "repro_torch.train.fault",
                 "repro_torch.train.loop", "repro_torch.train.optimizer",
                 "repro_torch.train.checkpoint", "repro_torch.chaos",
-                "repro_torch.chaos.inject"}
+                "repro_torch.chaos.inject", "repro_torch.chaos.traffic",
+                "repro_torch.obs.export", "repro_torch.obs.summary",
+                "repro_torch.obs.validate", "repro_torch.obs.regress"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []

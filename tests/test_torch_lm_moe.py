@@ -22,16 +22,14 @@ reference's own ``lm_init`` parameters carried over by
 * ``param_count`` / ``active_param_count`` at ``CONFIG``; ``LMBundle``'s
   ``input_specs`` against the reference's at all four ``LM_SHAPES`` and
   its steps at a cut batch; the serve launcher copying the caches along
-  the sequence axis;
-* the launchers: ``launch.serve --arch ...`` generates the ids of the
-  reference's ``serve_lm`` (same parameters and prompt), and ``launch.train
-  --arch ... --steps 10`` the losses of its ``lm_reduced_driver`` within
-  1e-4.
+  the sequence axis.
+
+The launchers are ``tests/test_torch_lm_moe_launch.py``, a file of its own
+so that pytest-xdist's ``--dist loadfile`` spreads the two over workers;
+it takes this file's helpers.
 """
-import argparse
 import dataclasses
 import functools
-import re
 
 import numpy as np
 import pytest
@@ -42,8 +40,6 @@ import jax.numpy as jnp
 from repro.configs import granite_moe_3b_a800m as ref_gmoe
 from repro.configs import llama4_maverick_400b_a17b as ref_llama4
 from repro.configs.families import LMBundle as RefLMBundle
-from repro.launch import serve as ref_serve
-from repro.launch import train as ref_launch
 from repro.models import transformer as ref_tf
 from repro.nn import moe as ref_moe
 from repro_torch.configs import LM_SHAPES, get
@@ -51,8 +47,6 @@ from repro_torch.configs import granite_moe_3b_a800m, llama4_maverick_400b_a17b
 from repro_torch.configs.families import LMBundle
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import decode_attention as kd
-from repro_torch.launch import serve as launch_serve
-from repro_torch.launch import train as train_launcher
 from repro_torch.models import transformer as tf
 from repro_torch.nn import moe
 from repro_torch.train import checkpoint, tree_leaves
@@ -381,49 +375,3 @@ def _spec_paths(tree, prefix="") -> dict:
     for k, v in items:
         out.update(_spec_paths(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
-
-
-# ------------------------------------------------------------- launchers
-def _ref_prompt(cfg, batch, prompt_len):
-    return np.array(jax.random.randint(jax.random.PRNGKey(0),
-                                       (batch, prompt_len), 0, cfg.vocab))
-
-
-@pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_serve_launcher_generates_the_reference_ids(arch, monkeypatch,
-                                                    capsys):
-    _, mod = ARCHS[arch]
-    ref_serve.serve_lm(argparse.Namespace(arch=arch, tokens=8, batch=2,
-                                          prompt_len=16))
-    want = re.search(r"generated: (\[.*\])", capsys.readouterr().out)[1]
-    ref_params = _port(_ref_params(arch))
-    monkeypatch.setattr(launch_serve, "lm_init",
-                        lambda gen, cfg, device="cuda": ref_params)
-    monkeypatch.setattr(launch_serve, "draw_prompt",
-                        lambda gen, vocab, b, p: torch.as_tensor(
-                            _ref_prompt(mod.REDUCED, b, p)))
-    before = kd.decode_attention.launches
-    res = launch_serve.main(["--arch", arch, "--tokens", "8", "--device",
-                             "cpu"])
-    assert kd.decode_attention.launches == before
-    got = re.search(r"generated: (\[.*\])", capsys.readouterr().out)[1]
-    assert got == want
-    assert tuple(res.tokens.shape) == (2, 9)
-    plain = launch_serve.serve_lm(launch_serve.parse_args(
-        ["--arch", arch, "--tokens", "8", "--device", "cpu"]), attn="plain")
-    torch.testing.assert_close(plain.logits, res.logits, rtol=0, atol=1e-5)
-
-
-@pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_train_launcher_matches_the_reference(arch, monkeypatch, capsys):
-    ref = ref_launch.lm_reduced_driver(arch, 10, None)
-    port_params = _port(_ref_params(arch))
-    monkeypatch.setattr(train_launcher, "lm_init",
-                        lambda gen, cfg, device="cuda": port_params)
-    res = train_launcher.main(["--arch", arch, "--steps", "10",
-                               "--device", "cpu"])
-    assert res.steps == 10
-    np.testing.assert_allclose(res.losses, ref.losses, rtol=LOSS_TOL,
-                               atol=LOSS_TOL)
-    assert res.losses[-1] < res.losses[0]
-    assert f"{arch}: 10 steps, loss" in capsys.readouterr().out
