@@ -59,6 +59,30 @@
    ``exec.kernel_result`` demote to ``torch``, quarantine ``cuda`` under
    the card's device signature, and the cost oracle drops it; an armed
    fused layer (row 5) propagates its ``InjectedFault``.
+   Then the graph half of distributed (``dist_phases``): the elastic state
+   machine (``dist.ElasticAggregator``) over the reordered Cora in 4
+   shards, each shard's weighted ``sum`` plan through
+   ``spmm_blockell_compact`` (on 0/1 uint8 tiles, Cora's edges weighing 1,
+   and on float32 tiles for the symmetric-normalised Cora: aggregates at
+   d = 16 and 1433 within 1e-5 of the segment-sum oracle and the
+   ``torch`` backend; row 3 at each shard's d = 1433 forward against its
+   plain version and ``torch.sparse.mm``), ``train_elastic`` at [1433, 16, 7] for 12 steps
+   (rerun bit-identical under deterministic algorithms, losses within
+   1e-4 of the ``torch`` backend, the launches of every step counted
+   exactly), the evict / rejoin drill (persistent ``shard_loss`` on shard
+   3: the trail and bar of the reference's recovery test) and the step's
+   ms on both paths; then ``launch.train --arch gcn-cora --dist`` as
+   subprocesses for each aggregator on NCCL at ``parts`` = the card count
+   (losses within 1e-4 of the gloo run at the same parts, the aggregators
+   within 1e-5 of each other) and ``--parts`` one above the card count
+   (exits non-zero: "need N devices, have M"); and one NCCL rank in this
+   process: the exchanges and their gradients at d = 1433 against the
+   segment-sum oracle, each aggregator's step ms, the resilient drill
+   through ``train_distributed`` (exactly one
+   ``dist.halo_fallback{reason=shard_loss}``, losses within 1e-5 of the
+   no-fault run), ``distributed_decode_attention`` on a (1, 1) mesh at
+   granite-8b's decode shape in bf16 (row by row, 3e-2) and
+   ``int8_allreduce_psum``.
    Then observability (``obs_phase``): ``launch.serve`` on Cora under
    ``--metrics-out --trace --summary`` (exactly 2 compact launches; both
    files valid under ``repro_torch.obs.validate``, stamped ``cuda``, the
@@ -4394,6 +4418,449 @@ def fallback_phase(torch, dev, g):
 
 
 # ---------------------------------------------------------------------------
+# the graph half of distributed: elastic shards on the card, --dist on NCCL
+# ---------------------------------------------------------------------------
+DIST_PARTS = 4
+DIST_DIMS_HIDDEN = 16               # train_elastic at [1433, 16, 7]
+DIST_STEPS = 12
+DIST_REJOIN_AT = 7
+DIST_WIDTHS = (16, 1433)
+# 12 Adam steps whose aggregations sum in another order
+DIST_LOSS_TOL = 1e-4
+# tests/test_dist_elastic.py::test_train_elastic_recovery_tracks_no_fault_run
+DIST_DRILL_RTOL, DIST_DRILL_ATOL = 1e-3, 5e-3
+DIST_LAUNCHER_STEPS = 20
+DIST_AGGREGATORS = ("halo", "allgather", "resilient")
+# the step whose first aggregation outlives the resilient ladder
+DIST_DRILL_STEP = 3
+# granite-8b's decode shape at decode_32k, B = 8, ragged lengths
+DIST_DECODE_SEQ = 32768
+DIST_DECODE_LENS = (32767, 32767, 20000, 1, 32767, 5000, 32767, 0)
+
+
+def shard_launches(topo) -> tuple:
+    """(forward, transposed) ``spmm_blockell_compact`` launches of one
+    aggregation through every shard of ``topo``: a shard whose side has no
+    active slot launches nothing."""
+    plans = [s.plan.plan_for(s.plan.backend) for s in topo.shards]
+    return (sum(p.meta_fwd.n_active > 0 for p in plans),
+            sum(p.meta_bwd.n_active > 0 for p in plans))
+
+
+def elastic_step_launches(agg, trail) -> list:
+    """The row-3 launches each step of ``train_elastic`` needs: on the halo
+    path two forward aggregations (x at d = 1433, h at d = 16) and one
+    transposed (h's backward; x needs no gradient) through every shard of
+    that step's topology; none on the allgather path."""
+    by_version = {t.version: t for t in agg._topologies.values()}
+    out = []
+    for info in trail:
+        if info["path"] != "halo":
+            out.append(0)
+            continue
+        fwd, bwd = shard_launches(by_version[info["version"]])
+        out.append(2 * fwd + bwd)
+    return out
+
+
+def elastic_phase(torch, dev, g):
+    """(a) The elastic state machine on the card: the reordered Cora in 4
+    shards, each shard's weighted ``sum`` plan through row 3: on 0/1 uint8
+    tiles (Cora's edges weigh 1, and ``storage="auto"`` keeps the exact
+    bitmask), and on float32 tiles for the symmetric-normalised Cora.
+    ``ElasticAggregator.aggregate`` on both at d = 16 and 1433 against the
+    segment-sum oracle on the card and the ``torch`` backend (1e-5 of the
+    largest |entry|; one launch a shard); row 3 at each shard's d = 1433
+    forward against its plain version and ``torch.sparse.mm``;
+    ``train_elastic`` at [1433, 16, 7] for 12 steps under deterministic
+    algorithms, rerun bit-identical and held against the ``torch`` backend
+    (1e-4), each step's launches counted exactly; the drill (persistent
+    ``shard_loss`` on shard 3 from hit 2: two allgather steps, eviction to
+    3 parts, ``rejoin_at`` 7 restores 4) against the reference test's trail
+    and bar; the step's ms on the halo and allgather paths."""
+    import numpy as np
+    from repro_torch.chaos import Fault, FaultPlan, armed
+    from repro_torch.dist import ElasticAggregator, train_elastic
+    from repro_torch.dist.elastic import _local_graph, elastic_step
+    from repro_torch.dist.gnn import dist_gnn_init
+    from repro_torch.train import adam, tree_leaves
+
+    total = {k: 0 for k in KERNELS}
+    report = {"parts": DIST_PARTS, "aggregate": {}, "train": {}}
+    cases = []
+
+    def counted(fn):
+        reset_launches()
+        y = fn()
+        launches = read_launches(torch)
+        for k, v in launches.items():
+            total[k] += v
+        return y, {k: v for k, v in launches.items() if v}
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    agg = None
+    for graph, tiles in ((g, torch.uint8), (g.with_sym_norm(), torch.float32)):
+        what = f"elastic {DIST_PARTS} shards ({str(tiles)[6:]} tiles)"
+        a = ElasticAggregator(graph, DIST_PARTS, device=dev)
+        plain = ElasticAggregator(graph, DIST_PARTS, backend="torch",
+                                  device=dev)
+        plans = [s.plan.plan_for(s.plan.backend) for s in a.topology.shards]
+        got = [(p.backend, p._fwd["blocks"].dtype) for p in plans]
+        if got != [("cuda", tiles)] * DIST_PARTS:
+            raise AssertionError(f"{what}: the shards' plans are {got}")
+        fwd, _ = shard_launches(a.topology)
+        oracle = a.aggregate_fn("allgather")
+        report["aggregate"][what] = holds = {}
+        for d in DIST_WIDTHS:
+            x = torch.randn((g.num_nodes, d), generator=gen, device=dev)
+            y, launches = counted(lambda: a.aggregate(x, step=0))
+            if launches != {"spmm_blockell_compact": fwd}:
+                raise AssertionError(f"{what} d={d} launched {launches}, "
+                                     f"expected {fwd} compact")
+            holds[d] = [assert_close_scaled(y, oracle(x), KERNEL_TOL,
+                                            f"{what} d={d} vs segment_sum"),
+                        assert_close_scaled(y, plain.aggregate(x, step=0),
+                                            KERNEL_TOL,
+                                            f"{what} d={d} vs torch")]
+        agg = agg or a
+    topo = agg.topology
+    plans = [s.plan.plan_for(s.plan.backend) for s in topo.shards]
+    report["shards"] = [{"window": [s.lo, s.hi],
+                         "halo_rows": int(s.halo_ids.shape[0]),
+                         "n_active": [p.meta_fwd.n_active,
+                                      p.meta_bwd.n_active]}
+                        for s, p in zip(topo.shards, plans)]
+    for p, plan in enumerate(plans):
+        lg, _ = _local_graph(topo.halo, p)
+        cases.append(compact_case(
+            torch, dev, plan._fwd, int(plan.ell.density_stats()["nnz"]),
+            1433, False, "u8", False, gen,
+            f"elastic shard {p}/{DIST_PARTS} forward d=1433 (u8 tiles)",
+            weight=1, plan_side=plan.raw_apply,
+            library=library_matrix(torch, dev, lg, "sum", False,
+                                   weighted=True)))
+
+    def run(what, backend=None, fault=None, **kw):
+        steps = []
+
+        def log(_line):
+            launches = read_launches(torch)
+            steps.append(launches["spmm_blockell_compact"])
+            for k, v in launches.items():
+                total[k] += v
+            reset_launches()
+        reset_launches()
+        with armed(fault) if fault else contextlib.nullcontext():
+            res = train_elastic(g, parts=DIST_PARTS, steps=DIST_STEPS,
+                                hidden=DIST_DIMS_HIDDEN, backend=backend,
+                                device=dev, log=log, **kw)
+        if backend is None:
+            want = elastic_step_launches(res["aggregator"], res["trail"])
+            if steps != want:
+                raise AssertionError(f"{what}: row-3 launches a step "
+                                     f"{steps}, expected {want}")
+        report["train"][what] = {"losses": res["losses"],
+                                 "paths": res["paths"],
+                                 "parts": [t["parts"] for t in res["trail"]],
+                                 "launches_by_step": steps}
+        print(f"elastic {what}: " + json.dumps(report["train"][what]))
+        return res
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = run("cuda")
+        b = run("cuda rerun")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    if a["losses"] != b["losses"] or not all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a["params"]),
+                                              tree_leaves(b["params"]))):
+        raise AssertionError("a same-seed elastic rerun is not bit-identical")
+    ref = run("torch backend", backend="torch")
+    report["train"]["vs_torch"] = float(np.abs(
+        np.asarray(a["losses"]) - np.asarray(ref["losses"])).max())
+    if not report["train"]["vs_torch"] <= DIST_LOSS_TOL:
+        raise AssertionError(f"elastic losses vs torch: "
+                             f"{report['train']['vs_torch']:.3e}")
+    fault = FaultPlan.of(Fault("dist.halo", "shard_loss", hit=2, count=6,
+                               payload=(("shard", DIST_PARTS - 1),)))
+    drill = run("drill", fault=fault, rejoin_at=DIST_REJOIN_AT)
+    want_paths = ["halo"] * 2 + ["allgather"] * 2 + ["halo"] * (
+        DIST_STEPS - 4)
+    want_parts = ([DIST_PARTS] * 3 + [DIST_PARTS - 1] * (DIST_REJOIN_AT - 3)
+                  + [DIST_PARTS] * (DIST_STEPS - DIST_REJOIN_AT))
+    if (drill["paths"] != want_paths
+            or [t["parts"] for t in drill["trail"]] != want_parts
+            or drill["trail"][3]["evicted"] != DIST_PARTS - 1):
+        raise AssertionError(f"elastic drill trail {drill['trail']}")
+    for x, y in [(a["losses"], drill["losses"])] + list(zip(
+            tree_leaves(a["params"]), tree_leaves(drill["params"]))):
+        x, y = (torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu())
+        if not torch.allclose(y, x, rtol=DIST_DRILL_RTOL,
+                              atol=DIST_DRILL_ATOL):
+            raise AssertionError("the drilled run does not track the "
+                                 "no-fault run")
+    report["train"]["drill_vs_no_fault"] = float(np.abs(
+        np.asarray(a["losses"]) - np.asarray(drill["losses"])).max())
+
+    # the step's time on each path (these launches are not the path's)
+    t = lambda v: torch.as_tensor(v, device=dev)
+    x = t(g.node_feat)
+    deg = t(np.maximum(g.in_degrees().astype(np.float32), 1.0))
+    labels = t(g.labels.astype(np.int64))
+    mask = t(g.train_mask).to(torch.float32)
+    dims = [g.node_feat.shape[1], DIST_DIMS_HIDDEN, int(g.labels.max()) + 1]
+    for path in ("halo", "allgather"):
+        opt = adam(1e-2)
+        params = dist_gnn_init(torch.Generator().manual_seed(0), dims,
+                               device=dev)
+        report[f"step_{path}"] = step_breakdown(
+            torch, f"elastic {DIST_PARTS}-shard step ({path})",
+            elastic_step(agg.aggregate_fn(path), x, deg, labels, mask, opt),
+            params, opt.init(params), None)
+    reset_launches()
+    return cases, total, report
+
+
+def launcher_runs(torch, cards):
+    """``launch.train --arch gcn-cora --dist`` as subprocesses, all started
+    together: each aggregator on NCCL at ``parts`` = the card count, the
+    halo run on gloo (``--device cpu``) at the same parts, and ``--parts``
+    one above the card count, which must exit non-zero with the "need N
+    devices, have M" message.  The ranks are spawned by the launcher, so
+    their output reaches here through the launcher's pipes."""
+    import numpy as np
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "gcn-cora", "--dist", "--steps", str(DIST_LAUNCHER_STEPS)]
+    argv = {agg: base + ["--aggregator", agg] for agg in DIST_AGGREGATORS}
+    argv["cpu"] = base + ["--device", "cpu", "--parts", str(cards)]
+    argv["refused"] = base + ["--parts", str(cards + 1)]
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for k, a in argv.items():
+            procs[k] = subprocess.Popen(a, cwd=ROOT, env=env, text=True,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    runs = {}
+    for k, (out, err) in outs.items():
+        rc = procs[k].returncode
+        print(f"--dist {k}: rc {rc}\n{out}" + (err if rc else ""), end="")
+        if k == "refused":
+            need = f"need {cards + 1} devices, have {cards}"
+            if rc == 0 or need not in err:
+                raise AssertionError(f"--parts {cards + 1} on {cards} "
+                                     f"card(s): rc {rc}, stderr {err[-500:]}")
+            runs[k] = {"rc": rc, "message": need}
+            continue
+        if rc:
+            raise AssertionError(f"--dist {k} failed: {err[-2000:]}")
+        lines = out.splitlines()
+        backend = "gloo" if k == "cpu" else "nccl"
+        want = f"dist backend={backend} ranks={cards} device=" + (
+            "cpu" if k == "cpu" else "cuda")
+        if want not in lines:
+            raise AssertionError(f"--dist {k}: no line {want!r}")
+        losses = json.loads(next(l for l in lines if " [dist] losses: " in l)
+                            .split(" [dist] losses: ")[1])
+        runs[k] = {"dist_line": next(l for l in lines
+                                     if l.startswith("dist[gcn-cora] parts")),
+                   "backend": backend, "parts": cards, "losses": losses}
+    lines = {r["dist_line"] for k, r in runs.items() if k != "refused"}
+    if len(lines) != 1:
+        raise AssertionError(f"the dist lines differ: {lines}")
+    cpu = np.asarray(runs["cpu"]["losses"])
+    halo = np.asarray(runs["halo"]["losses"])
+    report = {"wall_s": wall, "runs": runs,
+              "vs_cpu": float(np.abs(halo - cpu).max())}
+    if not report["vs_cpu"] <= DIST_LOSS_TOL:
+        raise AssertionError(f"--dist on NCCL vs gloo: {report['vs_cpu']}")
+    for agg in DIST_AGGREGATORS[1:]:
+        err = float(np.abs(np.asarray(runs[agg]["losses"]) - halo).max())
+        report[f"{agg}_vs_halo"] = err
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"--dist {agg} vs halo: {err:.3e}")
+    print("--dist launchers: " + json.dumps(
+        {k: v for k, v in report.items() if k != "runs"}))
+    return report
+
+
+def nccl_rank_phase(torch, dev):
+    """(b) In this process, one NCCL rank: the exchanges against the
+    segment-sum oracle at d = 1433 (value and gradient), the train step's
+    ms on each aggregator, the resilient drill through
+    ``train_distributed`` (one step's first aggregation outlives the
+    ladder: exactly one ``dist.halo_fallback{reason=shard_loss}``, losses
+    equal to the no-fault run's within 1e-5), ``distributed_decode_
+    attention`` on a (1, 1) mesh at granite-8b's decode shape in bf16 held
+    row by row against the plain reference (3e-2), and
+    ``int8_allreduce_psum``."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.chaos import Fault, FaultPlan, armed
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.core.aggregate import segment_sum
+    from repro_torch.dist import (allgather_aggregate, dequantize_int8,
+                                  distributed_decode_attention,
+                                  halo_aggregate, int8_allreduce_psum,
+                                  make_dist_train_step, quantize_int8,
+                                  resilient_halo_aggregate,
+                                  train_distributed)
+    from repro_torch.dist.gnn import dist_gnn_init, training_setup
+    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.launch.mesh import make_debug_mesh, make_halo_debug_mesh
+    from repro_torch.train import adam
+
+    report = {}
+    tmp = tempfile.mkdtemp(prefix="nccl-")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        report["backend"] = dist.get_backend()
+        mesh = make_halo_debug_mesh(1, device=dev)
+        g, plan, send, est = training_setup(1)
+        n = g.num_nodes
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        src, dst = t(g.src.astype(np.int64)), t(g.dst.astype(np.int64))
+        gen = torch.Generator(device=dev).manual_seed(26)
+        x = torch.randn((n, g.node_feat.shape[1]), generator=gen, device=dev)
+        xo = x.clone().requires_grad_(True)
+        ref = segment_sum(xo[src], dst, n)
+        r = torch.randn(ref.shape, generator=gen, device=dev)
+        (gref,) = torch.autograd.grad((ref * r).sum(), xo)
+        ref = ref.detach()
+        holds = {}
+        reset_launches()
+        for name, fn in (
+                ("halo", lambda a: halo_aggregate(mesh, a, plan, send, n)),
+                ("allgather", lambda a: allgather_aggregate(mesh, a, plan,
+                                                            n)),
+                ("resilient", lambda a: resilient_halo_aggregate(
+                    mesh, a, plan, send, n))):
+            xx = x.clone().requires_grad_(True)
+            y = fn(xx)
+            (gx,) = torch.autograd.grad((y * r).sum(), xx)
+            y = y.detach()
+            holds[name] = [
+                assert_close_scaled(y, ref, KERNEL_TOL, f"NCCL {name}"),
+                assert_close_scaled(gx, gref, KERNEL_TOL,
+                                    f"NCCL {name} gradient")]
+        report["holds_d1433"] = holds
+        if any(read_launches(torch).values()):
+            raise AssertionError("the mesh exchange launched a kernel")
+
+        batch = {"x": t(g.node_feat), "labels": t(g.labels.astype(np.int64)),
+                 "train_mask": t(g.train_mask),
+                 "deg": t(g.in_degrees().astype(np.float32))}
+        dims = [g.node_feat.shape[1], 64, int(g.labels.max()) + 1]
+        for agg in DIST_AGGREGATORS:
+            opt = adam(1e-2)
+            params = dist_gnn_init(torch.Generator().manual_seed(0), dims,
+                                   device=dev)
+            report[f"step_{agg}"] = step_breakdown(
+                torch, f"--dist step ({agg}, 1 NCCL rank)",
+                make_dist_train_step(mesh, plan, send, n, opt, agg), params,
+                opt.init(params), batch)
+
+        obs.reset()
+        obs.enable()
+        try:
+            kw = dict(steps=DIST_LAUNCHER_STEPS, aggregator="resilient",
+                      device=dev, log=lambda line: None)
+            clean = train_distributed("gcn-cora", **kw)
+            obs.reset()
+            fault = FaultPlan.of(Fault("dist.halo", "shard_loss",
+                                       hit=2 * DIST_DRILL_STEP, count=3))
+            with armed(fault) as inj:
+                drilled = train_distributed("gcn-cora", **kw)
+        finally:
+            obs.disable()
+            obs.reset()
+        counters = {k: v for k, v in drilled["metrics"]["counters"].items()
+                    if k.startswith("dist.halo")}
+        err = float(np.abs(np.asarray(drilled["losses"])
+                           - np.asarray(clean["losses"])).max())
+        report["drill"] = {"fired": len(inj.fired), "counters": counters,
+                           "losses_vs_no_fault": err}
+        if (counters != {"dist.halo_retry{kind=shard_loss}": 2,
+                         "dist.halo_fallback{reason=shard_loss}": 1}
+                or len(inj.fired) != 3 or not err <= KERNEL_TOL):
+            raise AssertionError(f"resilient drill: {report['drill']}")
+
+        dmesh = make_debug_mesh((1, 1), ("data", "model"), device=dev)
+        B, H, KV = len(DIST_DECODE_LENS), CONFIG.n_heads, CONFIG.n_kv
+        hd, S = CONFIG.d_model // CONFIG.n_heads, DIST_DECODE_SEQ
+        bf = torch.bfloat16
+        q = torch.randn((B, H, hd), generator=gen, device=dev).to(bf)
+        k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(bf)
+        v = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(bf)
+        lens = torch.tensor(DIST_DECODE_LENS, device=dev)
+        out = distributed_decode_attention(
+            dmesh, q, k.repeat_interleave(H // KV, dim=2),
+            v.repeat_interleave(H // KV, dim=2), lens)
+        want = decode_attention_ref(q, k, v, lens)
+        err, worst = assert_close_rows(
+            out.float(), want.float(), DECODE_TOL["bfloat16"],
+            "distributed_decode_attention (1, 1) vs plain")
+        report["decode"] = {"shape": [B, H, KV, hd, S], "max_abs_err": err,
+                            "worst_row_share": worst}
+        del q, k, v, out, want
+        gvec = torch.randn((64, 1433), generator=gen, device=dev)
+        got = int8_allreduce_psum(gvec, group=mesh.get_group("data"))
+        if not torch.equal(got, dequantize_int8(*quantize_int8(gvec))):
+            raise AssertionError("int8_allreduce_psum at one rank is not "
+                                 "its own quantization")
+        bound = gvec.abs().amax(-1, keepdim=True) / 254
+        report["int8_max_abs_err"] = float((got - gvec).abs().max())
+        if not bool(((got - gvec).abs() <= bound * (1 + 1e-6)).all()):
+            raise AssertionError("int8_allreduce_psum past absmax/254")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print("NCCL rank: " + json.dumps(
+        {k: v for k, v in report.items() if not k.startswith("step_")}))
+    return report
+
+
+def dist_phases(torch, dev, g):
+    """The graph half of distributed (ROADMAP item 9a): (a) four elastic
+    shards on the card through row 3 (:func:`elastic_phase`, under a tuning
+    cache of its own: the shards' plans read no verdict of another phase),
+    (b) ``--dist`` over NCCL: the launchers (:func:`launcher_runs`) and one
+    NCCL rank in this process (:func:`nccl_rank_phase`)."""
+    import gc
+    t0 = time.perf_counter()
+    with tuning_cache():
+        cases, elastic_launches, elastic = elastic_phase(torch, dev, g)
+    paths = {"elastic (4 shards, train_elastic + drill)": elastic_launches}
+    report = {"elastic": elastic}
+    cards = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launchers"] = launcher_runs(torch, cards)
+    reset_launches()
+    report["nccl_rank"] = nccl_rank_phase(torch, dev)
+    paths["--dist mesh (1 NCCL rank in-process)"] = read_launches(torch)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"dist phases: {report['wall_s']:.1f}s on "
+          f"{torch.cuda.get_device_name(0)}, {SMI_POWER_LIMIT}")
+    return cases, paths, report
+
+
+# ---------------------------------------------------------------------------
 # the rest of the GNN zoo: GAT, PNA, NequIP
 # ---------------------------------------------------------------------------
 ZOO_ARCHS = ("gat-cora", "pna", "nequip")
@@ -4820,6 +5287,9 @@ def main() -> int:
      weighted_compact, weighted_fused) = fallback_phase(torch, dev, g_train)
     compact_cases += weighted_compact
     fused_cases += weighted_fused
+    dist_cases, dist_paths, dist_report = dist_phases(torch, dev, g_train)
+    compact_cases += dist_cases
+    paths.update(dist_paths)
     sddmm_cases = sddmm_phase(torch, dev, g_train)
     paths["ops.sddmm"] = ops_sddmm_phase(torch, dev, g_train)
     paths["observability (serve + train + audit)"], obs_report = obs_phase(
@@ -4871,8 +5341,11 @@ def main() -> int:
                    "nodes; forward d=256, 41; transposed d=256, 41) + the "
                    "weighted sum ResilientPlan's compact forward at d=64 "
                    "and d=1433 on the reordered Cora (f32 tiles, seeded "
-                   "weights), bm=128; library: torch.sparse.mm of the same "
-                   "scaled (weighted) adjacency"),
+                   "weights) + one elastic train step's forward at d=1433 "
+                   "on each of the 4 shards of the reordered Cora (u8 "
+                   "tiles: Cora's edges weigh 1), bm=128; library: "
+                   "torch.sparse.mm of the same scaled (weighted) "
+                   "adjacency"),
         kernel_row("spmm_blockell_update", padded_update_cases,
                    total["spmm_blockell_update"],
                    "one padded GIN conv launch (sum 128->128, w_self is w, "
@@ -4929,6 +5402,7 @@ def main() -> int:
         "wide_deep": recsys_report, "lm": lm_report,
         "lm_training": lm_train_report, "moe": moe_report,
         "fallback": fallback_report, "observability": obs_report,
+        "dist": dist_report,
         "gnn_zoo": zoo_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

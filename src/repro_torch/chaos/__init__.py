@@ -13,8 +13,9 @@ past a file :func:`corrupt_file` damaged; and the kernel path's
 ``exec.pallas_launch`` / ``exec.kernel_result`` sites, which
 ``exec.fallback.ResilientPlan`` answers.  :func:`adversarial_trace` is the
 serving traffic that overloads the batcher's bounded queue (load shedding)
-and carries malformed ids.  The reference's drill runner waits for the
-distributed layer (ROADMAP §1 item 9).
+and carries malformed ids.  The ``dist.halo`` site sits in the retry
+ladders of ``dist.resilient`` and ``dist.elastic``.  The reference's drill
+runner (``chaos/drill.py``) waits for ROADMAP §1 item 10.
 """
 from .inject import (KINDS, Fault, FaultInjector, FaultPlan, InjectedFault,
                      active, armed, corrupt_file, fail_point, fire, mangle)

@@ -27,7 +27,11 @@ kernel launch of ``exec.plan``, one per sub-grid of a bucketed plan) and
 ``exec.kernel_result`` (``mangle`` of each ``cuda`` result), which
 ``exec.fallback.ResilientPlan`` answers by demoting the call.  The site
 strings are the reference's, so one ``FaultPlan`` arms either package.
-``dist.halo`` comes with the distributed slice (ROADMAP §1 item 9).
+``dist.halo`` (``fire``, walked by the retry ladders of
+``dist.resilient.resilient_halo_aggregate`` and
+``dist.elastic.ElasticAggregator``): ``shard_loss`` and ``straggler``
+faults, retried then degraded to the all-gather path; every rank of a mesh
+arms the same plan, so each takes the same path.
 
 File corruption (:func:`corrupt_file`) is applied directly by drills: it
 truncates or garbles bytes of a checkpoint or cache file deterministically

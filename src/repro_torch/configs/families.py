@@ -1,7 +1,7 @@
 """Family bundles — port of ``LMBundle`` (training, prefill and decode),
 ``GNNBundle`` (gcn | gat | pna | nequip over the four graph cells) and
 ``RecsysBundle`` from ``repro/configs/families.py``.  The bundles'
-``abstract_state`` and ``shardings`` are mesh work (ROADMAP §1 item 9)."""
+``abstract_state`` and ``shardings`` are mesh work (ROADMAP §1 item 9b)."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,5 +1,6 @@
-"""Training launcher: full-graph GNN training, wide & deep and the LMs
-(dense and MoE) on the port (``repro/launch/train.py`` but ``--dist``).
+"""Training launcher: full-graph GNN training (one card, or sharded over
+ranks with ``--dist``), wide & deep and the LMs (dense and MoE) on the port
+(``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
@@ -10,6 +11,9 @@
       --steps 50 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --reduced --steps 10 [--ckpt DIR] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+      --dist [--parts N] [--aggregator halo|allgather|resilient] \\
+      [--device cpu]
 
 The graph is ``cora_like()`` permuted by ``minhash_reorder``, as in the
 reference.  ``--executor auto`` (the default, as in the reference) and
@@ -43,9 +47,21 @@ checkpoint in DIR and writes one every 100 steps and at the end.  Runs on
 schedule's ``exec.forward.verdict{source}``, ...) and a trace of the
 ``train.step`` and ``exec.autotune.trial`` spans, stamped with the run's
 provenance.
+
+``--dist`` (GCN/SAGE only, as in the reference) trains the sharded layer of
+``dist.gnn.train_distributed``: the reordered Cora in ``--parts``
+contiguous windows, one rank each (NCCL, one rank per card, on ``cuda``:
+``--parts`` defaults to the card count and more raise; gloo processes on
+the CPU, one part by default), every aggregation through
+``--aggregator``'s collective.  It prints the reference's ``dist[...]``
+line (cut fraction, halo vs all-gather bytes per chip), the backend, the
+first and last loss, then every loss as JSON; ``--ckpt`` writes
+buddy-mirrored checkpoints every 10 steps, and rank 0 writes
+``--metrics-out`` / ``--trace``.
 """
 import argparse
 import importlib
+import json
 
 import numpy as np
 import torch
@@ -194,8 +210,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="train the arch's smoke config (always on, as in "
                          "the reference)")
     ap.add_argument("--dist", action="store_true",
-                    help="shard the graph over devices (not ported yet, "
-                         "ROADMAP §1 item 9)")
+                    help="shard the graph over ranks and route aggregation "
+                         "through the halo exchange (GNN only): NCCL, one "
+                         "rank per card, or gloo processes with --device "
+                         "cpu")
+    ap.add_argument("--parts", type=int, default=None,
+                    help="number of graph shards (ranks) for --dist "
+                         "(default: the card count; 1 with --device cpu)")
+    ap.add_argument("--aggregator", default="halo",
+                    choices=["halo", "allgather", "resilient"],
+                    help="collective for --dist: the halo exchange, the "
+                         "full-table allgather baseline, or the resilient "
+                         "ladder (retry then per-step allgather fallback)")
     ap.add_argument("--executor", default="auto",
                     choices=["auto", "segment", "blockell", "fused",
                              "forward"],
@@ -214,16 +240,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.summary and not (args.metrics_out or args.trace):
         ap.error("--summary needs --metrics-out and/or --trace")
+    if args.dist and get(args.arch).family != "gnn":
+        ap.error(f"--dist supports GNN archs; {args.arch} is family "
+                 f"'{get(args.arch).family}'")
     return args
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None):
     args = parse_args(argv)
-    if args.dist:
-        raise NotImplementedError("--dist is not ported yet (ROADMAP §1 "
-                                  "item 9)")
     spec = get(args.arch)
     try:
+        if args.dist:
+            return _train_dist(args)
         with obs.observed_run(args.metrics_out, args.trace,
                               device=args.device):
             return _train(args, spec)
@@ -231,6 +259,21 @@ def main(argv=None) -> TrainResult:
         if args.summary:
             from ..obs import summary as _summary
             _summary.main([f for f in (args.metrics_out, args.trace) if f])
+
+
+def _train_dist(args) -> dict:
+    """``--dist``: the ranks write the telemetry files (rank 0)."""
+    from ..dist import train_distributed
+    res = train_distributed(args.arch, steps=args.steps, parts=args.parts,
+                            aggregator=args.aggregator, ckpt_dir=args.ckpt,
+                            ckpt_every=10 if args.ckpt else 0,
+                            device=args.device, metrics_out=args.metrics_out,
+                            trace=args.trace)
+    losses = res["losses"]
+    print(f"{args.arch} [dist]: {len(losses)} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"{args.arch} [dist] losses: {json.dumps(losses)}")
+    return res
 
 
 def _train(args, spec) -> TrainResult:

@@ -1,6 +1,6 @@
 """Decoder-only LM family: dense and MoE GQA transformers (the port of
 ``repro/models/transformer.py``; the mesh branch of ``_moe_ffn`` and the
-``constrain`` hooks wait for ROADMAP item 9).
+``constrain`` hooks wait for ROADMAP item 9b).
 
 Layer parameters and KV caches stay **stacked** on a leading layer axis,
 as in the reference, so ``convert.params_from_jax`` and the cache trees map

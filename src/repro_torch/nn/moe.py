@@ -16,7 +16,7 @@ its one token by an index copy, and the combine sums each token's k
 assignments in a fixed order (``reshape(T, k, d).sum(1)``); no
 ``index_add_`` / ``scatter_add_`` meets a row from several terms.  The
 experts are batched matmuls, as the reference's einsums.  There is no
-``tp_axis``: the expert-parallel mesh branch waits for ROADMAP item 9.
+``tp_axis``: the expert-parallel mesh branch waits for ROADMAP item 9b.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Fault tolerance for the training loop — the ``StepWatchdog``,
-``resume``, ``deterministic_batch_seed`` and ``RetryingStep`` of
-``repro/train/fault.py``.
+``resume``, ``elastic_mesh``, ``deterministic_batch_seed`` and
+``RetryingStep`` of ``repro/train/fault.py``.
 
 * checkpoint/restart: :func:`resume` restores the latest checkpoint
   (``checkpoint.py`` publishes by atomic rename, so a crash never leaves a
@@ -8,10 +8,9 @@
   to the one before);
 * straggler flags: a step-time watchdog, and batches keyed by (seed, step,
   shard) so any worker can regenerate any batch;
+* elastic re-mesh: :func:`elastic_mesh` builds the largest mesh that the
+  surviving ranks support, shrinking the data axis first;
 * bounded retry of a step on a transient device error.
-
-The reference's ``elastic_mesh`` waits for the distributed slice (ROADMAP
-§1 item 9).
 """
 from __future__ import annotations
 
@@ -59,6 +58,31 @@ def resume(ckpt_dir: str, params_template, opt_template):
         return params_template, opt_template, 0
     p, o, step = restore_checkpoint(ckpt_dir, params_template, opt_template)
     return p, o, step + 1
+
+
+def elastic_mesh(preferred_shape, axis_names, min_data: int = 1,
+                 device="cuda"):
+    """Build the largest mesh <= ``preferred_shape`` that the ranks of the
+    initialised process group support, halving the data axis first (model
+    sharding is topology-bound, data sharding is elastic).  Returns a
+    ``DeviceMesh`` over the first ``prod(shape)`` ranks; raises when even
+    ``min_data`` does not fit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("elastic_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    n = dist.get_world_size()
+    shape = list(preferred_shape)
+    data_idx = list(axis_names).index("data")
+    while int(np.prod(shape)) > n and shape[data_idx] > min_data:
+        shape[data_idx] //= 2
+    if int(np.prod(shape)) > n:
+        raise RuntimeError(f"not enough devices: need {np.prod(shape)}, "
+                           f"have {n}")
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(int(np.prod(shape))).reshape(shape),
+                      mesh_dim_names=tuple(axis_names))
 
 
 def deterministic_batch_seed(base_seed: int, step: int, shard: int) -> int:

@@ -85,7 +85,12 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.train.checkpoint", "repro_torch.chaos",
                 "repro_torch.chaos.inject", "repro_torch.chaos.traffic",
                 "repro_torch.obs.export", "repro_torch.obs.summary",
-                "repro_torch.obs.validate", "repro_torch.obs.regress"}
+                "repro_torch.obs.validate", "repro_torch.obs.regress",
+                "repro_torch.dist", "repro_torch.dist.plan",
+                "repro_torch.dist.compress", "repro_torch.dist.elastic",
+                "repro_torch.dist.halo", "repro_torch.dist.resilient",
+                "repro_torch.dist.gnn", "repro_torch.dist.attention",
+                "repro_torch.launch.mesh"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []

@@ -186,19 +186,25 @@ def test_launcher_other_executors_agree_with_fused(executor):
 @pytest.mark.parametrize("argv,what", [
     ([], None),                          # --executor auto, the default
     (["--executor", "forward"], None),
-    (["--dist"], "ROADMAP §1 item 9"),
+    (["--dist"], "dist"),
     (["--ckpt", "CKPT"], None)])
 def test_launcher_refuses_what_is_not_ported(argv, what, capsys, tmp_path):
-    """``--dist`` raises; ``auto`` and ``forward`` tune the whole forward
-    on the CPU grid into the temporary cache, print the verdict and one
-    line per layer, and train; a second ``auto`` run reads the verdict from
-    the cache and runs no trial.  ``--ckpt`` (ported) trains, saves the
-    last step, and the second run resumes past it with nothing left."""
+    """``--dist`` (ported) trains the sharded layer over one gloo rank and
+    prints the reference's ``dist[...]`` line; ``auto`` and ``forward``
+    tune the whole forward on the CPU grid into the temporary cache, print
+    the verdict and one line per layer, and train; a second ``auto`` run
+    reads the verdict from the cache and runs no trial.  ``--ckpt``
+    (ported) trains, saves the last step, and the second run resumes past
+    it with nothing left."""
     argv = ["--arch", "gcn-cora", "--steps", "2", "--device", "cpu",
             *[str(tmp_path / "ckpt") if a == "CKPT" else a for a in argv]]
-    if what is not None:
-        with pytest.raises(NotImplementedError, match=what):
-            train_launcher.main(argv)
+    if what == "dist":
+        res = train_launcher.main(argv)
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith("dist[gcn-cora] parts=1 cut=0.000 ")
+        assert "dist backend=gloo ranks=1 device=cpu" in out
+        assert len(res["losses"]) == 2
+        assert res["losses"][1] < res["losses"][0]
         return
     res = train_launcher.main(argv)
     out = capsys.readouterr().out
