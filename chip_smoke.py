@@ -182,7 +182,15 @@
    decode_attention's share, peak memory); and granite-moe ``train_4k``
    at full depth, B = 2 (ms a step, busy share, peak beside 53.99 GB of
    state, the bf16 FLOP share of the active FLOPs; two 3-step runs from
-   one seed bit-identical; no kernel).
+   one seed bit-identical; no kernel).  Inside granite-moe's ``CONFIG``
+   phase, on the same weights and caches (``lm_mesh_phase``): the decode
+   step again through ``dist.sharding.use_mesh`` on a (1, 1) data x model
+   mesh of a one-rank NCCL group (the LM mesh path of ``models.
+   transformer``), bit-identical to the no-mesh step with the same 32
+   ``decode_attention`` launches; then each rank's state bytes of the cells
+   cut to fit one card (granite-8b ``train_4k`` at 36 layers, mistral-
+   large-123b and llama4 at 48 layers) on (2, 2), (2, 4) and (1, 8)
+   meshes, host arithmetic from ``LMBundle.shardings`` (not measured).
 11. GAT, PNA and NequIP (no kernel: the reference runs them on
    ``jax.ops.segment_*``), last: ``launch.train --arch gat-cora|pna|nequip
    --steps 10`` at full width on the card and with ``--device cpu`` (losses
@@ -194,7 +202,12 @@
    fp32 step against the same step in float64 (loss 1e-5; gradients 1e-2
    of a leaf's largest entry for GAT and PNA, 1e-4 for NequIP), NequIP's
    rotation check, then ms a step, busy share, device time by kind and
-   peak memory.
+   peak memory.  Then the chaos drill (``drill_phase``): ``python -m
+   repro_torch.chaos.drill --seed 0 --gauntlet full`` on the card, through
+   its entry point in this process (its launches counted; the exec,
+   serve and elastic gauntlets run row 3; ``cuda`` is demoted only by the
+   drill's injected faults), two same-seed runs, failing on a non-zero
+   exit.
 12. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -3993,6 +4006,12 @@ def moe_config_phase(torch, dev, arch):
             kernel_routes = rec.take()
             rerun, _ = step(params, batch)
             rec.take()
+            if arch == "granite-moe-3b-a800m":
+                mesh_launches, report["lm_mesh"] = lm_mesh_phase(
+                    torch, dev, step, params, batch, lk, cfg)
+                paths[f"{arch} CONFIG decode on a (1, 1) mesh"] = \
+                    mesh_launches
+                rec.take()
             walked, errs = decode_walk(torch, params, cfg, tok, caches,
                                        S - 1, S, "kernel", rows, hold=True)
             rec.take()
@@ -4051,6 +4070,120 @@ def moe_config_phase(torch, dev, arch):
                                  f"{got}; expected {want}")
     del params, caches, batch
     return paths, report
+
+
+MESH_CUT_CELLS = (("granite-8b", "train_4k"),
+                  ("mistral-large-123b", "prefill_32k"),
+                  ("llama4-maverick-400b-a17b", "prefill_32k"))
+MESH_SHAPES = ((2, 2), (2, 4), (1, 8))
+
+
+def mesh_state_bytes() -> dict:
+    """Each rank's state bytes (parameters, and Adam's state for
+    ``train``) of the cells cut to fit one card, on each of
+    ``MESH_SHAPES``: ``LMBundle.shardings``' shard shapes over
+    ``abstract_state`` (host arithmetic; nothing is allocated)."""
+    from repro_torch.configs import get
+    from repro_torch.dist.sharding import AbstractMesh, leaves
+    out = {}
+    for arch, cell in MESH_CUT_CELLS:
+        bundle = get(arch).bundle()
+        state = [t for t in bundle.abstract_state(cell) if t is not None]
+        for shape in MESH_SHAPES:
+            args, _ = bundle.shardings(AbstractMesh(shape, ("data",
+                                                             "model")), cell)
+            total = 0
+            for sh_tree, tree in zip(args, state):
+                total += sum(math.prod(s.shard_shape(t.shape))
+                             * t.element_size()
+                             for s, t in zip(leaves(sh_tree), leaves(tree)))
+            out[f"{arch} {cell} ({bundle.cfg.n_layers} layers) on "
+                f"{shape}"] = total
+    return out
+
+
+def lm_mesh_phase(torch, dev, step, params, batch, want, cfg):
+    """The LM mesh path on the card: ``step`` (``LMBundle.step_fn(
+    "decode_32k")``) again on the same weights and caches, through
+    ``use_mesh`` on a (1, 1) data x model mesh of a one-rank NCCL group;
+    held bit-identical to ``want`` (the no-mesh step's logits) with
+    ``cfg.n_layers`` ``decode_attention`` launches and no other.  Then
+    :func:`mesh_state_bytes` (not measured).  Returns (launches,
+    report)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    tmp = tempfile.mkdtemp(prefix="lm-mesh-")
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_debug_mesh((1, 1), device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            got, _ = step(params, batch)
+        torch.cuda.synchronize()
+        report = {"backend": dist.get_backend(), "mesh": [1, 1],
+                  "step_s_host": time.perf_counter() - t0}
+        launches = read_launches(torch)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    report["bit_identical"] = bool(torch.equal(got, want))
+    report["launches"] = launches
+    report["rank_state_bytes"] = mesh_state_bytes()
+    print(f"LM mesh path (1 x 1 NCCL mesh, {cfg.name} decode_32k, B="
+          f"{want.shape[0]}): bit-identical to the no-mesh step: "
+          f"{report['bit_identical']}; launches {launches}")
+    print("rank state bytes of the cut cells (host arithmetic from "
+          "LMBundle.shardings, not measured): "
+          + json.dumps({k: f"{v / 1e9:.1f} GB"
+                        for k, v in report["rank_state_bytes"].items()}))
+    if not report["bit_identical"]:
+        raise AssertionError("the (1, 1) mesh decode step is not "
+                             "bit-identical to the no-mesh step")
+    expect = {k: (cfg.n_layers if k == "decode_attention" else 0)
+              for k in KERNELS}
+    if launches != expect:
+        raise AssertionError(f"the (1, 1) mesh decode step launched "
+                             f"{launches}; expected {expect}")
+    return launches, report
+
+
+def drill_phase(torch, dev):
+    """``python -m repro_torch.chaos.drill --seed 0 --gauntlet full`` on
+    the card, through ``drill.main`` in this process (so its kernel
+    launches are counted), on a tuning cache of its own; fails on a
+    non-zero exit or if row 3 never launched.  Returns (launches,
+    report)."""
+    from repro_torch import obs
+    from repro_torch.chaos import drill
+
+    was_on = obs.enabled()
+    reset_launches()
+    t0 = time.perf_counter()
+    with tuning_cache():
+        rc = drill.main(["--seed", "0", "--gauntlet", "full", "--device",
+                         str(dev)])
+    torch.cuda.synchronize()
+    launches = read_launches(torch)
+    obs.reset()
+    (obs.enable if was_on else obs.disable)()
+    report = {"exit": rc, "wall_s": time.perf_counter() - t0,
+              "launches": launches}
+    print(f"chaos drill (full, two same-seed runs) on {dev}: exit {rc} in "
+          f"{report['wall_s']:.1f}s; launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"the chaos drill exited {rc}")
+    if not launches["spmm_blockell_compact"]:
+        raise AssertionError("the chaos drill never launched "
+                             "spmm_blockell_compact")
+    return launches, report
 
 
 def moe_train_phase(torch, dev):
@@ -5310,6 +5443,8 @@ def main() -> int:
     paths.update(moe_paths)
     zoo_paths, zoo_report = gnn_zoo_phases(torch, dev)
     paths.update(zoo_paths)
+    paths["chaos drill (full, 2 runs)"], drill_report = drill_phase(torch,
+                                                                    dev)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -5403,7 +5538,7 @@ def main() -> int:
         "lm_training": lm_train_report, "moe": moe_report,
         "fallback": fallback_report, "observability": obs_report,
         "dist": dist_report,
-        "gnn_zoo": zoo_report,
+        "gnn_zoo": zoo_report, "drill": drill_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,9 @@ past a file :func:`corrupt_file` damaged; and the kernel path's
 ``exec.fallback.ResilientPlan`` answers.  :func:`adversarial_trace` is the
 serving traffic that overloads the batcher's bounded queue (load shedding)
 and carries malformed ids.  The ``dist.halo`` site sits in the retry
-ladders of ``dist.resilient`` and ``dist.elastic``.  The reference's drill
-runner (``chaos/drill.py``) waits for ROADMAP §1 item 10.
+ladders of ``dist.resilient`` and ``dist.elastic``.  ``chaos.drill`` is
+the seeded gauntlet over all of them (``python -m repro_torch.chaos.drill
+--seed 0``).
 """
 from .inject import (KINDS, Fault, FaultInjector, FaultPlan, InjectedFault,
                      active, armed, corrupt_file, fail_point, fire, mangle)

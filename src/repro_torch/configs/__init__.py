@@ -1,7 +1,7 @@
 """Architecture configs (the GNN, recsys and dense LM parts of
 ``repro.configs``)."""
 from .base import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, REGISTRY, ArchSpec,
-                   get, register)
+                   Cell, all_archs, get, register)
 
 
 def _load_all():

@@ -15,6 +15,15 @@ REGISTRY: Dict[str, "ArchSpec"] = {}
 
 
 @dataclasses.dataclass(frozen=True)
+class Cell:
+    """One (architecture x input-shape) dry-run cell."""
+
+    shape_name: str
+    kind: str                      # "train" | "prefill" | "decode" | "serve"
+    meta: Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
     family: str                    # "lm" | "gnn" | "recsys"
@@ -37,6 +46,13 @@ def get(name: str) -> ArchSpec:
     if name in REGISTRY:
         return REGISTRY[name]
     raise KeyError(f"unknown arch {name!r}")
+
+
+def all_archs() -> Dict[str, ArchSpec]:
+    """name -> ArchSpec of every registered arch."""
+    from . import _load_all
+    _load_all()
+    return dict(REGISTRY)
 
 
 # the reference's 4 LM cells

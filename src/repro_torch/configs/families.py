@@ -1,7 +1,16 @@
 """Family bundles — port of ``LMBundle`` (training, prefill and decode),
 ``GNNBundle`` (gcn | gat | pna | nequip over the four graph cells) and
-``RecsysBundle`` from ``repro/configs/families.py``.  The bundles'
-``abstract_state`` and ``shardings`` are mesh work (ROADMAP §1 item 9b)."""
+``RecsysBundle`` from ``repro/configs/families.py``.
+
+Each bundle also has the reference's dry-run surface:
+  abstract_state(shape)  -> (params, opt_state) on the ``meta`` device
+                            (the shapes and dtypes of ``jax.eval_shape``;
+                            nothing is allocated);
+  shardings(mesh, shape) -> (arg_shardings, out_shardings), trees of
+                            ``dist.sharding.NamedSharding``.
+Under ``dist.sharding.use_mesh`` the LM steps run the manual mesh path of
+``models.transformer`` on the rank's blocks of these layouts
+(``convert.shard_params``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,18 +19,40 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..dist.sharding import (P, NamedSharding, ambient_mesh, as_mesh,
+                             batch_axes, broadcast_specs, lm_param_specs,
+                             map_specs)
 from ..models.gat import gat_init, gat_loss
 from ..models.gcn import gcn_init, gcn_loss
 from ..models.nequip import nequip_energy, nequip_init
 from ..models.pna import pna_init, pna_loss
 from ..models.recsys import (WideDeepConfig, retrieval_score, widedeep_init,
                              widedeep_logits, widedeep_loss)
-from ..models.transformer import (LMConfig, kv_cache_shapes, lm_decode_step,
+from ..models.transformer import (LMConfig, _layer_shapes, kv_cache_shapes,
+                                  lm_abstract_params, lm_decode_step,
                                   lm_init, lm_loss, lm_prefill,
                                   make_kv_caches)
 from ..train.loop import make_train_step
-from ..train.optimizer import Optimizer, adam
+from ..train.optimizer import (Optimizer, adam, tree_leaves, tree_map,
+                               tree_unflatten)
 from .base import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, pad_to
+
+
+def _spec_tree_for_opt(param_specs):
+    return {"m": param_specs, "v": param_specs, "step": P()}
+
+
+def _named(mesh, tree):
+    """P tree -> NamedSharding tree on ``mesh``."""
+    mesh = as_mesh(mesh)
+    return map_specs(lambda s: NamedSharding(mesh, s), tree)
+
+
+def _meta(tree):
+    """The tree's tensors as ``meta`` tensors of the same shapes and
+    dtypes."""
+    return tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                          device="meta"), tree)
 
 
 @dataclasses.dataclass
@@ -43,6 +74,20 @@ class LMBundle:
         """The train step's optimizer: Adam(3e-4), moments in
         ``moments_dtype``; ``opt().init(params)`` is the state it takes."""
         return adam(3e-4, moments_dtype=self.moments_dtype)
+
+    # ------------------------------------------------------------- state
+    def abstract_params(self):
+        """``lm_init``'s tree on the ``meta`` device (``cfg.param_dtype``):
+        shapes and dtypes only."""
+        return lm_abstract_params(self.cfg)
+
+    def abstract_state(self, shape: str):
+        """(params, opt_state) on ``meta``; opt_state None for the serving
+        cells, Adam's ``m`` / ``v`` / ``step`` for ``train``."""
+        params = self.abstract_params()
+        if LM_SHAPES[shape]["kind"] != "train":
+            return params, None
+        return params, self.opt().init(params)
 
     def input_specs(self, shape: str, batch: Optional[int] = None
                     ) -> Dict[str, Any]:
@@ -90,7 +135,43 @@ class LMBundle:
         dev = params["embed"].device
         return lm_loss(params, torch.as_tensor(batch["tokens"], device=dev),
                        torch.as_tensor(batch["targets"], device=dev),
-                       self.cfg)
+                       self.cfg, constrain=self.make_constrain())
+
+    def make_constrain(self):
+        """The per-layer hook of the steps (the reference's re-assertion of
+        each layer's weight sharding inside its scans).  The port's ZeRO
+        gather is explicit (``dist.spmd.layer_of``: one layer at a time,
+        from its owner), so under the ambient mesh the hook holds each
+        gathered layer to its per-layer layout (``lm_param_specs`` with the
+        stack entry dropped; it raises on any other shape) and returns it;
+        with no mesh it returns the layer."""
+        cfg = self.cfg
+
+        def constrain(kind, lp):
+            mesh = ambient_mesh()
+            if mesh is None:
+                return lp
+            specs = lm_param_specs(cfg, mesh)
+            key = "moe_layers" if kind == "moe" else "dense_layers"
+            if key not in specs:
+                return lp
+            sub = _drop_lead(specs[key], 1)
+            shapes = _layer_shapes(cfg, moe=kind == "moe")
+
+            def walk(spec, shape, leaf):
+                if isinstance(leaf, dict):
+                    for k in leaf:
+                        walk(spec if isinstance(spec, P) else spec[k],
+                             shape[k], leaf[k])
+                    return
+                want = NamedSharding(mesh, spec).shard_shape(shape[0])
+                if tuple(leaf.shape) != want:
+                    raise ValueError(f"a {kind} layer leaf of shape "
+                                     f"{tuple(leaf.shape)} is not the "
+                                     f"{want} block of {spec!r} on {mesh!r}")
+            walk(sub, shapes, lp)
+            return lp
+        return constrain
 
     def step_fn(self, shape: str, attn: str = "kernel"):
         """``train``: ``(params, opt_state, batch) -> (params, opt_state,
@@ -102,20 +183,109 @@ class LMBundle:
         length, writing the batch's caches in place."""
         info = LM_SHAPES[shape]
         cfg = self.cfg
+        cn = self.make_constrain()
         if info["kind"] == "train":
-            return make_train_step(self.loss_fn, self.opt(), clip_norm=1.0)
+            mesh = ambient_mesh()
+            norm = None if mesh is None else self._mesh_norm(mesh)
+            return make_train_step(self.loss_fn, self.opt(), clip_norm=1.0,
+                                   norm_fn=norm)
         if info["kind"] == "prefill":
             @torch.inference_mode()
             def prefill_step(params, batch):
-                return lm_prefill(params, batch["tokens"], cfg)
+                return lm_prefill(params, batch["tokens"], cfg,
+                                  constrain=cn)
             return prefill_step
 
         @torch.inference_mode()
         def decode_step(params, batch):
             return lm_decode_step(params, batch["token"], batch["caches"],
                                   batch["cache_len"], cfg, info["seq"],
-                                  attn=attn)
+                                  attn=attn, constrain=cn)
         return decode_step
+
+    def _mesh_norm(self, mesh):
+        """The global gradient norm of rank-local gradients (in
+        ``tree_leaves(params)`` order) on ``mesh``: each leaf's squares over
+        the number of ranks holding each of its entries, summed over every
+        rank."""
+        from ..dist import spmd
+        whole = self.abstract_params()
+
+        def norm(grads, params):
+            parts = []
+            tree_map(lambda g, a: parts.append(
+                torch.sum(torch.square(g.to(torch.float32)))
+                * (a.numel() / (mesh.size * g.numel()))),
+                tree_unflatten(params, grads), whole)
+            return torch.sqrt(spmd.all_reduce(sum(parts), mesh,
+                                              mesh.axis_names))
+        return norm
+
+    # ---------------------------------------------------------- shardings
+    def _cache_spec(self, mesh, batch: int):
+        """KV cache PartitionSpec factory for the stacked cache trees."""
+        mesh = as_mesh(mesh)
+        ba = batch_axes(mesh)
+        n_batch_shards = (mesh.shape["data"] *
+                          (mesh.shape.get("pod", 1)))
+        if batch >= n_batch_shards and batch % n_batch_shards == 0:
+            bspec, sspec = ba, "model"
+        else:
+            bspec = None
+            sspec = tuple(a for a in mesh.axis_names)  # shard seq everywhere
+
+        def spec(ndim):
+            lead = (None,) * (ndim - 4)
+            return P(*lead, bspec, sspec, None, None)
+        return spec
+
+    def shardings(self, mesh, shape: str):
+        """(arg shardings, out shardings) of the cell's step, trees of
+        ``NamedSharding`` as the reference's."""
+        mesh = as_mesh(mesh)
+        info = LM_SHAPES[shape]
+        pspecs = lm_param_specs(self.cfg, mesh)
+        params_sh = _tree_specs_to_shardings(pspecs, self.abstract_params(),
+                                             mesh)
+        ba = batch_axes(mesh)
+        if info["kind"] == "train":
+            opt_sh = _tree_specs_to_shardings(
+                _spec_tree_for_opt(pspecs), self.abstract_state(shape)[1],
+                mesh)
+            batch_sh = {"tokens": NamedSharding(mesh, P(ba, None)),
+                        "targets": NamedSharding(mesh, P(ba, None))}
+            out_sh = (params_sh, opt_sh, NamedSharding(mesh, P()))
+            return (params_sh, opt_sh, batch_sh), out_sh
+        if info["kind"] == "prefill":
+            batch_sh = {"tokens": NamedSharding(mesh, P(ba, None))}
+            return (params_sh, batch_sh), None
+        # decode
+        spec = self._cache_spec(mesh, info["batch"])
+        caches = self.input_specs(shape)["caches"]
+        cache_sh = {name: tuple(NamedSharding(mesh, spec(len(shp)))
+                                for shp, _ in pair)
+                    for name, pair in caches.items()}
+        tok_spec = (P(ba, None) if info["batch"] >= mesh.shape["data"]
+                    else P(None, None))
+        batch_sh = {"token": NamedSharding(mesh, tok_spec),
+                    "caches": cache_sh,
+                    "cache_len": NamedSharding(mesh, P())}
+        out_sh = (NamedSharding(mesh, tok_spec), cache_sh)
+        return (params_sh, batch_sh), out_sh
+
+
+def _drop_lead(spec_tree, n):
+    """Each P leaf without its first ``n`` entries."""
+    if isinstance(spec_tree, P):
+        return P(*spec_tree[n:])
+    return {k: _drop_lead(v, n) for k, v in spec_tree.items()}
+
+
+def _tree_specs_to_shardings(spec_tree, params_tree, mesh):
+    """Broadcast a structural spec tree over the params tree (specs may be
+    single P leaves standing for whole sub-pytrees of identical layout)."""
+    mesh = as_mesh(mesh)
+    return _named(mesh, broadcast_specs(spec_tree, params_tree))
 
 
 @dataclasses.dataclass
@@ -216,6 +386,35 @@ class GNNBundle:
         """The train step's optimizer, Adam(1e-3)."""
         return adam(1e-3)
 
+    def abstract_state(self, shape: str):
+        """(params, Adam state) on ``meta`` at the cell's feature width
+        (the parameters are small: drawn on the CPU, then described)."""
+        g = self.geometry(shape)
+        params = _meta(self.init_params(torch.Generator().manual_seed(0),
+                                        g["d"], device="cpu"))
+        return params, self.opt().init(params)
+
+    def shardings(self, mesh, shape: str):
+        """Parameters and state replicated; nodes and edges over every
+        mesh axis, as the reference's."""
+        mesh = as_mesh(mesh)
+        axes = tuple(mesh.axis_names)
+        params, opt_state = self.abstract_state(shape)
+        rep = tree_map(lambda _: NamedSharding(mesh, P()), params)
+        opt_sh = tree_map(lambda _: NamedSharding(mesh, P()), opt_state)
+        node = NamedSharding(mesh, P(axes))
+        node2 = NamedSharding(mesh, P(axes, None))
+        edge = NamedSharding(mesh, P(axes))
+        batch_sh = {"src": edge, "dst": edge, "edge_mask": edge,
+                    "labels": node, "train_mask": node}
+        if self.arch == "nequip":
+            batch_sh.update({"species": node, "pos": node2,
+                             "energy_target": NamedSharding(mesh, P())})
+        else:
+            batch_sh.update({"x": node2, "deg": node})
+        out_sh = (rep, opt_sh, NamedSharding(mesh, P()))
+        return (rep, opt_sh, batch_sh), out_sh
+
     def step_fn(self, shape: str):
         """``(params, opt_state, batch) -> (params, opt_state, loss)``:
         :meth:`loss_fn` on the segment path, the clip at 1.0 and one step
@@ -238,6 +437,59 @@ class RecsysBundle:
         """The train step's optimizer; ``optimizer().init(params)`` is the
         state the step takes."""
         return adam(1e-3)
+
+    def abstract_params(self):
+        """``widedeep_init``'s tree on ``meta`` (the published tables are
+        GBs: described, never drawn)."""
+        cfg = self.cfg
+        m = lambda *shape, dtype=torch.float32: torch.empty(
+            shape, dtype=dtype, device="meta")
+        dims = [cfg.n_sparse * cfg.embed_dim + cfg.n_dense, *cfg.mlp_dims, 1]
+        return {"table": m(cfg.total_rows, cfg.embed_dim,
+                           dtype=cfg.param_dtype),
+                "wide": m(cfg.total_rows, dtype=cfg.param_dtype),
+                "wide_dense": {"w": m(cfg.n_dense, 1), "b": m(1)},
+                "deep": [{"w": m(dims[i], dims[i + 1]), "b": m(dims[i + 1])}
+                         for i in range(len(dims) - 1)]}
+
+    def abstract_state(self, shape: str):
+        """(params, opt_state) on ``meta``; opt_state None for the serving
+        cells."""
+        params = self.abstract_params()
+        if RECSYS_SHAPES[shape]["kind"] != "train":
+            return params, None
+        return params, self.optimizer().init(params)
+
+    def shardings(self, mesh, shape: str):
+        """The tables over ``model``, the MLP replicated, the batch over
+        the batch axes when it reaches them (``mesh.size`` here is the
+        reference's ``mesh.devices.size``)."""
+        mesh = as_mesh(mesh)
+        info = RECSYS_SHAPES[shape]
+        ba = batch_axes(mesh)
+        axes = tuple(mesh.axis_names)
+        params, opt_state = self.abstract_state(shape)
+        pspec = {"table": P("model", None), "wide": P("model"),
+                 "wide_dense": {"w": P(None, None), "b": P(None)},
+                 "deep": [{"w": P(None, None), "b": P(None)}
+                          for _ in range(len(self.cfg.mlp_dims) + 1)]}
+        params_sh = _tree_specs_to_shardings(pspec, params, mesh)
+        bspec = ba if info["batch"] >= mesh.size // mesh.shape["model"] \
+            else None
+        batch_sh = {"sparse": NamedSharding(mesh, P(bspec, None)),
+                    "dense": NamedSharding(mesh, P(bspec, None))}
+        if info["kind"] == "train":
+            opt_sh = {"m": params_sh, "v": params_sh,
+                      "step": NamedSharding(mesh, P())}
+            batch_sh["labels"] = NamedSharding(mesh, P(bspec))
+            out_sh = (params_sh, opt_sh, NamedSharding(mesh, P()))
+            return (params_sh, opt_sh, batch_sh), out_sh
+        if shape == "retrieval_cand":
+            batch_sh["sparse"] = NamedSharding(mesh, P(None, None))
+            batch_sh["dense"] = NamedSharding(mesh, P(None, None))
+            batch_sh["candidates"] = NamedSharding(mesh, P(axes, None))
+            return (params_sh, batch_sh), NamedSharding(mesh, P(axes))
+        return (params_sh, batch_sh), None
 
     def input_specs(self, shape: str
                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:

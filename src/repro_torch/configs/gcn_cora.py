@@ -3,6 +3,7 @@ from .base import GNN_SHAPES, ArchSpec, register
 from .families import GNNBundle
 
 MODEL_KW = {"hidden": [16]}
+REDUCED = {"hidden": [8], "classes": 4}
 
 SPEC = register(ArchSpec(
     name="gcn-cora", family="gnn", shapes=tuple(GNN_SHAPES),

@@ -1,5 +1,5 @@
-"""repro_torch.dist — the distributed execution layer (port of the graph
-half of ``repro.dist``).
+"""repro_torch.dist — the distributed execution layer (port of
+``repro.dist``).
 
 Builds on ``graph.partition.HaloPlan`` (the paper's graph-level mapping
 with mesh ranks as PEs) to run graph aggregation, decode attention and
@@ -9,13 +9,22 @@ partials, compressed gradients) instead of full-table all-gathers;
 ``elastic`` runs the shard membership state machine in one process over
 per-shard plans.
 
-The reference's ``compat`` (shims for older jax APIs) has no counterpart
-here, and its ``sharding`` (parameter and activation shardings of the LM
-bundles) belongs to ROADMAP §1 item 9b.  Submodules load lazily (PEP 562),
-as in the reference.
+``sharding`` is the LM half: the parameter and activation shardings of
+the LM bundles, the ambient mesh (``use_mesh``, the counterpart of ``with
+mesh:``), and ``spmd``'s autograd collectives, which the LM mesh path runs
+on rank-local tensors where GSPMD would insert its own.  The reference's
+``compat`` (shims for older jax APIs) has no counterpart here.  Submodules
+load lazily (PEP 562), as in the reference.
 """
 
 _EXPORTS = {
+    "ambient_mesh": "sharding", "batch_axes": "sharding",
+    "shard_activation": "sharding", "activation_spec": "sharding",
+    "maybe_shard": "sharding", "to_shardings": "sharding",
+    "lm_param_specs": "sharding",
+    "use_mesh": "sharding", "unshard_activation": "sharding",
+    "AbstractMesh": "sharding", "Mesh": "sharding",
+    "NamedSharding": "sharding", "P": "sharding",
     "SendPlan": "plan", "build_send_plan": "plan",
     "collective_bytes_estimate": "plan",
     "halo_aggregate": "halo", "allgather_aggregate": "halo",

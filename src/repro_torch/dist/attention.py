@@ -39,13 +39,22 @@ def distributed_decode_attention(mesh, q: torch.Tensor, k: torch.Tensor,
     """
     if data_axis not in mesh.mesh_dim_names:
         raise ValueError(f"mesh has no axis '{data_axis}'")
-    group = mesh.get_group(model_axis)
+    Sl = k.shape[1]
+    return lse_merge_decode(q, k, v, cache_lens, mesh.get_group(model_axis),
+                            mesh.get_local_rank(model_axis) * Sl, scale)
+
+
+def lse_merge_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_lens: torch.Tensor, group, offset: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The merge itself, over ``group``: this rank's k/v hold positions
+    ``[offset, offset + S_local)``; every rank of ``group`` gets the (B, H,
+    d) result."""
     d = q.shape[-1]
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
     Sl = k.shape[1]
-    off = mesh.get_local_rank(model_axis) * Sl
     scores = torch.einsum("bhd,bshd->bhs", q, k).to(torch.float32) * sc
-    pos = off + torch.arange(Sl, device=q.device)
+    pos = offset + torch.arange(Sl, device=q.device)
     valid = pos[None, :] < cache_lens.to(q.device)[:, None]  # (Bl, Sl)
     scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
     # local partials; a rank whose whole slice is masked keeps m = -inf

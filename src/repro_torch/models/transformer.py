@@ -1,6 +1,5 @@
 """Decoder-only LM family: dense and MoE GQA transformers (the port of
-``repro/models/transformer.py``; the mesh branch of ``_moe_ffn`` and the
-``constrain`` hooks wait for ROADMAP item 9b).
+``repro/models/transformer.py``).
 
 Layer parameters and KV caches stay **stacked** on a leading layer axis,
 as in the reference, so ``convert.params_from_jax`` and the cache trees map
@@ -24,9 +23,31 @@ counterpart of ``jax.checkpoint``); a layer casts its fp32 views, routers
 included, to ``cfg.dtype`` inside its checkpointed function, as the
 reference casts its stacks before its scan, so no bf16 copy of a whole
 stack is ever made.
+
+**The mesh path.**  Under ``dist.sharding.use_mesh`` (the reference's
+``with mesh:``) every entry point runs as manual SPMD on rank-local
+tensors (``dist.spmd``), the parameters laid out by ``lm_param_specs``
+(``convert.shard_params``): the layer stacks' ZeRO shard over the batch
+axes is gathered a layer at a time from its owner; ``wq`` / ``wk`` / ``wv``
+/ ``wg`` / ``wu`` are column-parallel and ``wo`` / ``wd`` row-parallel over
+``model`` (each ending in an all-reduce); the vocabulary-cut ``embed`` is a
+masked lookup and an all-reduce, the vocabulary-cut ``head`` leaves the
+logits cut (``("batch", None, "model")``) and ``lm_loss`` takes a
+cross-rank log-sum-exp.  Between layers the residual stream is held as the
+reference's ``shard_activation(h, ("batch", "model", None))`` lays it out,
+its sequence cut over ``model`` where it divides, and gathered whole at
+each layer's start.  The MoE branch runs shard-local dispatch over the data
+axes with F-sliced experts (``moe_apply(tp_axis="model")``), as the
+reference's ``shard_map``; elsewhere the experts run whole on every rank
+over the gathered tokens, as GSPMD computes the unsharded branch.  Decode's
+caches follow ``LMBundle._cache_spec``.  Inputs and outputs are the rank's
+blocks: tokens and logits batch-local, logits vocabulary-cut.  The mesh
+path does not remat (the reference does; memory only).  At a (1, 1) mesh
+every collective is skipped and each step runs the single-device ops.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -35,8 +56,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist import spmd
+from ..dist.sharding import (P, ambient_mesh, batch_axes, lm_param_specs,
+                             shard_activation, unshard_activation, use_mesh)
 from ..nn.attention import (causal_attention, decode_attention,
-                            prefill_attention, rope_freqs)
+                            prefill_attention, rope_freqs,
+                            tp_decode_attention, tp_prefill_attention)
 from ..nn.layers import cross_entropy, rmsnorm_apply, swiglu
 from ..nn.moe import fill_normal_, moe_apply
 from ..train.optimizer import tree_map
@@ -143,18 +168,31 @@ def lm_init(generator: torch.Generator, cfg: LMConfig, device="cuda",
     GB, or a llama4 MoE layer's 32.2 GB of experts, never an fp32 copy of
     a stack."""
     dev = resolve_device(device)
-    dtype = dtype or cfg.param_dtype
 
-    def stacked(spec, n):
-        if isinstance(spec, dict):
-            return {k: stacked(v, n) for k, v in spec.items()}
-        shape, std = spec
-        out = torch.empty((n, *shape) if n else shape, device=dev,
-                          dtype=dtype)
+    def leaf(shape, std):
+        out = torch.empty(shape, device=dev, dtype=dtype or cfg.param_dtype)
         if std is None:
             return out.fill_(1.0)
         fill_normal_(out, std, generator)
         return out
+    return _param_tree(cfg, leaf)
+
+
+def lm_abstract_params(cfg: LMConfig, dtype=None) -> Dict:
+    """``lm_init``'s tree on the ``meta`` device: its shapes and dtypes
+    (``cfg.param_dtype`` by default), nothing allocated or drawn."""
+    return _param_tree(cfg, lambda shape, std: torch.empty(
+        shape, dtype=dtype or cfg.param_dtype, device="meta"))
+
+
+def _param_tree(cfg: LMConfig, leaf) -> Dict:
+    """The stacked parameter tree, each leaf ``leaf(shape, init std)`` (std
+    None: ones), built in the order ``lm_init`` draws."""
+    def stacked(spec, n):
+        if isinstance(spec, dict):
+            return {k: stacked(v, n) for k, v in spec.items()}
+        shape, std = spec
+        return leaf((n, *shape) if n else shape, std)
 
     params = {"embed": stacked(((cfg.vocab, cfg.d_model), 0.02), 0),
               "ln_f": {"scale": stacked(((cfg.d_model,), None), 0)},
@@ -222,13 +260,72 @@ def _dense_ffn(lp, h):
 
 
 def _moe_ffn(lp, h, cfg: LMConfig):
-    """The MoE block on one device: the tokens of (B, S) routed as one
-    (B·S, d) batch, the reference's single-device branch.  Returns (h +
-    out, aux)."""
+    """MoE block.  Under a mesh, dispatch runs SHARD-LOCALLY over the data
+    axes, each model rank computing its F-slice of every expert and one
+    all-reduce combining them (the reference's ``shard_map`` body):
+    per-shard capacity, no global sorts/scatters.  Returns (h + out, aux).
+
+    With no mesh, and on the mesh where the branch does not apply, the
+    tokens of (B, S) are routed as one (B·S, d) batch: on the mesh, those
+    of every batch rank, through whole experts."""
     h2 = rmsnorm_apply(lp["ln2"], h)
     B, S, D = h2.shape
-    out, aux = moe_apply(lp["moe"], h2.reshape(B * S, D), cfg.top_k)
+    mesh = ambient_mesh()
+    if mesh is None:
+        out, aux = moe_apply(lp["moe"], h2.reshape(B * S, D), cfg.top_k)
+        return h + out.reshape(B, S, D), aux
+    lm = _MeshLM.of(cfg, mesh)
+    T = B * S * (lm.nb if lm.batch_local else 1)
+    data_axes = tuple(a for a in mesh.axis_names if a != "model")
+    n_data = spmd.size(mesh, data_axes)
+    has_model = "model" in mesh.axis_names and mesh.shape["model"] > 1
+    if (lm.batch_local and data_axes and T % n_data == 0 and n_data > 1
+            and has_model and cfg.d_ff % mesh.shape["model"] == 0):
+        h2 = shard_activation(h2, ("batch", None, None))
+        flat = h2.reshape(B * S, D)
+        # chunk dispatch when the per-shard token count is training-scale
+        chunks = 4 if T // n_data >= 16384 else 1
+        out, aux = moe_apply(lm.f_sliced(lp["moe"]), flat, cfg.top_k,
+                             tp_axis="model", token_chunks=chunks)
+        aux = spmd.mean(aux, mesh, data_axes)
+    else:
+        flat = h2.reshape(B * S, D)
+        spread = lm.batch_local and lm.nb > 1
+        if spread:
+            flat = spmd.gather_sum(flat, mesh, lm.batch, 0)
+        with use_mesh(None):
+            out, aux = moe_apply(lm.whole_experts(lp["moe"]), flat,
+                                 cfg.top_k)
+        if spread:
+            i = mesh.index(lm.batch)
+            out = out[i * B * S:(i + 1) * B * S]
+            # every batch rank holds the same aux: a part each
+            aux = spmd.scale_grad(aux, 1.0 / lm.nb)
     return h + out.reshape(B, S, D), aux
+
+
+def _model_only_moe_specs(moe_p, mesh):
+    """The model-axis-only layout of a MoE layer's expert weights (the ZeRO
+    data sharding dropped): whole experts per model rank when E divides the
+    axis, else F-slices, as the reference constrains them to pass its
+    data-manual ``shard_map`` boundary.  On the manual path the layer
+    gathered from its ZeRO shard already has this layout, so the port
+    returns the specs (None when the mesh has no model axis to cut on)."""
+    mdl = mesh.shape.get("model", 1)
+    E = moe_p["router"].shape[-1]
+    if mdl > 1 and E % mdl == 0:
+        specs = {"router": P(None, None), "wg": P("model", None, None),
+                 "wu": P("model", None, None), "wd": P("model", None, None)}
+    elif mdl > 1:
+        specs = {"router": P(None, None), "wg": P(None, None, "model"),
+                 "wu": P(None, None, "model"), "wd": P(None, "model", None)}
+    else:
+        return None
+    out = {k: specs[k] for k in specs if k in moe_p}
+    if "shared" in moe_p:
+        out["shared"] = {"wg": P(None, "model"), "wu": P(None, "model"),
+                         "wd": P("model", None)}
+    return out
 
 
 def _superblock_view(params, cfg: LMConfig):
@@ -286,11 +383,21 @@ def _superblock(dense_lps, moe_lp, h, cfg: LMConfig, cos, sin):
 
 
 def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig,
-                remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                remat: bool = True, constrain=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S) tokens -> final hidden states (B, S, d_model), aux loss (the
     sum over the MoE layers; 0 for dense models).  With ``remat`` (and
     autograd on), each layer (each superblock of a MoE config) keeps only
-    its input for the backward and recomputes the rest."""
+    its input for the backward and recomputes the rest.
+
+    ``constrain(kind, lp)`` sees each layer's weights before they are used
+    (``LMBundle.make_constrain``: under a mesh it holds the gathered layer
+    to its per-layer layout); with no mesh it is given the layer's views
+    and the identity is the default."""
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return _mesh_backbone(params, tokens, cfg, mesh, constrain)
+    cn = constrain if constrain is not None else (lambda kind, lp: lp)
     dt = cfg.dtype
     cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta, dtype=dt,
                           device=tokens.device)
@@ -302,22 +409,29 @@ def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if not cfg.n_experts:
         for lp in _unbind_layers(params["dense_layers"]):
-            h = ck(_dense_layer, lp, h, cfg, cos, sin)
+            h = ck(_dense_layer, cn("dense", lp), h, cfg, cos, sin)
         return rmsnorm_apply(params["ln_f"], h), aux
     view = _superblock_view(params, cfg)
     dense = ([_unbind_layers(sb) for sb in _unbind_layers(view)]
              if view is not None else [[]] * cfg.n_moe_layers)
     for dense_lps, moe_lp in zip(dense,
                                  _unbind_layers(params["moe_layers"])):
-        h, a = ck(_superblock, dense_lps, moe_lp, h, cfg, cos, sin)
+        h, a = ck(_superblock, [cn("dense", lp) for lp in dense_lps],
+                  cn("moe", moe_lp), h, cfg, cos, sin)
         aux = aux + a
     return rmsnorm_apply(params["ln_f"], h), aux
 
 
 def lm_forward(params, tokens: torch.Tensor, cfg: LMConfig,
-               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, S) tokens -> (B, S, vocab) logits, aux loss."""
-    h, aux = lm_backbone(params, tokens, cfg, remat)
+               remat: bool = True, constrain=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) tokens -> (B, S, vocab) logits, aux loss.  Under a mesh the
+    logits are the rank's block of ``("batch", None, "model")``: the
+    vocabulary-cut head gives that block itself."""
+    h, aux = lm_backbone(params, tokens, cfg, remat, constrain)
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return _MeshLM.of(cfg, mesh).head(params, h), aux
     return h @ params["head"].to(cfg.dtype), aux
 
 
@@ -326,12 +440,19 @@ def _chunk_nll_sum(hb, tb, head):
 
 
 def lm_loss(params, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: LMConfig, aux_weight: float = 0.01,
+            cfg: LMConfig, aux_weight: float = 0.01, constrain=None,
             loss_chunks: int = 8) -> torch.Tensor:
     """Chunked-softmax cross-entropy: the (B, S, vocab) logits are never
     materialized; each sequence chunk's head matmul and CE run under
-    checkpoint, so one chunk's logits are alive at a time."""
-    h, aux = lm_backbone(params, tokens, cfg)
+    checkpoint, so one chunk's logits are alive at a time.  Under a mesh
+    (the rank's rows of tokens and targets) the loss of the whole batch on
+    every rank: a cross-rank log-sum-exp over the vocabulary cut, the sum
+    over the batch axes."""
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return _mesh_loss(params, tokens, targets, cfg, mesh, aux_weight,
+                          constrain, loss_chunks)
+    h, aux = lm_backbone(params, tokens, cfg, constrain=constrain)
     S = h.shape[1]
     n = loss_chunks if S % loss_chunks == 0 else 1
     c = S // n
@@ -369,12 +490,18 @@ def _stack_caches(kvs: Dict[str, list], cfg: LMConfig) -> Dict:
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
-               window: Optional[int] = None):
+               window: Optional[int] = None, constrain=None):
     """Prefill: last-position logits (B, 1, vocab) and the KV caches in
     ``cfg.dtype``, mirroring the parameter stacks: ``{"dense": (k, v)}``,
     each (n_layers, B, S, n_kv, hd); a MoE config's ``{"moe": (k, v)}`` of
     (n_moe, B, S, n_kv, hd), and ``"dense"`` of (n_moe, moe_every - 1, B,
-    S, n_kv, hd) when the superblocks have dense layers."""
+    S, n_kv, hd) when the superblocks have dense layers.  Under a mesh:
+    the rank's batch rows, its vocabulary block of the logits, and the
+    caches of its rows, whole on the sequence and the heads."""
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return _mesh_prefill(params, tokens, cfg, mesh, window, constrain)
+    cn = constrain if constrain is not None else (lambda kind, lp: lp)
     dt = cfg.dtype
     S = tokens.shape[1]
     cos, sin = rope_freqs(cfg.hd, S, cfg.rope_theta, dtype=dt,
@@ -382,6 +509,7 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     h = _embed(params, tokens, cfg)
     kvs = {"dense": [], "moe": []}
     for kind, lp, _ in layer_schedule(params, cfg):
+        lp = cn(kind, lp)
         h2 = rmsnorm_apply(lp["ln1"], h)
         att, kv = prefill_attention(lp["attn"], h2, cfg.n_heads, cfg.n_kv,
                                     cfg.hd, cos, sin, window=window)
@@ -393,7 +521,8 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
 
 
 def lm_decode_step(params, token: torch.Tensor, kv_caches, cache_len: int,
-                   cfg: LMConfig, max_seq: int, attn: str = "kernel"):
+                   cfg: LMConfig, max_seq: int, attn: str = "kernel",
+                   constrain=None):
     """One decode step.  token: (B, 1); cache_len: the new token's
     position.
 
@@ -403,12 +532,24 @@ def lm_decode_step(params, token: torch.Tensor, kv_caches, cache_len: int,
     vocab), the same cache tree).  ``attn``: ``"kernel"`` (the flash-decode
     kernel, one launch per layer on the card, dense or MoE) or
     ``"plain"``.
+
+    Under a mesh the caches are the rank's blocks of
+    ``LMBundle._cache_spec``'s layout (the sequence over ``model`` and the
+    batch over the batch axes, or the sequence over every axis), told apart
+    by their sequence length against ``max_seq``; ``token`` holds the
+    rows the caches hold.
     """
+    mesh = ambient_mesh()
+    if mesh is not None:
+        return _mesh_decode_step(params, token, kv_caches, cache_len, cfg,
+                                 max_seq, attn, mesh, constrain)
+    cn = constrain if constrain is not None else (lambda kind, lp: lp)
     dt = cfg.dtype
     cos, sin = rope_freqs(cfg.hd, max_seq + 1, cfg.rope_theta, dtype=dt,
                           device=token.device)
     h = _embed(params, token, cfg)
     for kind, lp, idx in layer_schedule(params, cfg):
+        lp = cn(kind, lp)
         k_stack, v_stack = kv_caches[kind]
         h2 = rmsnorm_apply(lp["ln1"], h)
         att, _ = decode_attention(lp["attn"], h2, (k_stack[idx],
@@ -449,3 +590,284 @@ def fill_caches(full, caches) -> None:
     for name, pair in caches.items():
         for buf, c in zip(full[name], pair):
             buf.narrow(-3, 0, c.shape[-3]).copy_(c)
+
+
+# ------------------------------------------------------------ the mesh path
+# False while a decode step holds its batch whole on every rank (a batch
+# that does not divide the batch axes: ``LMBundle._cache_spec`` cuts the
+# sequence over every axis instead); every other mesh step holds its rows
+_BATCH_LOCAL: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_lm_batch_local", default=True)
+
+
+class _MeshLM:
+    """What the mesh path needs of one (config, mesh): ``lm_param_specs``,
+    the batch axes, which weights are cut over ``model``."""
+
+    def __init__(self, cfg: LMConfig, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = lm_param_specs(cfg, mesh)
+        ba = batch_axes(mesh)
+        self.batch = (ba,) if isinstance(ba, str) else tuple(ba)
+        self.nb = spmd.size(mesh, self.batch)
+        cut = lambda spec, d: spec[d] == "model"
+        self.vocab = cut(self.specs["embed"], 0)
+        layer = self.specs.get("dense_layers") or self.specs["moe_layers"]
+        self.col_q = cut(layer["attn"]["wq"], 2)
+        self.col_kv = cut(layer["attn"]["wk"], 2)
+        self.row_o = cut(layer["attn"]["wo"], 1)
+        if "dense_layers" in self.specs:
+            self.ffn = cut(self.specs["dense_layers"]["ffn"]["wg"], 2)
+        if "moe_layers" in self.specs:
+            moe = self.specs["moe_layers"]["moe"]
+            self.expert_par = cut(moe["wg"], 1)
+            self.expert_f = cut(moe["wg"], 3)
+            self.shared_f = "shared" in moe and cut(moe["shared"]["wg"], 2)
+
+    @classmethod
+    def of(cls, cfg: LMConfig, mesh) -> "_MeshLM":
+        """The record of ``(cfg, mesh)``, cached on the mesh."""
+        cache = mesh.__dict__.setdefault("_lm_records", {})
+        if cfg not in cache:
+            cache[cfg] = cls(cfg, mesh)
+        return cache[cfg]
+
+    @property
+    def batch_local(self) -> bool:
+        """Whether the step holds the rank's rows of the batch."""
+        return _BATCH_LOCAL.get()
+
+    def rep(self, tree):
+        """A parameter every batch rank holds whole, entering the step
+        (backward: summed over the batch axes, when the batch is cut)."""
+        if not self.batch_local:
+            return tree
+        return tree_map(lambda a: spmd.copy(a, self.mesh, self.batch), tree)
+
+    def layer(self, params, stack: str, i: int):
+        """Layer ``i`` of ``params[stack]``, gathered from its ZeRO shard
+        (``spmd.layer_of``)."""
+        n = (self.cfg.n_moe_layers if stack == "moe_layers"
+             else self.cfg.n_dense_layers)
+        if not self.batch_local:
+            return tree_map(lambda a: self._layer_whole(a, i, n),
+                            params[stack])
+        return tree_map(lambda a: spmd.layer_of(a, i, n, self.mesh,
+                                                 self.batch), params[stack])
+
+    def _layer_whole(self, a, i, n):
+        # a step that holds the batch whole (a decode batch below the
+        # batch axes) has no gradient to sum: the broadcast alone
+        if a.shape[0] == n:
+            return a[i]
+        with torch.no_grad():
+            return spmd.layer_of(a, i, n, self.mesh, self.batch)
+
+    def embed(self, params, tokens):
+        """The token rows of the (vocabulary-cut) embedding, whole on every
+        rank: a masked lookup and an all-reduce over ``model``."""
+        table = self.rep(params["embed"]).to(self.cfg.dtype)
+        if not self.vocab:
+            return torch.nn.functional.embedding(tokens.long(), table)
+        V = table.shape[0]
+        local = tokens.long() - self.mesh.coord("model") * V
+        ok = (local >= 0) & (local < V)
+        rows = torch.nn.functional.embedding(local.clamp(0, V - 1), table)
+        return spmd.all_reduce(rows * ok[..., None].to(rows.dtype),
+                               self.mesh, "model")
+
+    def head_w(self, params):
+        return self.rep(params["head"]).to(self.cfg.dtype)
+
+    def head(self, params, h):
+        """Logits, vocabulary-cut over ``model`` when the head is."""
+        w = self.head_w(params)
+        if not self.vocab:
+            return h @ w
+        return spmd.copy(h, self.mesh, "model") @ w
+
+    def nll_sum(self, logits, targets):
+        """Sum of the rows' cross-entropy of (vocabulary-cut) logits."""
+        if not self.vocab:
+            return cross_entropy(logits, targets) * targets.numel()
+        lg = logits.to(torch.float32)
+        m = spmd.max_(torch.amax(lg, dim=-1, keepdim=True), self.mesh,
+                      "model")
+        se = spmd.all_reduce(torch.sum(torch.exp(lg - m), dim=-1),
+                             self.mesh, "model")
+        logz = torch.log(se) + m[..., 0]
+        V = lg.shape[-1]
+        local = targets.long() - self.mesh.coord("model") * V
+        ok = (local >= 0) & (local < V)
+        gold = torch.gather(lg, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+        gold = spmd.all_reduce(gold * ok.to(gold.dtype), self.mesh, "model")
+        return torch.sum(logz - gold)
+
+    def dense_ffn(self, lp, h):
+        if not self.ffn:
+            return _dense_ffn(lp, h)
+        h2 = rmsnorm_apply(lp["ln2"], h)
+        dt, f = h.dtype, lp["ffn"]
+        x = spmd.copy(h2, self.mesh, "model")
+        y = swiglu(x @ f["wg"].to(dt), x @ f["wu"].to(dt)) @ f["wd"].to(dt)
+        return h + spmd.all_reduce(y, self.mesh, "model")
+
+    def f_sliced(self, moe_p):
+        """The rank's F-slices of every expert (the reference's
+        ``shard_map`` in-specs): whole experts per rank are all-gathered
+        over ``model`` first, then cut on F (backward: summed, then the
+        rank's experts)."""
+        if not self.expert_par:
+            return moe_p
+        m, i = self.mesh, self.mesh.coord("model")
+        out = dict(moe_p)
+        for k, fdim in (("wg", 2), ("wu", 2), ("wd", 1)):
+            whole = spmd.gather_sum(moe_p[k], m, "model", 0)
+            n = whole.shape[fdim] // m.shape["model"]
+            out[k] = whole.narrow(fdim, i * n, n)
+        return out
+
+    def whole_experts(self, moe_p):
+        """Every expert weight whole on every rank (backward: the rank's
+        block of a gradient every rank computes alike)."""
+        m = self.mesh
+        out = dict(moe_p)
+        for k, fdim in (("wg", 2), ("wu", 2), ("wd", 1)):
+            if self.expert_par:
+                out[k] = spmd.gather(moe_p[k], m, "model", 0)
+            elif self.expert_f:
+                out[k] = spmd.gather(moe_p[k], m, "model", fdim)
+        if self.shared_f:
+            sh = moe_p["shared"]
+            out["shared"] = {k: spmd.gather(sh[k], m, "model",
+                                            0 if k == "wd" else 1)
+                             for k in ("wg", "wu", "wd")}
+        return out
+
+    def attention(self, lp, h, cos, sin, window=None):
+        cfg = self.cfg
+        h2 = rmsnorm_apply(lp["ln1"], h)
+        att, kv = tp_prefill_attention(
+            lp["attn"], h2, cfg.n_heads, cfg.n_kv, cfg.hd, cos, sin,
+            self.mesh, self.col_q, self.col_kv, self.row_o, window=window)
+        return h + att, kv
+
+
+def _mesh_schedule(cfg: LMConfig) -> list:
+    """``(kind, stack, layer index in its stack, cache index)`` in
+    execution order (``layer_schedule``'s walk)."""
+    if not cfg.n_experts:
+        return [("dense", "dense_layers", i, (i,))
+                for i in range(cfg.n_layers)]
+    per = cfg.moe_every - 1
+    out = []
+    for j in range(cfg.n_moe_layers):
+        out += [("dense", "dense_layers", j * per + i, (j, i))
+                for i in range(per)]
+        out.append(("moe", "moe_layers", j, (j,)))
+    return out
+
+
+_SEQ = ("batch", "model", None)
+
+
+def _mesh_backbone(params, tokens, cfg: LMConfig, mesh, constrain):
+    lm = _MeshLM.of(cfg, mesh)
+    cn = constrain if constrain is not None else (lambda kind, lp: lp)
+    dt = cfg.dtype
+    cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta, dtype=dt,
+                          device=tokens.device)
+    h = lm.embed(params, tokens)
+    shape = tuple(h.shape)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    # sequence-parallel carry: between layers h lives seq-cut on model
+    h = shard_activation(h, _SEQ)
+    for kind, stack, i, _ in _mesh_schedule(cfg):
+        lp = _compute_cast(cn(kind, lm.layer(params, stack, i)), dt)
+        h = unshard_activation(h, _SEQ, shape)
+        h, _ = lm.attention(lp, h, cos, sin)
+        if kind == "dense":
+            h = lm.dense_ffn(lp, h)
+        else:
+            h, a = _moe_ffn(lp, h, cfg)
+            aux = aux + a
+        h = shard_activation(h, _SEQ)
+    h = unshard_activation(h, _SEQ, shape)
+    return rmsnorm_apply(lm.rep(params["ln_f"]), h), aux
+
+
+def _mesh_loss(params, tokens, targets, cfg: LMConfig, mesh, aux_weight,
+               constrain, loss_chunks):
+    lm = _MeshLM.of(cfg, mesh)
+    h, aux = _mesh_backbone(params, tokens, cfg, mesh, constrain)
+    S = h.shape[1]
+    n = loss_chunks if S % loss_chunks == 0 else 1
+    c = S // n
+    w = lm.head_w(params)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(n):
+        hb, tb = h[:, j * c:(j + 1) * c], targets[:, j * c:(j + 1) * c]
+        hb = spmd.copy(hb, mesh, "model") if lm.vocab else hb
+        total = total + lm.nll_sum(hb @ w, tb)
+    total = spmd.all_reduce(total, mesh, lm.batch)
+    return total / (targets.numel() * lm.nb) + aux_weight * aux
+
+
+def _mesh_prefill(params, tokens, cfg: LMConfig, mesh, window, constrain):
+    lm = _MeshLM.of(cfg, mesh)
+    cn = constrain if constrain is not None else (lambda kind, lp: lp)
+    dt = cfg.dtype
+    S = tokens.shape[1]
+    cos, sin = rope_freqs(cfg.hd, S, cfg.rope_theta, dtype=dt,
+                          device=tokens.device)
+    h = lm.embed(params, tokens)
+    shape = tuple(h.shape)
+    h = shard_activation(h, _SEQ)
+    kvs = {"dense": [], "moe": []}
+    for kind, stack, i, _ in _mesh_schedule(cfg):
+        lp = cn(kind, lm.layer(params, stack, i))
+        h = unshard_activation(h, _SEQ, shape)
+        h, kv = lm.attention(lp, h, cos, sin, window)
+        h = (lm.dense_ffn(lp, h) if kind == "dense"
+             else _moe_ffn(lp, h, cfg)[0])
+        h = shard_activation(h, _SEQ)
+        kvs[kind].append(kv)
+    h = unshard_activation(h, _SEQ, shape)
+    h = rmsnorm_apply(lm.rep(params["ln_f"]), h)
+    return lm.head(params, h[:, -1:]), _stack_caches(kvs, cfg)
+
+
+def _mesh_decode_step(params, token, kv_caches, cache_len, cfg: LMConfig,
+                      max_seq, attn, mesh, constrain):
+    lm = _MeshLM.of(cfg, mesh)
+    first = next(iter(kv_caches.values()))[0]
+    n_seq = max_seq // first.shape[-3]
+    if n_seq == mesh.shape.get("model", 1):
+        seq_axes, rows = ("model",), True
+    elif n_seq == mesh.size:
+        seq_axes, rows = tuple(mesh.axis_names), False
+    else:
+        raise ValueError(f"caches of {first.shape[-3]} positions of "
+                         f"max_seq {max_seq} are not a layout of "
+                         f"LMBundle._cache_spec on {mesh!r}")
+    token_ = _BATCH_LOCAL.set(rows)
+    try:
+        cn = constrain if constrain is not None else (lambda kind, lp: lp)
+        dt = cfg.dtype
+        cos, sin = rope_freqs(cfg.hd, max_seq + 1, cfg.rope_theta, dtype=dt,
+                              device=token.device)
+        h = lm.embed(params, token)
+        for kind, stack, i, idx in _mesh_schedule(cfg):
+            lp = cn(kind, lm.layer(params, stack, i))
+            k_stack, v_stack = kv_caches[kind]
+            h2 = rmsnorm_apply(lp["ln1"], h)
+            att, _ = tp_decode_attention(
+                lp["attn"], h2, (k_stack[idx], v_stack[idx]), cache_len,
+                cfg.n_heads, cfg.n_kv, cfg.hd, cos, sin, mesh, lm.col_q,
+                lm.col_kv, lm.row_o, seq_axes, attn=attn)
+            h = (lm.dense_ffn(lp, h + att) if kind == "dense"
+                 else _moe_ffn(lp, h + att, cfg)[0])
+        h = rmsnorm_apply(lm.rep(params["ln_f"]), h)
+        return lm.head(params, h), kv_caches
+    finally:
+        _BATCH_LOCAL.reset(token_)

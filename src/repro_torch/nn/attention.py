@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..dist import spmd
 from ..kernels import ops
 from .layers import linear_apply, linear_init
 
@@ -205,27 +206,119 @@ def decode_attention(p, x: torch.Tensor,
     B, S, _ = x.shape
     assert S == 1
     k_cache, v_cache = kv_cache
-    L = k_cache.shape[1]
     positions = torch.full((B, 1), cache_len, dtype=torch.long,
                            device=x.device)
     q, k_new, v_new = _qkv(p, x, n_heads, n_kv, head_dim, cos, sin, positions)
     k_cache = insert_kv(k_cache, k_new, cache_len)
     v_cache = insert_kv(v_cache, v_new, cache_len)
+    out = _attend(q, k_cache, v_cache, cache_len, n_heads, n_kv, head_dim,
+                  attn)
+    return linear_apply(p["wo"], out), (k_cache, v_cache)
+
+
+def _attend(q, k_cache, v_cache, cache_len: int, n_heads: int, n_kv: int,
+            head_dim: int, attn: str) -> torch.Tensor:
+    """Decode's attention core over positions [0, cache_len] of the cache:
+    (B, 1, H * D)."""
+    B, L = q.shape[0], k_cache.shape[1]
     if attn == "kernel":
         lengths = torch.full((B,), cache_len + 1, dtype=torch.int32,
-                             device=x.device)
-        out = ops.decode_attention(q[:, 0], k_cache, v_cache, lengths
-                                   ).reshape(B, 1, -1)
-    elif attn == "plain":
+                             device=q.device)
+        return ops.decode_attention(q[:, 0], k_cache, v_cache, lengths
+                                    ).reshape(B, 1, -1)
+    if attn == "plain":
         groups = n_heads // n_kv
         kc = _expand_kv(k_cache, groups)
         vc = _expand_kv(v_cache, groups)
         scale = 1.0 / math.sqrt(head_dim)
         s = torch.einsum("bqhd,bkhd->bhqk", q, kc).to(torch.float32) * scale
-        valid = torch.arange(L, device=x.device) <= cache_len
+        valid = torch.arange(L, device=q.device) <= cache_len
         s = s.masked_fill(~valid[None, None, None, :], float("-inf"))
-        probs = torch.softmax(s, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vc).reshape(B, 1, -1)
+        probs = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, vc).reshape(B, 1, -1)
+    raise ValueError(f"unknown attn {attn!r} (choices: {ATTNS})")
+
+
+# --------------------------------------------------------- the mesh path
+# Tensor parallelism over ``model`` on rank-local tensors (``dist.spmd``):
+# ``x`` is whole on every model rank; a column-parallel projection (its
+# weight cut over ``model``, ``dist.sharding.lm_param_specs``) enters
+# through ``copy`` and its columns are all-gathered, so every rank holds
+# whole heads (the flattened widths need not split on head boundaries, nor
+# the GQA groups on ranks: the reference's ``_mdl`` tests the width only);
+# the attention core then runs whole on each rank, and a row-parallel
+# ``wo`` takes the rank's columns of its input and all-reduces.  With
+# nothing cut (a model axis of one rank) these are ``_qkv`` and
+# ``linear_apply`` exactly.
+def tp_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, positions, mesh,
+           col_q: bool, col_kv: bool):
+    B, S, _ = x.shape
+    xf = spmd.copy(x, mesh, "model") if (col_q or col_kv) else x
+
+    def proj(name, n, col):
+        if not col:
+            return linear_apply(p[name], x).reshape(B, S, n, head_dim)
+        y = spmd.gather(linear_apply(p[name], xf), mesh, "model", -1)
+        return y.reshape(B, S, n, head_dim)
+    q = apply_rope(proj("wq", n_heads, col_q), cos, sin, positions)
+    k = apply_rope(proj("wk", n_kv, col_kv), cos, sin, positions)
+    return q, k, proj("wv", n_kv, col_kv)
+
+
+def tp_out(p, out: torch.Tensor, mesh, row_o: bool) -> torch.Tensor:
+    if not row_o:
+        return linear_apply(p["wo"], out)
+    mine = spmd.split(out, mesh, "model", out.dim() - 1)
+    return spmd.all_reduce(linear_apply(p["wo"], mine), mesh, "model")
+
+
+def tp_prefill_attention(p, x, n_heads, n_kv, head_dim, cos, sin, mesh,
+                         col_q: bool, col_kv: bool, row_o: bool,
+                         window: Optional[int] = None,
+                         q_chunk: int = 1024, kv_chunk: int = 512):
+    """``prefill_attention`` (and ``causal_attention``, the output alone)
+    on the mesh path: the caches (B, S, n_kv, D) whole."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = tp_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, positions,
+                     mesh, col_q, col_kv)
+    out = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk, window=window)
+    return tp_out(p, out, mesh, row_o), (k, v)
+
+
+def tp_decode_attention(p, x, kv_cache, cache_len: int, n_heads: int,
+                        n_kv: int, head_dim: int, cos, sin, mesh,
+                        col_q: bool, col_kv: bool, row_o: bool,
+                        seq_axes: tuple, attn: str = "kernel"):
+    """``decode_attention`` on the mesh path.  The cache holds the rank's
+    window of the sequence over ``seq_axes`` (``LMBundle._cache_spec``:
+    ``model``, or every axis when the batch does not divide the batch
+    axes): the new token's KV is written by the rank whose window holds
+    ``cache_len``; with one window the core is ``decode_attention``'s (the
+    kernel on the card), else each rank reduces its window for every head
+    and the LSE merge of ``dist.attention`` combines them."""
+    from ..dist.attention import lse_merge_decode
+    B = x.shape[0]
+    k_cache, v_cache = kv_cache
+    positions = torch.full((B, 1), cache_len, dtype=torch.long,
+                           device=x.device)
+    q, k_new, v_new = tp_qkv(p, x, n_heads, n_kv, head_dim, cos, sin,
+                             positions, mesh, col_q, col_kv)
+    Sl = k_cache.shape[1]
+    off = mesh.index(seq_axes) * Sl
+    if off <= cache_len < off + Sl:
+        insert_kv(k_cache, k_new, cache_len - off)
+        insert_kv(v_cache, v_new, cache_len - off)
+    group = mesh.group(seq_axes)
+    if group is None:
+        out = _attend(q, k_cache, v_cache, cache_len, n_heads, n_kv,
+                      head_dim, attn)
     else:
-        raise ValueError(f"unknown attn {attn!r} (choices: {ATTNS})")
-    return linear_apply(p["wo"], out), (k_cache, v_cache)
+        groups = n_heads // n_kv
+        lens = torch.full((B,), cache_len + 1, dtype=torch.int32,
+                          device=x.device)
+        out = lse_merge_decode(q[:, 0], _expand_kv(k_cache, groups),
+                               _expand_kv(v_cache, groups), lens, group,
+                               off).reshape(B, 1, -1)
+    return tp_out(p, out, mesh, row_o), (k_cache, v_cache)

@@ -15,8 +15,17 @@ order among equal values: the lower index first), each kept slot receives
 its one token by an index copy, and the combine sums each token's k
 assignments in a fixed order (``reshape(T, k, d).sum(1)``); no
 ``index_add_`` / ``scatter_add_`` meets a row from several terms.  The
-experts are batched matmuls, as the reference's einsums.  There is no
-``tp_axis``: the expert-parallel mesh branch waits for ROADMAP item 9b.
+experts are batched matmuls, as the reference's einsums.
+
+``tp_axis`` (the mesh branch of ``models.transformer._moe_ffn``, under
+``dist.sharding.use_mesh``): ``wg`` / ``wu`` / ``wd`` (and the shared
+expert's) are the rank's F-slices, the routing runs whole on every rank of
+the axis, the experts give partial products, and one all-reduce over the
+axis follows the combine, as the reference's ``psum``.  The reference's
+three ``maybe_shard`` layout hints on the expert buffers stay identities
+with no mesh; under a mesh the port has no manual layout for them, so
+``moe_apply`` there takes ``tp_axis`` (the transformer runs the whole
+experts outside the mesh where its branch does not apply).
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist import spmd
+from ..dist.sharding import P, ambient_mesh, maybe_shard
 from .layers import swiglu
 
 
@@ -142,11 +153,22 @@ def moe_routes(p: dict, x: torch.Tensor, top_k: int,
 
 
 def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
-                    capacity_factor: float = 1.25, sort_tokens: bool = False):
+                    capacity_factor: float = 1.25, sort_tokens: bool = False,
+                    tp_axis=None):
     """x: (T, d) token-major.  Returns (out (T, d), aux loss)."""
     T, d = x.shape
     E = p["router"].shape[1]
+    mesh = ambient_mesh()
+    if tp_axis is None and mesh is not None:
+        raise ValueError("under a mesh moe_apply takes tp_axis (F-sliced "
+                         "experts); run whole experts outside the mesh")
     r = moe_routes(p, x, top_k, capacity_factor, sort_tokens)
+    gates, xe = r.gates, x
+    if tp_axis is not None:
+        # every rank of the axis routes alike; the experts and the gates
+        # feed rank-different partial products (backward: summed)
+        gates = spmd.copy(gates, mesh, tp_axis)
+        xe = spmd.copy(x, mesh, tp_axis)
     # the Switch load-balancing loss, E * sum_e f_e * p_e
     me = r.probs.mean(dim=0)
     counts = (r.flat_expert[:, None] == torch.arange(
@@ -157,54 +179,68 @@ def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
     C = r.capacity
     # each assignment's token, a view of x expanded over k: its backward
     # sums a token's k gradients in a fixed order
-    xk = x[:, None].expand(T, top_k, d).reshape(T * top_k, d)
+    xk = xe[:, None].expand(T, top_k, d).reshape(T * top_k, d)
     if r.order is not None:
         xk = xk[r.order]
     # dispatch: every kept slot receives exactly one token; the dropped
     # assignments land in a spare row that is cut off
     dest = torch.where(r.keep, r.slot, E * C)
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device
-                      ).index_copy(0, dest, xk)
-    eb = buf[:E * C].reshape(E, C, d)
+                      ).index_copy(0, dest, xk)[:E * C]
+    if tp_axis is None:
+        buf = maybe_shard(buf, P("model", None))
+    eb = buf.reshape(E, C, d)
+    if tp_axis is None:
+        eb = maybe_shard(eb, P("model", None, None))
+    # with tp_axis set, wg/wu/wd are LOCAL F-dim slices: partial products
+    # here, one all-reduce below
     h = swiglu(torch.bmm(eb, p["wg"].to(x.dtype)),
                torch.bmm(eb, p["wu"].to(x.dtype)))
     eo = torch.bmm(h, p["wd"].to(x.dtype)).reshape(E * C, d)
+    if tp_axis is None:
+        eo = maybe_shard(eo, P("model", None))
 
     # combine: each assignment's expert output times its gate (0 if
     # dropped), back in token order, summed over k
-    gathered = eo[r.slot] * (r.gates * r.keep).to(x.dtype)[:, None]
+    gathered = eo[r.slot] * (gates * r.keep).to(x.dtype)[:, None]
     if r.order is not None:
         gathered = gathered[torch.argsort(r.order)]
     out = gathered.reshape(T, top_k, d).sum(dim=1)
 
     if "shared" in p:
         sh = p["shared"]
-        out = out + swiglu(x @ sh["wg"].to(x.dtype),
-                           x @ sh["wu"].to(x.dtype)) @ sh["wd"].to(x.dtype)
+        out = out + swiglu(xe @ sh["wg"].to(x.dtype),
+                           xe @ sh["wu"].to(x.dtype)) @ sh["wd"].to(x.dtype)
+    if tp_axis is not None:
+        # the combine is linear in eo: one all-reduce of (T, d), far
+        # smaller than the (E, C, d) expert buffers
+        out = spmd.all_reduce(out, mesh, tp_axis)
     return out, aux
 
 
 def moe_apply(p: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, sort_tokens: bool = False,
-              token_chunks: int = 1):
+              tp_axis=None, token_chunks: int = 1):
     """(T, d) -> (out (T, d), aux).  ``token_chunks > 1`` (dividing T) runs
     routing, dispatch and the experts on T / token_chunks tokens at a time,
     each chunk under ``torch.utils.checkpoint`` when autograd records
     (the capacity is then per chunk), and returns the mean of the chunks'
-    aux, as the reference's scan does."""
+    aux, as the reference's scan does.  ``tp_axis``: see the module
+    docstring."""
     T = x.shape[0]
     if token_chunks > 1 and T % token_chunks == 0:
         outs, auxs = [], []
         for xc in x.split(T // token_chunks):
             if torch.is_grad_enabled():
                 o, a = checkpoint(_moe_apply_impl, p, xc, top_k,
-                                  capacity_factor, sort_tokens,
+                                  capacity_factor, sort_tokens, tp_axis,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 o, a = _moe_apply_impl(p, xc, top_k, capacity_factor,
-                                       sort_tokens)
+                                       sort_tokens, tp_axis)
             outs.append(o)
             auxs.append(a)
         return torch.cat(outs), torch.mean(torch.stack(auxs))
-    return _moe_apply_impl(p, x, top_k, capacity_factor, sort_tokens)
+    return _moe_apply_impl(p, x, top_k, capacity_factor, sort_tokens,
+                           tp_axis)

@@ -36,7 +36,8 @@ class TrainResult:
 
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
-                    clip_norm: Optional[float] = 1.0, donate: bool = True):
+                    clip_norm: Optional[float] = 1.0, donate: bool = True,
+                    norm_fn: Optional[Callable] = None):
     """Returns ``(params, opt_state, batch) -> (params, opt_state, loss)``,
     the loss a detached 0-d tensor on the device.
 
@@ -47,7 +48,10 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     are returned.  The peak is then the parameters, their gradients, the
     state and one leaf of transients; a caller that still needs the old
     values passes ``donate=False``, which returns new trees (the functional
-    form) and leaves its arguments as they were."""
+    form) and leaves its arguments as they were.  ``norm_fn(grads,
+    params)`` (the gradients in ``tree_leaves(params)`` order) gives the
+    clip's global norm where the local gradients are not the whole tree (a
+    mesh's rank-local blocks, ``LMBundle._mesh_norm``)."""
     if donate and opt.update_ is None:
         raise ValueError("this optimizer has no in-place form; pass "
                          "donate=False")
@@ -62,14 +66,16 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     def step(params, opt_state, batch):
         loss, grads = grads_of(params, batch)
         with torch.no_grad():
+            norm = (norm_fn(grads, params) if (clip_norm and norm_fn)
+                    else None)
             if donate:
                 if clip_norm:
-                    clip_by_global_norm_(grads, clip_norm)
+                    clip_by_global_norm_(grads, clip_norm, norm)
                 opt.update_(grads, opt_state, params)
                 return params, opt_state, loss
             grads = tree_unflatten(params, grads)
             if clip_norm:
-                grads, _ = clip_by_global_norm(grads, clip_norm)
+                grads, _ = clip_by_global_norm(grads, clip_norm, norm)
             updates, opt_state = opt.update(grads, opt_state, params)
             return apply_updates(params, updates), opt_state, loss
 

@@ -90,7 +90,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.dist.compress", "repro_torch.dist.elastic",
                 "repro_torch.dist.halo", "repro_torch.dist.resilient",
                 "repro_torch.dist.gnn", "repro_torch.dist.attention",
-                "repro_torch.launch.mesh"}
+                "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+                "repro_torch.dist.spmd", "repro_torch.chaos.drill"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []
