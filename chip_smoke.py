@@ -207,7 +207,18 @@
    its entry point in this process (its launches counted; the exec,
    serve and elastic gauntlets run row 3; ``cuda`` is demoted only by the
    drill's injected faults), two same-seed runs, failing on a non-zero
-   exit.
+   exit.  Then the dry-run and the roofline (``roofline_phase``, no
+   kernel): ``roofline.hw`` against the card (an H100 with at least
+   ``hw.HBM_BYTES``); ``python -m repro_torch.launch.dryrun
+   --single-pod-only`` as a child (exit 1 with exactly the reference's 12
+   failed cells and 28 OK) and ``python -m repro_torch.launch.roofline_run``
+   (28 records); then two steps counted on the host by
+   ``roofline.count.count_step`` and run on the card, gcn-cora
+   ``full_graph_sm`` (through ``launch.dryrun.lower_cell`` on a (1, 1)
+   mesh over a one-rank fake process group) and granite-8b ``train_4k``
+   cut to 12 of 36 layers at B = 1: each step's median of 5 synchronised
+   steps may not be below its roofline bound, and the dry-run's peak must
+   lie within 10% of the card's.
 12. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -236,9 +247,25 @@ BM = 128
 # are at most 1, relative above: unnormalized sum-mode rows reach ~30)
 KERNEL_TOL = 1e-5
 ORACLE_TOL = 1e-4
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
+
+
+def _card_constants():
+    """``repro_torch.roofline.hw`` of the checkout beside this script (None
+    without one: ``main`` then stops with its own message)."""
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        return None
+    if str(src) not in sys.path:
+        sys.path.insert(0, str(src))
+    from repro_torch.roofline import hw
+    return hw
+
+
+HW = _card_constants()
+# NVIDIA H100 SXM data sheet (roofline.hw): fp32 outside the tensor cores,
+# HBM3 rate
+PEAK_FP32_FLOPS = HW and HW.PEAK_FLOPS_FP32
+PEAK_BYTES_PER_S = HW and HW.HBM_BW
 # name -> (source, the TPU kernel it replaces, the wrapper's module)
 KERNELS = {
     "spmm_blockell": (
@@ -266,9 +293,9 @@ KERNELS = {
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:59", "decode_attention"),
 }
-# NVIDIA H100 SXM data sheet: bf16 on the tensor cores (the peak for the
-# decode-attention cases whose inputs are bf16)
-PEAK_BF16_FLOPS = 989e12
+# NVIDIA H100 SXM data sheet (roofline.hw): bf16 on the tensor cores (the
+# peak for the decode-attention cases whose inputs are bf16)
+PEAK_BF16_FLOPS = HW and HW.PEAK_FLOPS_BF16
 # the reference's decode-attention bars (tests/test_kernels.py)
 DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # granite-8b at full width: decode_32k's batch cut from 128 to 8 (a 38.65 GB
@@ -1448,8 +1475,10 @@ def gin_training_phase(torch, dev, g):
 # spans against device time, the audit's calibration from the card's trials
 # ---------------------------------------------------------------------------
 OBS_STEPS = 10
-# the card's power limit as nvidia-smi printed it at the top (main sets it)
+# nvidia-smi's line (name, power limit) and the limit alone, as printed at
+# the top (main sets them)
 SMI_POWER_LIMIT = None
+SMI_LINE = None
 
 
 def read_observed(torch, dev, metrics_path, trace_path, what):
@@ -5361,6 +5390,255 @@ def kernel_row(name, cases, launches, work):
             "peaks": "H100 SXM data sheet: 67 TFLOP/s fp32, 3.35 TB/s"}
 
 
+# ---------------------------------------------------------------------------
+# the dry-run and the roofline: launch.dryrun / launch.roofline_run as
+# children (fake process groups on the host, no kernel), then the roofline
+# held against two steps the card runs
+# ---------------------------------------------------------------------------
+ROOFLINE_CHILD_TIMEOUT_S = 600
+ROOFLINE_WARMUP = 2
+ROOFLINE_TIMED = 5
+ROOFLINE_PEAK_TOL = 0.10
+# the reference's dry-run on (16, 16): these 12 cells raise at its ZeRO
+# entry (a layer stack of 36, 88 or 24 does not divide the data axis)
+ROOFLINE_FAILED = {(a, s) for a in ("granite-8b", "mistral-large-123b",
+                                    "llama4-maverick-400b-a17b")
+                   for s in ("train_4k", "prefill_32k", "decode_32k",
+                             "long_500k")}
+ROOFLINE_OK = 28
+
+
+def roofline_children(tmp: Path) -> dict:
+    """``python -m repro_torch.launch.dryrun --single-pod-only --json`` (must
+    exit 1 with exactly ``ROOFLINE_FAILED`` failed and ``ROOFLINE_OK``
+    cells OK), then ``python -m repro_torch.launch.roofline_run --json
+    --md`` (``ROOFLINE_OK`` records)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    runs = {"dryrun": ["repro_torch.launch.dryrun", "--single-pod-only",
+                       "--json", str(tmp / "dryrun.json")],
+            "roofline_run": ["repro_torch.launch.roofline_run", "--json",
+                             str(tmp / "roofline.json"), "--md",
+                             str(tmp / "roofline.md")]}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], env=env,
+                              cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=ROOFLINE_CHILD_TIMEOUT_S)
+        out[name] = {"exit": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": (proc.stdout.strip().splitlines()
+                                   or [""])[-1]}
+        print(f"roofline: {name} exit {proc.returncode} in "
+              f"{out[name]['seconds']:.1f}s: {out[name]['last_line']}")
+        if name == "dryrun" and proc.returncode != 1:
+            raise AssertionError(f"the dry-run exited {proc.returncode}, "
+                                 f"not 1:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        if name == "roofline_run" and proc.returncode != 0:
+            raise AssertionError(f"roofline_run exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+    doc = json.loads((tmp / "dryrun.json").read_text())
+    ok = {(r["arch"], r["shape"]) for r in doc["results"]}
+    failed = {(f["arch"], f["shape"]) for f in doc["failures"]}
+    out["dryrun"]["ok"] = len(ok)
+    out["dryrun"]["failed"] = sorted(failed)
+    out["dryrun"]["over_hbm"] = sorted(
+        (r["arch"], r["shape"], r["memory"]["peak_gb_per_device"])
+        for r in doc["results"] if r.get("hbm_overflow"))
+    if len(ok) != ROOFLINE_OK or failed != ROOFLINE_FAILED:
+        raise AssertionError(f"the dry-run's cells: {len(ok)} OK, failed "
+                             f"{sorted(failed)}; expected {ROOFLINE_OK} OK "
+                             f"and the reference's {len(ROOFLINE_FAILED)}")
+    records = json.loads((tmp / "roofline.json").read_text())
+    out["roofline_run"]["records"] = records
+    out["roofline_run"]["md"] = (tmp / "roofline.md").read_text()
+    if len(records) != ROOFLINE_OK:
+        raise AssertionError(f"roofline_run gave {len(records)} records, "
+                             f"not {ROOFLINE_OK}")
+    return out
+
+
+def arg_bytes(torch, tree) -> int:
+    """Bytes of the distinct storages of the tensors in ``tree``."""
+    from torch.utils._pytree import tree_flatten
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def roofline_hold(torch, dev, cell, what, counts, peak_gb, step, args):
+    """Run ``step(*args)`` (the (arch, shape) ``cell``, described as
+    ``what``) on the card (``ROOFLINE_WARMUP`` steps, then the
+    median of ``ROOFLINE_TIMED`` synchronised steps, CUDA events) and hold
+    it against its roofline from ``counts`` (``roofline.count``): the
+    measured time may not be below the bound, and the dry-run's peak
+    (``peak_gb``) must lie within ``ROOFLINE_PEAK_TOL`` of the card's: the
+    step's arguments plus what ``max_memory_allocated`` rose above what was
+    allocated before the timed steps (the allocator's other residents, the
+    cuBLAS workspace among them, left out)."""
+    from repro_torch.roofline.analysis import from_counts
+    r = from_counts(*cell, "1x1", counts, peak_gb)
+    reset_launches()
+    for _ in range(ROOFLINE_WARMUP):
+        step(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(ROOFLINE_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    del out
+    launches = read_launches(torch)
+    raw_peak = torch.cuda.max_memory_allocated(dev)
+    held = arg_bytes(torch, args)
+    card_peak = held + raw_peak - base
+    measured = statistics.median(times)
+    report = {
+        "card": SMI_LINE, "flops": counts["flops"], "bytes": counts["bytes"],
+        "collective_bytes": counts["collectives"]["total"],
+        "t_compute_s": r.t_compute, "t_memory_s": r.t_memory,
+        "t_collective_s": r.t_collective, "dominant": r.dominant,
+        "bound_s": r.bound_time, "measured_s": measured,
+        "measured_s_all": times, "measured_over_bound":
+            measured / max(r.bound_time, 1e-30),
+        "dryrun_peak_gb": peak_gb, "argument_gb": held / 1e9,
+        "max_memory_allocated_gb": raw_peak / 1e9,
+        "allocated_before_gb": base / 1e9, "card_peak_gb": card_peak / 1e9,
+        "peak_rel_err": abs(peak_gb * 1e9 - card_peak) / card_peak,
+        "launches": launches}
+    print(f"roofline hold, {what} ({SMI_LINE}): " + json.dumps(
+        {k: v for k, v in report.items() if k not in ("card",
+                                                       "measured_s_all")}))
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the step launched {launches}")
+    if measured < r.bound_time:
+        raise AssertionError(f"{what}: measured {measured:.6g} s is below "
+                             f"the bound {r.bound_time:.6g} s: a miscount")
+    if report["peak_rel_err"] > ROOFLINE_PEAK_TOL:
+        raise AssertionError(
+            f"{what}: the dry-run's peak {peak_gb:.4f} GB is "
+            f"{report['peak_rel_err']:.1%} from the card's "
+            f"{card_peak / 1e9:.4f} GB (bar {ROOFLINE_PEAK_TOL:.0%})")
+    return launches, report
+
+
+def gnn_batch(torch, bundle, shape, gen, dev):
+    """A concrete batch of ``GNNBundle.input_specs``: edge ids uniform over
+    the nodes, labels over the classes, every mask set, degrees 1, features
+    N(0, 1)."""
+    n = bundle.geometry(shape)["n"]
+    kw = dict(generator=gen, device=dev)
+    out = {}
+    for name, (shp, dtype) in bundle.input_specs(shape).items():
+        if name in ("src", "dst", "species"):
+            out[name] = torch.randint(0, n if name != "species" else 4, shp,
+                                      dtype=dtype, **kw)
+        elif name == "labels":
+            out[name] = torch.randint(0, bundle.n_classes, shp, dtype=dtype,
+                                      **kw)
+        elif dtype == torch.bool or name == "deg":
+            out[name] = torch.ones(shp, dtype=dtype, device=dev)
+        else:
+            out[name] = torch.randn(shp, dtype=dtype, **kw)
+    return out
+
+
+def roofline_phase(torch, dev):
+    """The dry-run and the roofline on the card's machine: ``roofline.hw``
+    against the card (an H100 with at least ``hw.HBM_BYTES``), the two
+    children (``roofline_children``), then two steps that reach no kernel,
+    counted by ``roofline.count.count_step`` on the host and run on the
+    card (``roofline_hold``): granite-8b ``train_4k`` cut to
+    ``LM_TRAIN_LAYERS`` of 36 layers at B = 1 (the bundle's step with no
+    mesh: the path ``lm_train_config_phase`` runs; the mesh path does not
+    remat) and gcn-cora ``full_graph_sm`` through ``launch.dryrun.lower_cell``
+    on a (1, 1) mesh over a one-rank fake group.  Returns (launches,
+    report)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.launch.dryrun import fake_world, lower_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.count import count_step
+
+    name = torch.cuda.get_device_name(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"roofline: {name}, {total / 1e9:.2f} GB ({SMI_LINE}); "
+          f"roofline.hw: {hw.PEAK_FLOPS_BF16:.4g} FLOP/s bf16, "
+          f"{hw.HBM_BW:.4g} B/s, {hw.HBM_BYTES:.4g} B")
+    if "H100" not in name or total < hw.HBM_BYTES:
+        raise AssertionError(f"roofline.hw describes an H100 with "
+                             f"{hw.HBM_BYTES:.4g} B; this card is {name} "
+                             f"with {total} B")
+    report = {"card": SMI_LINE, "device_name": name, "total_memory": total}
+    with tempfile.TemporaryDirectory() as tmp:
+        report["children"] = roofline_children(Path(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in KERNELS}
+
+    spec = get("gcn-cora")
+    bundle = spec.bundle()
+    t0 = time.perf_counter()
+    with fake_world(1):
+        res, _, counts = lower_cell(bundle, spec, "full_graph_sm",
+                                    make_debug_mesh((1, 1), device="cpu"))
+    trace_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(27)
+    g = bundle.geometry("full_graph_sm")
+    params = bundle.init_params(gen, g["d"], device=dev)
+    args = (params, bundle.opt().init(params),
+            gnn_batch(torch, bundle, "full_graph_sm", gen, dev))
+    got, report["gcn-cora full_graph_sm"] = roofline_hold(
+        torch, dev, ("gcn-cora", "full_graph_sm"), "gcn-cora full_graph_sm",
+        counts,
+        res["memory"]["peak_gb_per_device"], bundle.step_fn("full_graph_sm"),
+        args)
+    report["gcn-cora full_graph_sm"]["trace_s"] = trace_s
+    launches = {k: launches[k] + got[k] for k in KERNELS}
+    del params, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(CONFIG, n_layers=LM_TRAIN_LAYERS)
+    bundle = LMBundle(cfg)
+    specs = bundle.input_specs("train_4k", batch=1)
+    t0 = time.perf_counter()
+    counts = count_step(bundle.step_fn("train_4k"), (
+        *bundle.abstract_state("train_4k"),
+        {k: torch.empty(s, dtype=d, device="meta")
+         for k, (s, d) in specs.items()}), donate=(0, 1))
+    trace_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(27)
+    params = bundle.init_params(gen, dev)
+    args = (params, bundle.opt().init(params),
+            bundle.make_batch("train_4k", gen, dev, batch=1))
+    what = (f"granite-8b train_4k ({LM_TRAIN_LAYERS} of {CONFIG.n_layers} "
+            f"layers, B = 1)")
+    got, report[what] = roofline_hold(
+        torch, dev, ("granite-8b", "train_4k"), what, counts, counts["memory"]["peak_gb_per_device"],
+        bundle.step_fn("train_4k"), args)
+    report[what]["trace_s"] = trace_s
+    launches = {k: launches[k] + got[k] for k in KERNELS}
+    del params, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5370,12 +5648,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
-    global SMI_POWER_LIMIT
-    SMI_POWER_LIMIT = smi.stdout.strip().splitlines()[0].rsplit(", ", 1)[1]
+    global SMI_POWER_LIMIT, SMI_LINE
+    SMI_LINE = smi.stdout.strip().splitlines()[0]
+    SMI_POWER_LIMIT = SMI_LINE.rsplit(", ", 1)[1]
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke: src/repro_torch not found beside this "
                          "script; run it from a checkout of the repository")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
     from repro_torch.launch.train import training_graph
@@ -5445,6 +5723,8 @@ def main() -> int:
     paths.update(zoo_paths)
     paths["chaos drill (full, 2 runs)"], drill_report = drill_phase(torch,
                                                                     dev)
+    paths["roofline holds (gcn-cora, granite-8b train_4k cut)"], \
+        roofline_report = roofline_phase(torch, dev)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -5539,6 +5819,7 @@ def main() -> int:
         "fallback": fallback_report, "observability": obs_report,
         "dist": dist_report,
         "gnn_zoo": zoo_report, "drill": drill_report,
+        "roofline": roofline_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

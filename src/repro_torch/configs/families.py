@@ -3,6 +3,7 @@
 ``RecsysBundle`` from ``repro/configs/families.py``.
 
 Each bundle also has the reference's dry-run surface:
+  input_specs(shape)     -> name -> (shape, dtype) of each step input;
   abstract_state(shape)  -> (params, opt_state) on the ``meta`` device
                             (the shapes and dtypes of ``jax.eval_shape``;
                             nothing is allocated);
@@ -393,6 +394,27 @@ class GNNBundle:
         params = _meta(self.init_params(torch.Generator().manual_seed(0),
                                         g["d"], device="cpu"))
         return params, self.opt().init(params)
+
+    def input_specs(self, shape: str
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """name -> (shape, dtype) of each step input at the cell's padded
+        geometry: int32 edge ids and labels, bool masks, float32 features
+        (NequIP: int32 species, (n, 3) positions and a 0-d energy
+        target)."""
+        g = self.geometry(shape)
+        n, e, d = g["n"], g["e"], g["d"]
+        specs = {"src": ((e,), torch.int32), "dst": ((e,), torch.int32),
+                 "edge_mask": ((e,), torch.bool),
+                 "labels": ((n,), torch.int32),
+                 "train_mask": ((n,), torch.bool)}
+        if self.arch == "nequip":
+            specs.update({"species": ((n,), torch.int32),
+                          "pos": ((n, 3), torch.float32),
+                          "energy_target": ((), torch.float32)})
+        else:
+            specs.update({"x": ((n, d), torch.float32),
+                          "deg": ((n,), torch.float32)})
+        return specs
 
     def shardings(self, mesh, shape: str):
         """Parameters and state replicated; nodes and edges over every

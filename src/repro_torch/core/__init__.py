@@ -9,7 +9,8 @@ from .reorder import (lsh_reorder, minhash_reorder, degree_reorder, bfs_reorder,
 from .shared_set import SharedSetPlan, build_shared_plan
 from .blocksparse import (BlockEll, BlockCompaction, build_blockell,
                           build_blockell_coo, transpose_graph,
-                          transpose_blockell, traffic_model)
+                          transpose_blockell, traffic_model,
+                          choose_block_shape)
 from .aggregate import (segment_aggregate, shared_aggregate, blockell_matmul,
                         blockell_aggregate)
 from .mapping import (GraphLevelMapping, NodeLevelTiling, map_graph_level,

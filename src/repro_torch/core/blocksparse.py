@@ -12,7 +12,7 @@ The tests hold every array here byte-equal to the reference's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -287,3 +287,28 @@ def traffic_model(ell: BlockEll, d: int, bytes_per_el: int = 4) -> dict:
         "traffic_reduction": 1.0 - blocked / max(gather, 1),
         **stats,
     }
+
+
+def choose_block_shape(d: int, vmem_budget: int = 8 * 2 ** 20,
+                       bytes_per_el: int = 4) -> Tuple[int, int]:
+    """Static node-level mapping heuristic (paper §IV-D2): the (bm, bk)
+    tile, from 128 x 128 doubling each side up to 1024, whose working set
+    (the adjacency tile, its x rows and its output rows) fits the budget.
+    The default budget is the reference's (a TPU core's scoped VMEM); on the
+    card pass ``roofline.hw.SMEM_BYTES_PER_BLOCK``, the shared memory one
+    block may hold: at d = 16 that gives (256, 128), the bucketed plans'
+    hub tile.  ``exec.autotune`` replaces this with measurement; this
+    remains the zero-measurement prior."""
+    bm = bk = 128
+
+    def footprint(bm, bk):
+        return (bm * bk + bk * d + bm * d) * bytes_per_el
+    while footprint(bm * 2, bk) <= vmem_budget:
+        bm *= 2
+        if bm >= 1024:
+            break
+    while footprint(bm, bk * 2) <= vmem_budget:
+        bk *= 2
+        if bk >= 1024:
+            break
+    return bm, bk

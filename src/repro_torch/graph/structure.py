@@ -100,6 +100,21 @@ class Graph:
             w = np.where(self.edge_mask, w, 0.0)
         return dataclasses.replace(self, edge_weight=w.astype(np.float32))
 
+    def pad_edges(self, capacity: int) -> "Graph":
+        """Pad the edge list to ``capacity`` with masked (0 -> 0) edges."""
+        e = self.num_edges
+        if e > capacity:
+            raise ValueError(f"edge count {e} exceeds capacity {capacity}")
+        pad = capacity - e
+        mk = lambda a, fill: np.concatenate([a, np.full(pad, fill, a.dtype)])
+        mask = (self.edge_mask if self.edge_mask is not None
+                else np.ones(e, bool))
+        return dataclasses.replace(
+            self, src=mk(self.src, 0), dst=mk(self.dst, 0),
+            edge_mask=mk(mask, False),
+            edge_weight=(mk(self.edge_weight, 0.0)
+                         if self.edge_weight is not None else None))
+
     def validate(self) -> None:
         if self.src.dtype not in (np.int32, np.int64):
             raise ValueError(f"edge ids must be int32/int64, got {self.src.dtype}")

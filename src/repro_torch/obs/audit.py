@@ -53,14 +53,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..roofline import hw
+
 SCHEMA_CALIBRATION = "repro.obs/calibration@1"
 
 # a measured/model pair must beat the model's pick by this factor before the
 # drift report calls it a misrank (timer noise must not page an operator)
 DEFAULT_TOL = 1.25
 
-# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s (the report's roofline line)
-HBM_BYTES_PER_S = 3.35e12
 
 
 # ---------------------------------------------------------------------------
@@ -466,10 +466,10 @@ def render_report(table: dict, findings: List[dict],
     if table["n_obs"]:
         lines.append(f"global measured/model ratio: "
                      f"{table['global_ratio']:.4g} us per byte-equivalent")
-        bps = 1e6 / max(float(table["global_ratio"]), 1e-30)
+        bps = hw.implied_bandwidth(table["global_ratio"])
         lines.append(f"  implied {bps / 1e9:.2f} GB-equiv/s vs the H100's "
-                     f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s HBM roofline "
-                     f"({bps / HBM_BYTES_PER_S:.1%}; CPU hosts are expected "
+                     f"{hw.HBM_BW / 1e9:.0f} GB/s HBM roofline "
+                     f"({bps / hw.HBM_BW:.1%}; CPU hosts are expected "
                      "to sit far below it)")
         lines.append("")
         lines.append("per-class calibration (cold DP consumes 'ratio'):")

@@ -92,6 +92,16 @@ class EmbeddingCache:
             raise ValueError("line_size > 1 needs an order or num_nodes to "
                              "clamp line fetches at the table boundary")
 
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers)
+
+    def capacity_entries(self, layer: int) -> int:
+        """Vectors ``layer`` can hold (layer 0 counts lines of
+        ``line_size``)."""
+        cap = self.layers[layer].capacity
+        return cap * self.line_size if layer == 0 else cap
+
     def _line_of(self, nodes: np.ndarray) -> np.ndarray:
         pos = nodes if self._pos is None else self._pos[nodes]
         return pos // self.line_size
@@ -213,3 +223,9 @@ class EmbeddingCache:
         return CacheStats(hits=hits, misses=misses, evictions=ev,
                           bytes_served=b_hit, bytes_missed=b_miss,
                           per_layer=per)
+
+    def reset_stats(self) -> None:
+        """Zero every layer's hit, miss and eviction counts (the entries
+        stay)."""
+        for lru in self.layers:
+            lru.hits = lru.misses = lru.evictions = 0

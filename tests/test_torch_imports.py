@@ -1,6 +1,8 @@
 """Import hygiene of the port: importing every ``repro_torch`` module, and
 ``chip_smoke.py``, pulls in neither ``jax`` nor the reference package, nor
-``triton``, and builds or loads no CUDA library.  Checked in a fresh
+``triton``, builds or loads no CUDA library, and starts no process group
+(the dry-run's fake one is made, and its module imported, only when it
+runs).  Checked in a fresh
 interpreter so nothing the test process imported leaks in."""
 import json
 import os
@@ -22,7 +24,10 @@ for name in names:
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from repro_torch.kernels import _build
+import torch.distributed as dist
 print(json.dumps({
+    "process_group": dist.is_initialized(),
+    "fake_pg": "torch.testing._internal.distributed.fake_pg" in sys.modules,
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "repro": sorted(m for m in sys.modules
@@ -91,12 +96,19 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.dist.halo", "repro_torch.dist.resilient",
                 "repro_torch.dist.gnn", "repro_torch.dist.attention",
                 "repro_torch.launch.mesh", "repro_torch.dist.sharding",
-                "repro_torch.dist.spmd", "repro_torch.chaos.drill"}
+                "repro_torch.dist.spmd", "repro_torch.chaos.drill",
+                "repro_torch.roofline", "repro_torch.roofline.hw",
+                "repro_torch.roofline.hlo", "repro_torch.roofline.count",
+                "repro_torch.roofline.analysis",
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.roofline_run"}
     assert expected <= set(out["modules"])
     assert out["jax"] == []
     assert out["repro"] == []
     assert out["triton"] is False
     assert out["libs_loaded"] == []
+    assert out["process_group"] is False
+    assert out["fake_pg"] is False
 
 
 @pytest.mark.parametrize("name", ["spmm_blockell_compact",
