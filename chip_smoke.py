@@ -218,7 +218,13 @@
    mesh over a one-rank fake process group) and granite-8b ``train_4k``
    cut to 12 of 36 layers at B = 1: each step's median of 5 synchronised
    steps may not be below its roofline bound, and the dry-run's peak must
-   lie within 10% of the card's.
+   lie within 10% of the card's.  Then the LM mesh path's training step
+   (``lm_mesh_train_phase``, no kernel): the same granite-8b cut, weights,
+   batch and fresh donated state, through ``dist.sharding.use_mesh`` on a
+   (1, 1) data x model mesh of a one-rank NCCL group (the mesh path's
+   remat units and loss chunks), counted and held the same way; its first
+   loss must equal the no-mesh step's bit for bit, and its ms a step is
+   printed beside the no-mesh step's.
 12. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -5553,6 +5559,25 @@ def gnn_batch(torch, bundle, shape, gen, dev):
     return out
 
 
+def lm_train_cut():
+    """(the granite-8b ``train_4k`` cut the roofline holds, its name)."""
+    import dataclasses
+    from repro_torch.configs.granite_8b import CONFIG
+    return (dataclasses.replace(CONFIG, n_layers=LM_TRAIN_LAYERS),
+            f"granite-8b train_4k ({LM_TRAIN_LAYERS} of {CONFIG.n_layers} "
+            f"layers, B = 1)")
+
+
+def recording(step, losses):
+    """``step`` that appends each call's loss (its third output, left on
+    the device) to ``losses``."""
+    def run(*args):
+        out = step(*args)
+        losses.append(out[2])
+        return out
+    return run
+
+
 def roofline_phase(torch, dev):
     """The dry-run and the roofline on the card's machine: ``roofline.hw``
     against the card (an H100 with at least ``hw.HBM_BYTES``), the two
@@ -5560,15 +5585,14 @@ def roofline_phase(torch, dev):
     counted by ``roofline.count.count_step`` on the host and run on the
     card (``roofline_hold``): granite-8b ``train_4k`` cut to
     ``LM_TRAIN_LAYERS`` of 36 layers at B = 1 (the bundle's step with no
-    mesh: the path ``lm_train_config_phase`` runs; the mesh path does not
-    remat) and gcn-cora ``full_graph_sm`` through ``launch.dryrun.lower_cell``
-    on a (1, 1) mesh over a one-rank fake group.  Returns (launches,
-    report)."""
-    import dataclasses
+    mesh: the path ``lm_train_config_phase`` runs; its losses are kept for
+    ``lm_mesh_train_phase``, which runs the mesh path's step on the same
+    state) and gcn-cora ``full_graph_sm`` through
+    ``launch.dryrun.lower_cell`` on a (1, 1) mesh over a one-rank fake
+    group.  Returns (launches, report)."""
     import gc
     from repro_torch.configs import get
     from repro_torch.configs.families import LMBundle
-    from repro_torch.configs.granite_8b import CONFIG
     from repro_torch.launch.dryrun import fake_world, lower_cell
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.roofline import hw
@@ -5613,29 +5637,125 @@ def roofline_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(CONFIG, n_layers=LM_TRAIN_LAYERS)
+    cfg, what = lm_train_cut()
     bundle = LMBundle(cfg)
-    specs = bundle.input_specs("train_4k", batch=1)
     t0 = time.perf_counter()
-    counts = count_step(bundle.step_fn("train_4k"), (
-        *bundle.abstract_state("train_4k"),
-        {k: torch.empty(s, dtype=d, device="meta")
-         for k, (s, d) in specs.items()}), donate=(0, 1))
+    counts = count_step(bundle.step_fn("train_4k"),
+                        lm_train_abstract_args(torch, bundle), donate=(0, 1))
     trace_s = time.perf_counter() - t0
-    gen = torch.Generator(device=dev).manual_seed(27)
-    params = bundle.init_params(gen, dev)
-    args = (params, bundle.opt().init(params),
-            bundle.make_batch("train_4k", gen, dev, batch=1))
-    what = (f"granite-8b train_4k ({LM_TRAIN_LAYERS} of {CONFIG.n_layers} "
-            f"layers, B = 1)")
+    args = lm_train_args(bundle, dev)
+    losses = []
     got, report[what] = roofline_hold(
-        torch, dev, ("granite-8b", "train_4k"), what, counts, counts["memory"]["peak_gb_per_device"],
-        bundle.step_fn("train_4k"), args)
+        torch, dev, ("granite-8b", "train_4k"), what, counts,
+        counts["memory"]["peak_gb_per_device"],
+        recording(bundle.step_fn("train_4k"), losses), args)
     report[what]["trace_s"] = trace_s
+    report[what]["losses"] = [float(v) for v in losses]
     launches = {k: launches[k] + got[k] for k in KERNELS}
-    del params, args
+    del args
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, report
+
+
+def lm_train_abstract_args(torch, bundle):
+    """``bundle``'s ``train_4k`` state and a B = 1 batch as ``meta``
+    tensors, for ``count_step``."""
+    specs = bundle.input_specs("train_4k", batch=1)
+    return (*bundle.abstract_state("train_4k"),
+            {k: torch.empty(s, dtype=d, device="meta")
+             for k, (s, d) in specs.items()})
+
+
+def lm_train_args(bundle, dev):
+    """The weights, fresh Adam state and B = 1 batch of ``bundle``'s
+    ``train_4k`` step, drawn from seed 27 on ``dev``: the same tensors at
+    every call."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(27)
+    params = bundle.init_params(gen, dev)
+    return (params, bundle.opt().init(params),
+            bundle.make_batch("train_4k", gen, dev, batch=1))
+
+
+def lm_mesh_train_phase(torch, dev, roofline_report):
+    """The LM mesh path's training step on the card: the granite-8b
+    ``train_4k`` cut of ``roofline_phase`` (``lm_train_cut``) through
+    ``dist.sharding.use_mesh`` on a (1, 1) data x model mesh of a one-rank
+    NCCL group, on the no-mesh step's weights, batch and fresh donated
+    state (``lm_train_args``).  The bundle's step is made under the mesh
+    (its clip norm is the mesh's); the mesh path runs each layer and loss
+    chunk under its checkpoints.  Counted by ``count_step`` under a (1, 1)
+    mesh over a one-rank fake group, then held by ``roofline_hold`` (not
+    below the bound, the card's peak within ``ROOFLINE_PEAK_TOL`` of the
+    count); its first loss must equal the no-mesh step's first (in
+    ``roofline_report``) bit for bit.  Returns (launches, report)."""
+    import datetime
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.roofline.count import count_step
+
+    cfg, name = lm_train_cut()
+    want = roofline_report[name]
+    bundle = LMBundle(cfg)
+    what = f"{name} on a (1, 1) NCCL mesh"
+    t0 = time.perf_counter()
+    with fake_world(1), use_mesh(make_debug_mesh((1, 1), device="cpu")):
+        counts = count_step(bundle.step_fn("train_4k"),
+                            lm_train_abstract_args(torch, bundle),
+                            donate=(0, 1))
+    trace_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="lm-mesh-train-")
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_debug_mesh((1, 1), device=dev)
+        with use_mesh(mesh):
+            step = bundle.step_fn("train_4k")
+
+        def meshed(*args):
+            with use_mesh(mesh):
+                return step(*args)
+        args = lm_train_args(bundle, dev)
+        losses = []
+        launches, report = roofline_hold(
+            torch, dev, ("granite-8b", "train_4k"), what, counts,
+            counts["memory"]["peak_gb_per_device"],
+            recording(meshed, losses), args)
+        report["backend"] = dist.get_backend()
+    finally:
+        if own:
+            dist.destroy_process_group()
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["trace_s"] = trace_s
+    report["losses"] = [float(v) for v in losses]
+    report["no_mesh_losses"] = want["losses"]
+    report["first_loss_bit_identical"] = (report["losses"][0]
+                                          == want["losses"][0])
+    report["losses_bit_identical"] = report["losses"] == want["losses"]
+    report["no_mesh_measured_s"] = want["measured_s"]
+    report["no_mesh_card_peak_gb"] = want["card_peak_gb"]
+    print(f"LM mesh train step ({what}, {SMI_LINE}): "
+          f"{report['measured_s'] * 1e3:.1f} ms a step vs "
+          f"{want['measured_s'] * 1e3:.1f} ms with no mesh; card peak "
+          f"{report['card_peak_gb']:.2f} GB vs {want['card_peak_gb']:.2f} GB "
+          f"(counted {counts['memory']['peak_gb_per_device']:.2f} GB); first "
+          f"loss {report['losses'][0]!r} vs {want['losses'][0]!r}; all "
+          f"{len(losses)} losses bit-identical: "
+          f"{report['losses_bit_identical']}")
+    if not report["first_loss_bit_identical"]:
+        raise AssertionError(f"{what}: first loss {report['losses'][0]!r} "
+                             f"is not the no-mesh step's "
+                             f"{want['losses'][0]!r}")
     return launches, report
 
 
@@ -5725,6 +5845,9 @@ def main() -> int:
                                                                     dev)
     paths["roofline holds (gcn-cora, granite-8b train_4k cut)"], \
         roofline_report = roofline_phase(torch, dev)
+    paths["LM mesh train step (1 x 1 NCCL, granite-8b train_4k cut)"], \
+        roofline_report["lm_mesh_train"] = lm_mesh_train_phase(
+            torch, dev, roofline_report)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "

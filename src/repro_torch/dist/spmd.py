@@ -230,20 +230,23 @@ def max_(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x
 
 
-def layer_of(stack: torch.Tensor, i: int, n_layers: int, mesh,
+def layer_of(stack, i: int, n_layers: int, mesh,
              axes: Sequence[str]) -> torch.Tensor:
     """Layer ``i`` of a stacked parameter whose leading (layer) axis is
     ZeRO-sharded over ``axes`` (the rank holds ``n_layers / n`` layers), or
     held whole on every rank of ``axes``: one layer at a time, from its
     owner, into every rank of ``axes`` (backward: its gradient summed over
     them and kept by the owner).  A stack held whole enters through
-    :func:`copy` instead."""
+    :func:`copy` instead.  ``stack`` is the rank's stacked tensor or the
+    sequence of its layers (``torch.unbind``'s views: the backward stacks
+    their gradients once, where indexing writes each layer's gradient into
+    a zero stack of its own)."""
     n = size(mesh, axes)
-    if stack.shape[0] == n_layers:
+    if len(stack) == n_layers:
         return copy(stack[i], mesh, axes)
     per = n_layers // n
-    if stack.shape[0] != per or per * n != n_layers:
-        raise ValueError(f"a stack of {stack.shape[0]} local layers is "
+    if len(stack) != per or per * n != n_layers:
+        raise ValueError(f"a stack of {len(stack)} local layers is "
                          f"neither whole ({n_layers}) nor its ZeRO shard "
                          f"over {n} ranks")
     owner, j = divmod(i, per)

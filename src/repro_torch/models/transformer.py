@@ -33,16 +33,22 @@ axes is gathered a layer at a time from its owner; ``wq`` / ``wk`` / ``wv``
 ``model`` (each ending in an all-reduce); the vocabulary-cut ``embed`` is a
 masked lookup and an all-reduce, the vocabulary-cut ``head`` leaves the
 logits cut (``("batch", None, "model")``) and ``lm_loss`` takes a
-cross-rank log-sum-exp.  Between layers the residual stream is held as the
-reference's ``shard_activation(h, ("batch", "model", None))`` lays it out,
-its sequence cut over ``model`` where it divides, and gathered whole at
-each layer's start.  The MoE branch runs shard-local dispatch over the data
-axes with F-sliced experts (``moe_apply(tp_axis="model")``), as the
-reference's ``shard_map``; elsewhere the experts run whole on every rank
-over the gathered tokens, as GSPMD computes the unsharded branch.  Decode's
-caches follow ``LMBundle._cache_spec``.  Inputs and outputs are the rank's
-blocks: tokens and logits batch-local, logits vocabulary-cut.  The mesh
-path does not remat (the reference does; memory only).  At a (1, 1) mesh
+cross-rank log-sum-exp.  The attention core of training and prefill is cut
+over ``model`` by heads where the head count divides the axis, else by
+query rows (``nn.attention.core_cut``).  Between layers the residual
+stream is held as the reference's ``shard_activation(h, ("batch",
+"model", None))`` lays it out, its sequence cut over ``model`` where it
+divides, and gathered whole at each layer's start.  Training remats as the
+reference does: each layer (each superblock of a MoE config) runs under
+``torch.utils.checkpoint`` from that sequence-cut carry, its ZeRO gather
+and cast inside, so a layer stashes 1 / ``model`` of ``h`` and no gathered
+weight; each loss chunk likewise.  The MoE branch runs shard-local
+dispatch over the data axes with F-sliced experts
+(``moe_apply(tp_axis="model")``), as the reference's ``shard_map``;
+elsewhere the experts run whole on every rank over the gathered tokens, as
+GSPMD computes the unsharded branch.  Decode's caches follow
+``LMBundle._cache_spec``.  Inputs and outputs are the rank's blocks:
+tokens and logits batch-local, logits vocabulary-cut.  At a (1, 1) mesh
 every collective is skipped and each step runs the single-device ops.
 """
 from __future__ import annotations
@@ -396,7 +402,7 @@ def lm_backbone(params, tokens: torch.Tensor, cfg: LMConfig,
     and the identity is the default."""
     mesh = ambient_mesh()
     if mesh is not None:
-        return _mesh_backbone(params, tokens, cfg, mesh, constrain)
+        return _mesh_backbone(params, tokens, cfg, mesh, constrain, remat)
     cn = constrain if constrain is not None else (lambda kind, lp: lp)
     dt = cfg.dtype
     cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta, dtype=dt,
@@ -646,19 +652,24 @@ class _MeshLM:
 
     def layer(self, params, stack: str, i: int):
         """Layer ``i`` of ``params[stack]``, gathered from its ZeRO shard
-        (``spmd.layer_of``)."""
+        (``spmd.layer_of``).  ``params[stack]`` is the stacked tree or the
+        rank's layers as a list of trees (``_unbind_layers``, as training
+        passes them: the backward stacks their gradients once)."""
         n = (self.cfg.n_moe_layers if stack == "moe_layers"
              else self.cfg.n_dense_layers)
+        layers = params[stack]
+        if isinstance(layers, list):
+            each = lambda fn: tree_map(lambda *views: fn(views), *layers)
+        else:
+            each = lambda fn: tree_map(fn, layers)
         if not self.batch_local:
-            return tree_map(lambda a: self._layer_whole(a, i, n),
-                            params[stack])
-        return tree_map(lambda a: spmd.layer_of(a, i, n, self.mesh,
-                                                 self.batch), params[stack])
+            return each(lambda a: self._layer_whole(a, i, n))
+        return each(lambda a: spmd.layer_of(a, i, n, self.mesh, self.batch))
 
     def _layer_whole(self, a, i, n):
         # a step that holds the batch whole (a decode batch below the
         # batch axes) has no gradient to sum: the broadcast alone
-        if a.shape[0] == n:
+        if len(a) == n:
             return a[i]
         with torch.no_grad():
             return spmd.layer_of(a, i, n, self.mesh, self.batch)
@@ -771,44 +782,113 @@ def _mesh_schedule(cfg: LMConfig) -> list:
 _SEQ = ("batch", "model", None)
 
 
-def _mesh_backbone(params, tokens, cfg: LMConfig, mesh, constrain):
+def _mesh_units(cfg: LMConfig) -> list:
+    """``_mesh_schedule`` in checkpointed units: a layer each for a dense
+    config, a superblock each (``moe_every - 1`` dense layers, then the MoE
+    layer) for a MoE config, as ``lm_backbone``'s."""
+    sched = _mesh_schedule(cfg)
+    if not cfg.n_experts:
+        return [[entry] for entry in sched]
+    n = cfg.moe_every
+    return [sched[j * n:(j + 1) * n] for j in range(cfg.n_moe_layers)]
+
+
+def _mesh_unit(mesh, batch_local: bool, cfg: LMConfig, local, unit, cn,
+               cos, sin, shape, h):
+    """One unit of the mesh backbone from the sequence-cut carry ``h`` to
+    the next: each layer gathered from its ZeRO shard (``local``: stack
+    name -> the rank's layers, ``_unbind_layers``) and cast, ``h``
+    gathered whole, attention and FFN, ``h`` cut again.  Returns (h, the
+    unit's aux).
+
+    The mesh and ``_BATCH_LOCAL`` come as arguments and are installed
+    here: a checkpoint recomputes the unit in autograd's thread (on CUDA a
+    device thread), where the caller's context variables are not set."""
+    token = _BATCH_LOCAL.set(batch_local)
+    try:
+        with use_mesh(mesh):
+            lm = _MeshLM.of(cfg, mesh)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for kind, stack, i, _ in unit:
+                lp = _compute_cast(cn(kind, lm.layer(local, stack, i)),
+                                   cfg.dtype)
+                h = unshard_activation(h, _SEQ, shape)
+                h, _ = lm.attention(lp, h, cos, sin)
+                if kind == "dense":
+                    h = lm.dense_ffn(lp, h)
+                else:
+                    h, a = _moe_ffn(lp, h, cfg)
+                    aux = aux + a
+                h = shard_activation(h, _SEQ)
+            return h, aux
+    finally:
+        _BATCH_LOCAL.reset(token)
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint.  Its recompute
+    issues the forward's collectives again, up to the last tensor the
+    forward saved (the recompute stops there): the same point, and so the
+    same collectives in the same order, on every rank, as every rank
+    builds the same graph (no rank decides by itself what is
+    checkpointed)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _mesh_backbone(params, tokens, cfg: LMConfig, mesh, constrain,
+                   remat: bool = True):
+    """``lm_backbone`` on the mesh path.  With ``remat`` (and autograd on)
+    each unit (``_mesh_units``) runs under a checkpoint: it stashes its
+    input, the rank's S / model rows of ``h`` (the sequence-parallel
+    carry), and recomputes the rest, its layers' ZeRO gathers included."""
     lm = _MeshLM.of(cfg, mesh)
     cn = constrain if constrain is not None else (lambda kind, lp: lp)
-    dt = cfg.dtype
-    cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta, dtype=dt,
-                          device=tokens.device)
+    cos, sin = rope_freqs(cfg.hd, tokens.shape[1], cfg.rope_theta,
+                          dtype=cfg.dtype, device=tokens.device)
     h = lm.embed(params, tokens)
     shape = tuple(h.shape)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     # sequence-parallel carry: between layers h lives seq-cut on model
     h = shard_activation(h, _SEQ)
-    for kind, stack, i, _ in _mesh_schedule(cfg):
-        lp = _compute_cast(cn(kind, lm.layer(params, stack, i)), dt)
-        h = unshard_activation(h, _SEQ, shape)
-        h, _ = lm.attention(lp, h, cos, sin)
-        if kind == "dense":
-            h = lm.dense_ffn(lp, h)
-        else:
-            h, a = _moe_ffn(lp, h, cfg)
-            aux = aux + a
-        h = shard_activation(h, _SEQ)
+    remat = remat and torch.is_grad_enabled()
+    local = {k: _unbind_layers(params[k])
+             for k in ("dense_layers", "moe_layers") if k in params}
+    for unit in _mesh_units(cfg):
+        args = (mesh, lm.batch_local, cfg, local, unit, cn, cos, sin, shape,
+                h)
+        h, a = _remat(_mesh_unit, *args) if remat else _mesh_unit(*args)
+        aux = aux + a
     h = unshard_activation(h, _SEQ, shape)
     return rmsnorm_apply(lm.rep(params["ln_f"]), h), aux
 
 
+def _mesh_chunk_nll(lm: "_MeshLM", hb, tb, w):
+    """One loss chunk's head matmul and cross-entropy sum; the mesh comes
+    with ``lm`` (no ambient read), so autograd's thread can recompute it."""
+    if lm.vocab:
+        hb = spmd.copy(hb, lm.mesh, "model")
+    return lm.nll_sum(hb @ w, tb)
+
+
 def _mesh_loss(params, tokens, targets, cfg: LMConfig, mesh, aux_weight,
                constrain, loss_chunks):
+    """``lm_loss`` on the mesh path.  With autograd on, each chunk's head
+    matmul and cross-entropy run under a checkpoint that stashes the
+    chunk's rows of ``h``: one chunk's logits are alive at a time."""
     lm = _MeshLM.of(cfg, mesh)
     h, aux = _mesh_backbone(params, tokens, cfg, mesh, constrain)
     S = h.shape[1]
     n = loss_chunks if S % loss_chunks == 0 else 1
     c = S // n
     w = lm.head_w(params)
+    remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(n):
-        hb, tb = h[:, j * c:(j + 1) * c], targets[:, j * c:(j + 1) * c]
-        hb = spmd.copy(hb, mesh, "model") if lm.vocab else hb
-        total = total + lm.nll_sum(hb @ w, tb)
+        args = (lm, h[:, j * c:(j + 1) * c], targets[:, j * c:(j + 1) * c],
+                w)
+        total = total + (_remat(_mesh_chunk_nll, *args) if remat
+                         else _mesh_chunk_nll(*args))
     total = spmd.all_reduce(total, mesh, lm.batch)
     return total / (targets.numel() * lm.nb) + aux_weight * aux
 

@@ -89,11 +89,14 @@ def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_chunk: int = 1024,
                     kv_chunk: int = 512,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """GQA-native online-softmax attention.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KV, D) with H = KV * groups; the GQA
-    expansion is a grouped q axis, never materialized.  Returns
+    expansion is a grouped q axis, never materialized.  ``q_offset`` is
+    the position of q's first row (the causal and window masks use it):
+    the rows of a longer sequence attend as they would within it.  Returns
     (B, Sq, H * D) in q's dtype.
     """
     B, Sq, H, D = q.shape
@@ -109,7 +112,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc = q.reshape(B, nq, q_chunk, KV, G, D)
     kc = k.reshape(B, nk, kv_chunk, KV, D)
     vc = v.reshape(B, nk, kv_chunk, KV, D)
-    q_pos = torch.arange(Sq, device=q.device).reshape(nq, q_chunk)
+    q_pos = (q_offset + torch.arange(Sq, device=q.device)).reshape(
+        nq, q_chunk)
 
     m = torch.full((B, nq, KV, G, q_chunk), float("-inf"),
                    dtype=torch.float32, device=q.device)
@@ -241,35 +245,103 @@ def _attend(q, k_cache, v_cache, cache_len: int, n_heads: int, n_kv: int,
 
 # --------------------------------------------------------- the mesh path
 # Tensor parallelism over ``model`` on rank-local tensors (``dist.spmd``):
-# ``x`` is whole on every model rank; a column-parallel projection (its
-# weight cut over ``model``, ``dist.sharding.lm_param_specs``) enters
-# through ``copy`` and its columns are all-gathered, so every rank holds
-# whole heads (the flattened widths need not split on head boundaries, nor
-# the GQA groups on ranks: the reference's ``_mdl`` tests the width only);
-# the attention core then runs whole on each rank, and a row-parallel
-# ``wo`` takes the rank's columns of its input and all-reduces.  With
-# nothing cut (a model axis of one rank) these are ``_qkv`` and
-# ``linear_apply`` exactly.
+# ``x`` is whole on every model rank and enters a column-parallel projection
+# (its weight cut over ``model``, ``dist.sharding.lm_param_specs``) through
+# ``copy``.  The reference's ``_mdl`` tests the flattened width only, so the
+# columns need not split on heads nor the GQA groups on ranks; the core is
+# cut by heads or by query rows as ``core_cut`` picks from the shapes, and
+# runs whole only where neither divides the axis.  A row-parallel ``wo``
+# takes the rank's columns of its input and all-reduces.  Each head and row
+# of a cut core is the whole core's arithmetic.  With nothing cut (a model
+# axis of one rank) these are ``_qkv`` and ``linear_apply`` exactly.
+
+
+def core_cut(n_heads: int, seq: int, mesh, col_q: bool, row_o: bool,
+             q_chunk: int = 1024) -> str:
+    """How a prefill / training attention core is cut over ``model``:
+
+    * ``"heads"`` where the head count divides the axis (``wq``'s columns
+      and ``wo``'s rows are then cut on head boundaries): each rank attends
+      with its own q heads and the KV heads they belong to;
+    * ``"rows"`` where the sequence divides into whole q chunks of
+      ``flash_attention`` a rank: each rank attends for its S / model query
+      rows against the whole k / v;
+    * ``"whole"`` elsewhere (and on a model axis of one rank).
+
+    Shapes alone decide, so every rank picks the same."""
+    n = mesh.shape.get("model", 1)
+    if n == 1:
+        return "whole"
+    if col_q and row_o and n_heads % n == 0:
+        return "heads"
+    rows = seq // n
+    if seq % n == 0 and (rows <= q_chunk or rows % q_chunk == 0):
+        return "rows"
+    return "whole"
+
+
 def tp_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, positions, mesh,
-           col_q: bool, col_kv: bool):
+           col_q: bool, col_kv: bool, cut: str = "whole"):
+    """q, k, v of the mesh path.  k / v are whole on every rank; q too,
+    but under the ``"heads"`` cut, where it is the rank's own heads (its
+    columns of ``wq``, not gathered).  Where the ranks' cores differ
+    (``cut`` is not ``"whole"``), a gathered projection's backward sums
+    the ranks' gradients before it takes the rank's block, and a whole one
+    enters through ``copy``."""
     B, S, _ = x.shape
     xf = spmd.copy(x, mesh, "model") if (col_q or col_kv) else x
+    differ = cut != "whole"
 
     def proj(name, n, col):
         if not col:
-            return linear_apply(p[name], x).reshape(B, S, n, head_dim)
-        y = spmd.gather(linear_apply(p[name], xf), mesh, "model", -1)
-        return y.reshape(B, S, n, head_dim)
+            y = linear_apply(p[name], x)
+            if differ:
+                y = spmd.copy(y, mesh, "model")
+            return y.reshape(B, S, n, head_dim)
+        y = linear_apply(p[name], xf)
+        if name == "wq" and cut == "heads":
+            return y.reshape(B, S, -1, head_dim)
+        gather = spmd.gather_sum if differ else spmd.gather
+        return gather(y, mesh, "model", -1).reshape(B, S, n, head_dim)
     q = apply_rope(proj("wq", n_heads, col_q), cos, sin, positions)
     k = apply_rope(proj("wk", n_kv, col_kv), cos, sin, positions)
     return q, k, proj("wv", n_kv, col_kv)
 
 
-def tp_out(p, out: torch.Tensor, mesh, row_o: bool) -> torch.Tensor:
+def tp_out(p, out: torch.Tensor, mesh, row_o: bool,
+           mine: bool = False) -> torch.Tensor:
+    """``wo`` of the mesh path; ``mine``: ``out`` is already the rank's
+    columns of its input (the ``"heads"`` cut)."""
     if not row_o:
         return linear_apply(p["wo"], out)
-    mine = spmd.split(out, mesh, "model", out.dim() - 1)
-    return spmd.all_reduce(linear_apply(p["wo"], mine), mesh, "model")
+    if not mine:
+        out = spmd.split(out, mesh, "model", out.dim() - 1)
+    return spmd.all_reduce(linear_apply(p["wo"], out), mesh, "model")
+
+
+def _head_core(q, k, v, mesh, n_heads: int, n_kv: int, **kw):
+    """The ``"heads"`` cut: q (B, S, H / model, D) the rank's heads, k / v
+    (B, S, n_kv, D) whole; the core over the KV heads q's heads belong to
+    (head h to ``h // (n_heads // n_kv)``), GQA-native where the rank's
+    heads are whole groups or lie inside one group."""
+    hr, groups = q.shape[2], n_heads // n_kv
+    h0 = mesh.coord("model") * hr
+    if hr % groups == 0 or groups % hr == 0:
+        k, v = (t.narrow(2, h0 // groups, max(hr // groups, 1))
+                for t in (k, v))
+    else:
+        idx = torch.arange(h0, h0 + hr, device=k.device) // groups
+        k, v = (t.index_select(2, idx) for t in (k, v))
+    return flash_attention(q, k, v, **kw)
+
+
+def _row_core(q, k, v, mesh, **kw):
+    """The ``"rows"`` cut: the core for the rank's S / model query rows
+    against the whole k / v, the rows then all-gathered over ``model``."""
+    rows = q.shape[1] // mesh.shape["model"]
+    lo = mesh.coord("model") * rows
+    out = flash_attention(q.narrow(1, lo, rows), k, v, q_offset=lo, **kw)
+    return spmd.gather(out, mesh, "model", 1)
 
 
 def tp_prefill_attention(p, x, n_heads, n_kv, head_dim, cos, sin, mesh,
@@ -277,14 +349,21 @@ def tp_prefill_attention(p, x, n_heads, n_kv, head_dim, cos, sin, mesh,
                          window: Optional[int] = None,
                          q_chunk: int = 1024, kv_chunk: int = 512):
     """``prefill_attention`` (and ``causal_attention``, the output alone)
-    on the mesh path: the caches (B, S, n_kv, D) whole."""
+    on the mesh path, its core cut as ``core_cut`` picks: the caches (B, S,
+    n_kv, D) whole."""
     B, S, _ = x.shape
+    cut = core_cut(n_heads, S, mesh, col_q, row_o, q_chunk)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = tp_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, positions,
-                     mesh, col_q, col_kv)
-    out = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
-                          kv_chunk=kv_chunk, window=window)
-    return tp_out(p, out, mesh, row_o), (k, v)
+                     mesh, col_q, col_kv, cut)
+    kw = dict(causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk, window=window)
+    if cut == "heads":
+        out = _head_core(q, k, v, mesh, n_heads, n_kv, **kw)
+    elif cut == "rows":
+        out = _row_core(q, k, v, mesh, **kw)
+    else:
+        out = flash_attention(q, k, v, **kw)
+    return tp_out(p, out, mesh, row_o, mine=cut == "heads"), (k, v)
 
 
 def tp_decode_attention(p, x, kv_cache, cache_len: int, n_heads: int,

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..dist import spmd
-from ..dist.sharding import P, ambient_mesh, maybe_shard
+from ..dist.sharding import P, ambient_mesh, maybe_shard, use_mesh
 from .layers import swiglu
 
 
@@ -218,6 +218,14 @@ def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
     return out, aux
 
 
+def _moe_chunk(mesh, *args):
+    """``_moe_apply_impl(*args)`` under ``mesh``, installed here: a
+    checkpoint recomputes the chunk in autograd's thread (on CUDA a device
+    thread), where the caller's ambient mesh is not set."""
+    with use_mesh(mesh):
+        return _moe_apply_impl(*args)
+
+
 def moe_apply(p: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, sort_tokens: bool = False,
               tp_axis=None, token_chunks: int = 1):
@@ -230,9 +238,10 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
     T = x.shape[0]
     if token_chunks > 1 and T % token_chunks == 0:
         outs, auxs = [], []
+        mesh = ambient_mesh()
         for xc in x.split(T // token_chunks):
             if torch.is_grad_enabled():
-                o, a = checkpoint(_moe_apply_impl, p, xc, top_k,
+                o, a = checkpoint(_moe_chunk, mesh, p, xc, top_k,
                                   capacity_factor, sort_tokens, tp_axis,
                                   use_reentrant=False,
                                   preserve_rng_state=False)

@@ -2,13 +2,15 @@
 decode steps (bf16) through ``dist.sharding.use_mesh`` on a (1, 1) data x
 model mesh of a one-rank NCCL group, against the same steps with no mesh:
 bit-identical logits and caches, and one ``decode_attention`` launch a
-layer on both paths.
+layer on both paths; and granite-8b's donated train step (the mesh path's
+remat), its first loss bit-identical to the no-mesh step's.
 
 Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is false.  The file imports neither jax nor the reference package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_lm_mesh.py
 """
+import copy
 import dataclasses
 import datetime
 import os
@@ -76,3 +78,37 @@ def test_one_rank_mesh_decode_is_bit_identical(nccl_mesh, arch):
         for x, y in zip(ca[name], cb[name]):
             assert torch.equal(x, y)
     assert na == nb == cfg.n_layers
+
+
+def test_one_rank_mesh_train_step_gives_the_no_mesh_loss(nccl_mesh):
+    """The bundle's donated ``train_4k`` step on ``REDUCED`` granite-8b
+    (B = 2 x 64), made and run under the (1, 1) mesh (the mesh path's remat
+    units and loss chunks, its clip norm over the mesh), against the same
+    step with no mesh from the same weights and state: the first loss bit
+    for bit, each updated parameter within 1e-6 of its leaf's largest
+    entry."""
+    from repro_torch.configs.families import LMBundle
+    from repro_torch.configs.granite_8b import REDUCED
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.train.optimizer import tree_leaves
+
+    bundle = LMBundle(REDUCED)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = bundle.init_params(gen, "cuda")
+    tok, tgt = (torch.randint(0, REDUCED.vocab, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                for _ in range(2))
+    runs = []
+    for mesh in (None, nccl_mesh):
+        p = copy.deepcopy(params)
+        with use_mesh(mesh):
+            step = bundle.step_fn("train_4k")
+            p2, _, loss = step(p, bundle.opt().init(p),
+                               {"tokens": tok, "targets": tgt})
+        torch.cuda.synchronize()
+        runs.append((loss, tree_leaves(p2)))
+    (la, pa), (lb, pb) = runs
+    assert torch.equal(la, lb)
+    for a, b in zip(pa, pb):
+        scale = max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= 1e-6 * scale
