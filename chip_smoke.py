@@ -224,7 +224,13 @@
    (1, 1) data x model mesh of a one-rank NCCL group (the mesh path's
    remat units and loss chunks), counted and held the same way; its first
    loss must equal the no-mesh step's bit for bit, and its ms a step is
-   printed beside the no-mesh step's.
+   printed beside the no-mesh step's.  Last, the GNN and wide & deep
+   bundles' mesh path (``gnn_recsys_mesh_phase``): 3 donated steps each
+   of gcn-cora, gat-cora and pna at ``full_graph_sm``, nequip at
+   ``molecule`` and wide & deep ``train_batch`` at ``CONFIG`` (``bag``:
+   4 ``embedding_bag`` launches a step), with no mesh and then on a
+   (1, 1) NCCL mesh under ``torch.use_deterministic_algorithms``; every
+   loss must be bit-identical, and ms a step and the peaks are printed.
 12. Writes the full report (every case, trial table and path) to
    ``build/chip_smoke.json``, prints one JSON line with every kernel's
    numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -5759,6 +5765,140 @@ def lm_mesh_train_phase(torch, dev, roofline_report):
     return launches, report
 
 
+MESH_GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("gat-cora", "full_graph_sm"),
+                  ("pna", "full_graph_sm"), ("nequip", "molecule"))
+MESH_STEPS = 3
+
+
+def mesh_steps(torch, dev, make, mesh, steps=MESH_STEPS) -> dict:
+    """``steps`` donated steps of ``make()``'s ``(step, params, state,
+    batch)`` under ``dist.sharding.use_mesh(mesh)`` (None: no mesh): the
+    losses, ms a step (CUDA events), the peak device memory and the kernels'
+    launches."""
+    import gc
+    from repro_torch.dist.sharding import use_mesh
+    step, params, state, batch = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, ms = [], []
+    with use_mesh(mesh):
+        for _ in range(steps):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            params, state, loss = step(params, state, batch)
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1))
+            losses.append(float(loss))
+    out = {"losses": losses, "ms": ms,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": read_launches(torch)}
+    del step, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_recsys_mesh_phase(torch, dev):
+    """The mesh path of ``GNNBundle`` and ``RecsysBundle`` on the card: a
+    (1, 1) data x model mesh of a one-rank NCCL group, where every
+    collective is skipped, so each step must compute bit for bit what the
+    no-mesh step does.  ``MESH_STEPS`` donated steps of each of gcn-cora,
+    gat-cora and pna at ``full_graph_sm`` (3,072 padded nodes, d = 1433,
+    ``gnn_batch``'s random edges), nequip at ``molecule`` and wide & deep
+    ``train_batch`` at the full ``CONFIG`` (B = 65,536, the 40 M-row
+    table, ``lookup="bag"``: row 7), first with no mesh, then on the mesh,
+    from the same seeds, under ``torch.use_deterministic_algorithms``
+    (``index_add_`` on CUDA sums with atomics otherwise, so two runs of
+    one step differ in the last bits).  Prints ms a step, the peak and the
+    losses of each; raises unless the losses are bit-identical and
+    ``embedding_bag`` launched 4 times a wide & deep step both ways.
+    Returns (the launches of every step run, report)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    def gnn_make(arch, shape):
+        bundle = get(arch).bundle()
+
+        def make():
+            params = bundle.init_params(torch.Generator().manual_seed(0),
+                                        bundle.geometry(shape)["d"],
+                                        device=dev)
+            batch = gnn_batch(torch, bundle, shape,
+                              torch.Generator(device=dev).manual_seed(29),
+                              dev)
+            return (bundle.step_fn(shape), params, bundle.opt().init(params),
+                    batch)
+        return make
+
+    def recsys_make():
+        bundle = get("wide-deep").bundle()
+        gen = torch.Generator(device=dev).manual_seed(29)
+        params = bundle.init_params(gen, dev)
+        return (bundle.step_fn("train_batch", lookup="bag"), params,
+                bundle.optimizer().init(params),
+                bundle.make_batch("train_batch", gen, dev))
+
+    cells = [(f"{a} {s}", gnn_make(a, s)) for a, s in MESH_GNN_CELLS]
+    cells.append(("wide-deep train_batch (CONFIG, bag)", recsys_make))
+    tmp = tempfile.mkdtemp(prefix="gnn-recsys-mesh-")
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    report, launches = {}, {k: 0 for k in KERNELS}
+    try:
+        mesh = make_debug_mesh((1, 1), device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name, make in cells:
+                runs = {tag: mesh_steps(torch, dev, make, m)
+                        for tag, m in (("no_mesh", None), ("mesh", mesh))}
+                for r in runs.values():
+                    for k, v in r["launches"].items():
+                        launches[k] += v
+                report[name] = dict(runs, bit_identical=(
+                    runs["mesh"]["losses"] == runs["no_mesh"]["losses"]))
+        report["backend"] = dist.get_backend()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        if own:
+            dist.destroy_process_group()
+    for name, r in report.items():
+        if name == "backend":
+            continue
+        a, b = r["no_mesh"], r["mesh"]
+        print(f"mesh step {name} ((1, 1) NCCL, {SMI_LINE}): "
+              f"{sum(b['ms'][1:]) / (len(b['ms']) - 1):.2f} ms a step vs "
+              f"{sum(a['ms'][1:]) / (len(a['ms']) - 1):.2f} with no mesh "
+              f"(steps 2-{MESH_STEPS}); peak {b['peak_gb']:.3f} vs "
+              f"{a['peak_gb']:.3f} GB; embedding_bag "
+              f"{b['launches']['embedding_bag'] / MESH_STEPS:g} vs "
+              f"{a['launches']['embedding_bag'] / MESH_STEPS:g} a step; "
+              f"losses {b['losses']} bit-identical: {r['bit_identical']}")
+        if not all(math.isfinite(v) for v in a["losses"]):
+            raise AssertionError(f"mesh step {name}: a loss is not finite "
+                                 f"{a['losses']}")
+        if not r["bit_identical"]:
+            raise AssertionError(f"mesh step {name}: the (1, 1) mesh's "
+                                 f"losses {b['losses']} are not the no-mesh "
+                                 f"step's {a['losses']}")
+    bag = {tag: report["wide-deep train_batch (CONFIG, bag)"][tag][
+        "launches"]["embedding_bag"] for tag in ("no_mesh", "mesh")}
+    if bag != {"no_mesh": 4 * MESH_STEPS, "mesh": 4 * MESH_STEPS}:
+        raise AssertionError(f"wide & deep mesh steps launched "
+                             f"embedding_bag {bag} times in {MESH_STEPS} "
+                             "steps each; expected 4 a step")
+    return launches, report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5848,6 +5988,8 @@ def main() -> int:
     paths["LM mesh train step (1 x 1 NCCL, granite-8b train_4k cut)"], \
         roofline_report["lm_mesh_train"] = lm_mesh_train_phase(
             torch, dev, roofline_report)
+    paths["GNN and wide & deep mesh steps (1 x 1 NCCL, no mesh then "
+          "mesh)"], mesh_report = gnn_recsys_mesh_phase(torch, dev)
     print("launches by path: " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     print(f"gcn-cora losses head {gcn_losses[:3]} tail {gcn_losses[-3:]}; "
@@ -5942,7 +6084,7 @@ def main() -> int:
         "fallback": fallback_report, "observability": obs_report,
         "dist": dist_report,
         "gnn_zoo": zoo_report, "drill": drill_report,
-        "roofline": roofline_report,
+        "roofline": roofline_report, "gnn_recsys_mesh": mesh_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

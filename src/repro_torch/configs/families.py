@@ -9,9 +9,10 @@ Each bundle also has the reference's dry-run surface:
                             nothing is allocated);
   shardings(mesh, shape) -> (arg_shardings, out_shardings), trees of
                             ``dist.sharding.NamedSharding``.
-Under ``dist.sharding.use_mesh`` the LM steps run the manual mesh path of
-``models.transformer`` on the rank's blocks of these layouts
-(``convert.shard_params``)."""
+Under ``dist.sharding.use_mesh`` every bundle's steps run a manual mesh
+path on the rank's blocks of these layouts: the LMs' in
+``models.transformer`` (``convert.shard_params`` cuts the blocks), the
+GNNs' and wide & deep's through the models' ``mesh`` argument."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..dist import spmd
 from ..dist.sharding import (P, NamedSharding, ambient_mesh, as_mesh,
                              batch_axes, broadcast_specs, lm_param_specs,
                              map_specs)
@@ -209,7 +211,6 @@ class LMBundle:
         ``tree_leaves(params)`` order) on ``mesh``: each leaf's squares over
         the number of ranks holding each of its entries, summed over every
         rank."""
-        from ..dist import spmd
         whole = self.abstract_params()
 
         def norm(grads, params):
@@ -346,7 +347,15 @@ class GNNBundle:
         ``train_mask`` nodes) against ``energy_target``.  Those three have
         no kernel executor: another ``executor`` than ``"segment"`` raises
         (the reference ignores it).  ``remat`` runs PNA's layers under
-        ``torch.utils.checkpoint`` (other archs raise)."""
+        ``torch.utils.checkpoint`` (other archs raise).
+
+        Under ``dist.sharding.use_mesh`` (read when the loss runs) it is
+        the mesh path of :meth:`shardings`' layout: the batch's nodes and
+        edges are the rank's blocks over every axis, the edge ids index the
+        whole node set, and the parameters, held whole on every rank, enter
+        through ``spmd.copy`` over every axis, so each rank's gradients are
+        the whole step's; the loss is the whole graph's on every rank.  The
+        segment path only."""
         if self.arch not in ("gcn", "gat", "pna", "nequip"):
             raise ValueError(f"unknown GNN arch {self.arch!r}")
         if self.arch != "gcn" and executor != "segment":
@@ -363,12 +372,17 @@ class GNNBundle:
                              "(repro_torch.exec.build_layer_plan)")
 
         def loss(params, batch):
+            mesh = ambient_mesh()
+            if mesh is not None:
+                params = tree_map(lambda a: spmd.copy(a, mesh,
+                                                      mesh.axis_names),
+                                  params)
             if self.arch == "nequip":
                 e = nequip_energy(params, batch["species"], batch["pos"],
                                   batch["src"], batch["dst"],
                                   edge_mask=batch["edge_mask"],
                                   node_mask=batch["train_mask"].to(
-                                      batch["pos"].dtype))
+                                      batch["pos"].dtype), mesh=mesh)
                 return torch.mean((torch.sum(e) - batch["energy_target"])
                                   ** 2)
             graph = {"src": batch["src"], "dst": batch["dst"],
@@ -377,10 +391,11 @@ class GNNBundle:
             args = (params, batch["x"], graph, batch["labels"],
                     batch["train_mask"])
             if self.arch == "gat":
-                return gat_loss(*args)
+                return gat_loss(*args, mesh=mesh)
             if self.arch == "pna":
-                return pna_loss(*args, remat=remat)
-            return gcn_loss(*args, executor=executor, plans=exec_plan)
+                return pna_loss(*args, remat=remat, mesh=mesh)
+            return gcn_loss(*args, executor=executor, plans=exec_plan,
+                            mesh=mesh)
         return loss
 
     def opt(self) -> Optimizer:
@@ -441,7 +456,10 @@ class GNNBundle:
         """``(params, opt_state, batch) -> (params, opt_state, loss)``:
         :meth:`loss_fn` on the segment path, the clip at 1.0 and one step
         of :meth:`opt`, as the reference's train step; donated (the params
-        and state are updated in place, ``make_train_step``)."""
+        and state are updated in place, ``make_train_step``).  Under a mesh
+        every rank holds the summed gradients whole (the loss's
+        ``spmd.copy``), so the clip's norm is the rank's own and Adam runs
+        alike on every rank."""
         return make_train_step(self.loss_fn(shape), self.opt(),
                                clip_norm=1.0)
 
@@ -496,8 +514,7 @@ class RecsysBundle:
                  "deep": [{"w": P(None, None), "b": P(None)}
                           for _ in range(len(self.cfg.mlp_dims) + 1)]}
         params_sh = _tree_specs_to_shardings(pspec, params, mesh)
-        bspec = ba if info["batch"] >= mesh.size // mesh.shape["model"] \
-            else None
+        bspec = ba if self.batch_axes(mesh, shape) else None
         batch_sh = {"sparse": NamedSharding(mesh, P(bspec, None)),
                     "dense": NamedSharding(mesh, P(bspec, None))}
         if info["kind"] == "train":
@@ -546,27 +563,54 @@ class RecsysBundle:
             out[name] = t.to(dev)
         return out
 
+    def batch_axes(self, mesh, shape: str) -> tuple:
+        """The mesh axes :meth:`shardings` cuts the cell's batch over: the
+        batch axes when the batch reaches them, else none (the batch whole
+        on every rank)."""
+        mesh = as_mesh(mesh)
+        if RECSYS_SHAPES[shape]["batch"] < mesh.size // mesh.shape["model"]:
+            return ()
+        ba = batch_axes(mesh)
+        return (ba,) if isinstance(ba, str) else tuple(ba)
+
     def step_fn(self, shape: str, lookup: str = "bag"):
         """``train_batch``: ``(params, opt_state, batch) -> (params,
         opt_state, loss)``, one Adam(1e-3) step with no clipping, as the
         reference's; ``retrieval_cand``: ``(params, batch) -> (N,)`` scores;
-        the serve shapes: ``(params, batch) -> (B,)`` logits."""
+        the serve shapes: ``(params, batch) -> (B,)`` logits.
+
+        Under ``dist.sharding.use_mesh`` (read when the step runs) it is
+        the mesh path of :meth:`shardings`' layout on the rank's blocks:
+        the lookups masked to the rank's rows of ``table`` and ``wide`` and
+        summed over ``model``; where the batch is cut (:meth:`batch_axes`)
+        every parameter enters through ``spmd.copy`` over the batch axes,
+        so its gradient (the table's dense) is summed over them, and the
+        loss is the mean over them; Adam runs on the rank's blocks.  The
+        outputs are the rank's: its rows' logits, its block of the
+        candidates' scores."""
         cfg = self.cfg
         if RECSYS_SHAPES[shape]["kind"] == "train":
-            return make_train_step(
-                lambda p, b: widedeep_loss(p, b["sparse"], b["dense"],
-                                           b["labels"], cfg, lookup),
-                self.optimizer(), clip_norm=None)
+            def loss(p, b):
+                mesh = ambient_mesh()
+                if mesh is None:
+                    return widedeep_loss(p, b["sparse"], b["dense"],
+                                         b["labels"], cfg, lookup)
+                axes = self.batch_axes(mesh, shape)
+                p = tree_map(lambda a: spmd.copy(a, mesh, axes), p)
+                return spmd.mean(widedeep_loss(p, b["sparse"], b["dense"],
+                                               b["labels"], cfg, lookup,
+                                               mesh), mesh, axes)
+            return make_train_step(loss, self.optimizer(), clip_norm=None)
         if shape == "retrieval_cand":
             @torch.no_grad()
             def retrieve(params, batch):
                 return retrieval_score(params, batch["sparse"],
                                        batch["dense"], batch["candidates"],
-                                       cfg, lookup)
+                                       cfg, lookup, ambient_mesh())
             return retrieve
 
         @torch.no_grad()
         def serve(params, batch):
             return widedeep_logits(params, batch["sparse"], batch["dense"],
-                                   cfg, lookup)
+                                   cfg, lookup, ambient_mesh())
         return serve

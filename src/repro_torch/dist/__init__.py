@@ -11,8 +11,9 @@ per-shard plans.
 
 ``sharding`` is the LM half: the parameter and activation shardings of
 the LM bundles, the ambient mesh (``use_mesh``, the counterpart of ``with
-mesh:``), and ``spmd``'s autograd collectives, which the LM mesh path runs
-on rank-local tensors where GSPMD would insert its own.  The reference's
+mesh:``), and ``spmd``'s autograd collectives, which the bundles' mesh
+paths (the LMs', the GNNs', wide & deep's) run on rank-local tensors where
+GSPMD would insert its own.  The reference's
 ``compat`` (shims for older jax APIs) has no counterpart here.  Submodules
 load lazily (PEP 562), as in the reference.
 """

@@ -1,10 +1,10 @@
-"""Manual SPMD over mesh axes: the collectives of the LM mesh path, each an
+"""Manual SPMD over mesh axes: the collectives of the mesh paths, each an
 autograd ``Function``, so a step's gradients are the reference's.
 
 GSPMD derives the collectives of a sharded program itself; PyTorch has no
-eager counterpart, so the port's mesh path (``models.transformer`` under
-``dist.sharding.use_mesh``) runs on rank-local tensors and calls these
-where GSPMD would insert a collective.  Each takes the mesh and the axes it
+eager counterpart, so the port's mesh paths (``models.transformer``, the
+GNN models and wide & deep under ``dist.sharding.use_mesh``) run on
+rank-local tensors and call these where GSPMD would insert a collective.  Each takes the mesh and the axes it
 runs over; over axes of one rank it returns its input unchanged (no
 collective, no copy), so a (1, 1) mesh computes exactly what no mesh does.
 
@@ -21,14 +21,27 @@ owner).  All-gathers come in two kinds by what their output feeds:
 :func:`gather` (backward: the rank's block of a gradient every rank holds
 whole) and :func:`gather_sum` (backward: the sum over the ranks, then the
 block; gloo has no reduce-scatter on every build).
+
+The graph layout (nodes and edges cut over every axis, edge ids indexing
+the whole node set) adds three: :func:`reduce_scatter` (a partial sum over
+the whole node set, summed and cut to the rank's block of nodes; backward:
+all-gather), :func:`all_sum` (the sum on every rank, for consumers that
+differ by rank; backward: the sum again) and :func:`segment_max` (over
+the edges of every rank, the rank's block of segments, differentiable: a
+segment's gradient is split evenly among the inputs of every rank that
+tie for it, as ``core.aggregate.segment_max`` splits it on one device; a
+min is the max of the negated inputs, as PNA's lanes take it).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.autograd import Function
+
+from ..core import aggregate
 
 
 def _axes(mesh, axes) -> tuple:
@@ -120,6 +133,53 @@ class _Gather(Function):
         return _block(g, ctx.dim, ctx.i, ctx.n), None, None, None, None, None
 
 
+class _ReduceScatter(Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, i, n):
+        ctx.group, ctx.dim = group, dim
+        return _block(_summed(x, group), dim, i, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None, None, None
+
+
+class _AllSum(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _SegmentMax(Function):
+    # the max over the ranks of each rank's partial segment max; backward:
+    # the rank's block of the gradient gathered, then split among the
+    # entries of every rank that equal their segment's max
+    @staticmethod
+    def forward(ctx, data, seg, num_segments, group, i, n):
+        idx = seg.reshape(-1, *([1] * (data.dim() - 1))).expand_as(data)
+        m = data.new_full((num_segments, *data.shape[1:]), -math.inf
+                          ).scatter_reduce(0, idx, data, "amax",
+                                           include_self=False)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        ctx.save_for_backward(data, seg, m)
+        ctx.group = group
+        return _block(m, 0, i, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, seg, m = ctx.saved_tensors
+        g = _gather_dim(g, ctx.group, 0)
+        tie = (data == m[seg]).to(g.dtype)
+        count = _summed(torch.zeros_like(m).index_add_(0, seg, tie),
+                        ctx.group)
+        return (g / count)[seg] * tie, None, None, None, None, None
+
+
 class _Broadcast(Function):
     # ``anchor`` is a tensor of the rank's own stack: through it the output
     # needs a gradient on every rank, so every rank joins the backward's
@@ -197,6 +257,68 @@ def gather_sum(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         return x
     return _Gather.apply(x, group, dim, mesh.index(axes), size(mesh, axes),
                          True)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Sum over ``axes``, then the rank's block along ``dim`` (backward:
+    all-gather).  The sum is an all-reduce: gloo has no reduce-scatter on
+    every build."""
+    axes = _axes(mesh, axes)
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    return _ReduceScatter.apply(x, group, dim, mesh.index(axes),
+                                size(mesh, axes))
+
+
+def all_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum over ``axes`` for consumers that differ by rank (backward: the
+    sum over ``axes``)."""
+    group = mesh.group(_axes(mesh, axes))
+    return x if group is None else _AllSum.apply(x, group)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, mesh, axes) -> torch.Tensor:
+    """``core.aggregate.segment_max`` over the entries of every rank of
+    ``axes`` (each rank passes its own, ``segment_ids`` indexing all
+    ``num_segments``): the rank's block of the (num_segments, ...) result,
+    -inf for an empty segment.  Backward: each entry that ties for its
+    segment's max gets the segment's gradient over the number of tied
+    entries on every rank."""
+    axes = _axes(mesh, axes)
+    group = mesh.group(axes)
+    if group is None:
+        return aggregate.segment_max(data, segment_ids, num_segments)
+    return _SegmentMax.apply(data, segment_ids, num_segments, group,
+                             mesh.index(axes), size(mesh, axes))
+
+
+# ------------------------------------------------------- the graph layout
+# nodes and edges cut over every axis of the mesh (None: no mesh, each a
+# no-op); a rank's edge ids index the whole node set
+def node_count(n_local: int, mesh) -> int:
+    """The whole node set's size from the rank's ``n_local`` rows."""
+    return n_local if mesh is None else n_local * mesh.size
+
+
+def node_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole node set's rows of ``x`` (the rank's rows), for the rank's
+    edges to index (:func:`gather_sum` over every axis)."""
+    return x if mesh is None else gather_sum(x, mesh, mesh.axis_names, 0)
+
+
+def node_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's rows of the sum over the ranks of ``x``, a partial sum
+    over the whole node set (:func:`reduce_scatter` over every axis)."""
+    return x if mesh is None else reduce_scatter(x, mesh, mesh.axis_names,
+                                                 0)
+
+
+def node_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of ``x`` on every rank, for the rank's edges
+    to index (:func:`all_sum` over every axis)."""
+    return x if mesh is None else all_sum(x, mesh, mesh.axis_names)
 
 
 def scale_grad(x: torch.Tensor, c: float) -> torch.Tensor:

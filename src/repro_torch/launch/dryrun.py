@@ -14,11 +14,11 @@ collectives return at once and move nothing), and each cell is:
   dimension its axes do not divide);
 * compile: one trace of the bundle's eager step on those blocks
   (``roofline.count.count_step``: fake tensors, nothing allocated), under
-  ``dist.sharding.use_mesh`` for the LM steps' manual mesh path.  The steps
-  are the reference's own, which reach no hand-written kernel: LM decode on
+  ``dist.sharding.use_mesh``: every family's step runs its manual mesh
+  path, with the collectives GSPMD would insert.  The steps are the
+  reference's own, which reach no hand-written kernel: LM decode on
   ``attn="plain"``, the GNNs on segment ops, wide & deep on
-  ``lookup="dense"``.  The GNN and wide & deep steps have no mesh path: the
-  trace is the rank's step on its block, with no collective.
+  ``lookup="dense"``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # all cells
@@ -110,7 +110,7 @@ def lower_cell(bundle, spec, shape: str, mesh, compile_: bool = True):
     result = {"arch": spec.name, "shape": shape,
               "mesh": "x".join(map(str, m.shape.values())),
               "lower_s": round(t_lower, 1)}
-    with use_mesh(m) if spec.family == "lm" else contextlib.nullcontext():
+    with use_mesh(m):
         fn = _step(bundle, spec, shape)
         trace = {"args": args, "fn": fn, "donate": donate}
         if not compile_:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..core.aggregate import segment_max, segment_sum
 from ..device import resolve_device
+from ..dist import spmd
 from ..nn.layers import cross_entropy, linear_apply, linear_init
 
 
@@ -55,39 +56,48 @@ def gat_init(generator: torch.Generator, d_in: int, d_hidden: int,
 
 
 def edge_softmax(scores: torch.Tensor, dst: torch.Tensor, num_nodes: int,
-                 edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 edge_mask: Optional[torch.Tensor] = None,
+                 mesh=None) -> torch.Tensor:
     """Numerically stable softmax over each destination's incoming edges.
 
     ``scores``: (E, H).  The per-destination max is not detached, as in the
-    reference (its gradient cancels in exact arithmetic)."""
+    reference (its gradient cancels in exact arithmetic).  Under ``mesh``
+    the edges are the rank's, ``dst`` indexing all ``num_nodes``: the shift
+    is the max over the ranks, outside autograd (``spmd.max_``), and the
+    denominators are summed over the ranks onto every rank."""
     if edge_mask is not None:
         scores = torch.where(edge_mask[:, None], scores,
                              torch.full_like(scores, float("-inf")))
     mx = segment_max(scores, dst, num_nodes)
+    if mesh is not None and mesh.size > 1:
+        mx = spmd.max_(mx, mesh, mesh.axis_names)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     ex = torch.exp(scores - mx[dst])
     if edge_mask is not None:
         ex = torch.where(edge_mask[:, None], ex, torch.zeros_like(ex))
-    den = segment_sum(ex, dst, num_nodes)
+    den = spmd.node_sum(segment_sum(ex, dst, num_nodes), mesh)
     return ex / torch.maximum(den[dst], den.new_tensor(1e-9))
 
 
 def gat_layer(p: Dict, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               n_heads: int, d_out: int, edge_mask=None,
-              negative_slope: float = 0.2) -> torch.Tensor:
-    """One attention layer; returns (N, heads, d_out)."""
+              negative_slope: float = 0.2, mesh=None) -> torch.Tensor:
+    """One attention layer; returns (N, heads, d_out).  Under ``mesh``,
+    ``h`` and the result are the rank's rows, the edges the rank's."""
     N = h.shape[0]
-    z = linear_apply(p["w"], h).reshape(N, n_heads, d_out)
+    z = spmd.node_gather(linear_apply(p["w"], h).reshape(N, n_heads, d_out),
+                         mesh)
+    n = z.shape[0]
     s_src = torch.einsum("nhd,hd->nh", z, p["a_src"].to(z.dtype))
     s_dst = torch.einsum("nhd,hd->nh", z, p["a_dst"].to(z.dtype))
     e = F.leaky_relu(s_src[src] + s_dst[dst], negative_slope)
-    alpha = edge_softmax(e, dst, N, edge_mask)                  # (E, H)
+    alpha = edge_softmax(e, dst, n, edge_mask, mesh)            # (E, H)
     msgs = z[src] * alpha[:, :, None]
-    return segment_sum(msgs, dst, N)                            # (N, H, d)
+    return spmd.node_scatter(segment_sum(msgs, dst, n), mesh)   # (N, H, d)
 
 
 def gat_apply(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
-              act: Callable = F.elu) -> torch.Tensor:
+              act: Callable = F.elu, mesh=None) -> torch.Tensor:
     h = x
     src, dst = graph["src"].long(), graph["dst"].long()
     mask = graph.get("edge_mask")
@@ -95,7 +105,7 @@ def gat_apply(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
     for i, p in enumerate(params["layers"]):
         # geometry recovered from parameter shapes (heads, d_out)
         n_heads, d_out = p["a_src"].shape
-        out = gat_layer(p, h, src, dst, n_heads, d_out, mask)
+        out = gat_layer(p, h, src, dst, n_heads, d_out, mask, mesh=mesh)
         if i + 1 < n_layers:
             h = act(out.reshape(out.shape[0], -1))  # concat heads
         else:
@@ -104,6 +114,9 @@ def gat_apply(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
 
 
 def gat_loss(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
-             labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    logits = gat_apply(params, x, graph)
-    return cross_entropy(logits, labels, mask.to(torch.float32))
+             labels: torch.Tensor, mask: torch.Tensor,
+             mesh=None) -> torch.Tensor:
+    """Masked cross-entropy of :func:`gat_apply`; under ``mesh`` (the graph
+    layout of ``gcn_apply``) the mean over every rank's nodes."""
+    logits = gat_apply(params, x, graph, mesh=mesh)
+    return cross_entropy(logits, labels, mask.to(torch.float32), mesh)

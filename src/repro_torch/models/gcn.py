@@ -28,6 +28,7 @@ from ..core.aggregate import (blockell_aggregate, segment_aggregate,
 from ..core.blocksparse import BlockEll
 from ..core.shared_set import SharedSetPlan
 from ..device import resolve_device
+from ..dist import spmd
 from ..exec.plan import GraphExecutionPlan
 from ..nn.layers import cross_entropy, linear_apply, linear_init
 
@@ -64,13 +65,20 @@ def _aggregate(x: torch.Tensor, graph: Dict[str, torch.Tensor],
     return (aggregate(xs) + xs) * inv_sqrt[:, None]  # self loop, dst scaling
 
 
-def _edge_sum(executor: str, plans, graph: Dict[str, torch.Tensor]
-              ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The unweighted sum over the edges that ``executor`` runs."""
+def _edge_sum(executor: str, plans, graph: Dict[str, torch.Tensor],
+              mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The unweighted sum over the edges that ``executor`` runs.  Under
+    ``mesh`` (segment only): the whole node set's features gathered, the
+    rank's edges summed into a buffer of every node, that summed over the
+    ranks and cut to the rank's rows."""
+    if mesh is not None and executor != "segment":
+        raise ValueError(f"the mesh path runs executor='segment' only "
+                         f"(got {executor!r})")
     if executor == "segment":
-        return lambda xs: segment_aggregate(
-            xs, graph["src"], graph["dst"], xs.shape[0], "sum",
-            edge_mask=graph.get("edge_mask"))
+        return lambda xs: spmd.node_scatter(segment_aggregate(
+            spmd.node_gather(xs, mesh), graph["src"], graph["dst"],
+            spmd.node_count(xs.shape[0], mesh), "sum",
+            edge_mask=graph.get("edge_mask")), mesh)
     if executor == "shared":
         if not isinstance(plans, SharedSetPlan):
             raise ValueError("executor='shared' needs a SharedSetPlan "
@@ -88,13 +96,20 @@ def _edge_sum(executor: str, plans, graph: Dict[str, torch.Tensor]
 
 def gcn_apply(params: Dict, x: torch.Tensor,
               graph: Optional[Dict[str, torch.Tensor]] = None,
-              executor: str = "segment", plans=None) -> torch.Tensor:
+              executor: str = "segment", plans=None,
+              mesh=None) -> torch.Tensor:
     """Forward pass; ReLU between layers, none after the last.  ``plans`` is
     one LayerExecutionPlan per layer for ``"fused"``, one GraphExecutionPlan
     or the adjacency's BlockEll for ``"blockell"`` and a SharedSetPlan for
-    ``"shared"``."""
+    ``"shared"``.  With ``mesh`` (``"segment"`` only), ``x`` and
+    ``graph["deg"]`` are the rank's rows of nodes cut over every axis and
+    the graph's edges the rank's, indexing the whole node set: the result
+    is the rank's rows."""
     layers = params["layers"]
     n_layers = len(layers)
+    if mesh is not None and executor != "segment":
+        raise ValueError(f"the mesh path runs executor='segment' only "
+                         f"(got {executor!r})")
     if executor == "fused":
         if plans is None or len(plans) != n_layers:
             raise ValueError("executor='fused' needs one LayerExecutionPlan "
@@ -111,7 +126,7 @@ def gcn_apply(params: Dict, x: torch.Tensor,
             raise ValueError(f"plan mode {plans.mode!r} != 'gcn'")
         aggregate = plans.apply
     else:
-        edge_sum = _edge_sum(executor, plans, graph)
+        edge_sum = _edge_sum(executor, plans, graph, mesh)
         aggregate = lambda h: _aggregate(h, graph, edge_sum)
     h = x
     for i, p in enumerate(layers):
@@ -124,6 +139,6 @@ def gcn_apply(params: Dict, x: torch.Tensor,
 def gcn_loss(params: Dict, x: torch.Tensor,
              graph: Optional[Dict[str, torch.Tensor]], labels: torch.Tensor,
              mask: torch.Tensor, executor: str = "segment",
-             plans=None) -> torch.Tensor:
-    logits = gcn_apply(params, x, graph, executor, plans)
-    return cross_entropy(logits, labels, mask)
+             plans=None, mesh=None) -> torch.Tensor:
+    logits = gcn_apply(params, x, graph, executor, plans, mesh)
+    return cross_entropy(logits, labels, mask, mesh)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..core.aggregate import segment_sum
 from ..device import resolve_device
+from ..dist import spmd
 from ..nn.layers import linear_apply, linear_init, mlp_apply, mlp_init
 
 
@@ -92,8 +93,10 @@ def nequip_init(generator: torch.Generator, n_species: int = 16,
 
 def nequip_layer(p: Dict, feats: Tuple, pos_diff: torch.Tensor,
                  rbf_w: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                 num_nodes: int) -> Tuple:
-    """One interaction block.  ``feats = (s, v, T)``."""
+                 num_nodes: int, mesh=None) -> Tuple:
+    """One interaction block.  ``feats = (s, v, T)``.  Under ``mesh``
+    (``nequip_apply``'s layout) the features are the rank's rows and the
+    edges the rank's (``num_nodes`` is ignored)."""
     s, v, T = feats
     C = s.shape[-1]
     r = torch.linalg.vector_norm(pos_diff, dim=-1)
@@ -101,7 +104,9 @@ def nequip_layer(p: Dict, feats: Tuple, pos_diff: torch.Tensor,
     w = mlp_apply(p["radial"], rbf_w, act=F.silu)             # (E, 10 C)
     w = w.reshape(-1, N_PATHS, C)
 
-    ss, sv, sT = s[src], v[src], T[src]                        # gathers
+    if mesh is not None:
+        num_nodes = spmd.node_count(s.shape[0], mesh)
+    ss, sv, sT = (spmd.node_gather(f, mesh)[src] for f in (s, v, T))
     d1 = dirn[:, None, :]                                      # (E, 1, 3)
     Y2 = _traceless_sym(d1[..., :, None] * d1[..., None, :])   # (E,1,3,3)
 
@@ -119,9 +124,8 @@ def nequip_layer(p: Dict, feats: Tuple, pos_diff: torch.Tensor,
            + w[:, 9, :, None, None] * _traceless_sym(
                sv[..., :, None] * d1[..., None, :]))                  # 1x1->2
 
-    a_s = segment_sum(m_s, dst, num_nodes)
-    a_v = segment_sum(m_v, dst, num_nodes)
-    a_T = segment_sum(m_T, dst, num_nodes)
+    a_s, a_v, a_T = (spmd.node_scatter(segment_sum(m, dst, num_nodes), mesh)
+                     for m in (m_s, m_v, m_T))
 
     # --- self-interaction (channel mixing, per l) + gated nonlinearity ---
     s_new = s + linear_apply(p["self0"], a_s)
@@ -135,9 +139,13 @@ def nequip_layer(p: Dict, feats: Tuple, pos_diff: torch.Tensor,
 
 def nequip_apply(params: Dict, species: torch.Tensor, pos: torch.Tensor,
                  src: torch.Tensor, dst: torch.Tensor, edge_mask=None,
-                 node_mask=None, cutoff: float = 5.0) -> torch.Tensor:
+                 node_mask=None, cutoff: float = 5.0,
+                 mesh=None) -> torch.Tensor:
     """Per-node invariant energy (N,).  ``species``: (N,) ints; ``pos``:
-    (N, 3).  Channels and n_rbf come from the parameter shapes."""
+    (N, 3).  Channels and n_rbf come from the parameter shapes.  Under
+    ``mesh`` the nodes (``species``, ``pos``, ``node_mask`` and the result)
+    are the rank's rows of nodes cut over every axis and the edges the
+    rank's, indexing the whole node set."""
     C = params["embed"].shape[1]
     n_rbf = params["layers"][0]["radial"][0]["w"].shape[0]
     N = species.shape[0]
@@ -146,7 +154,8 @@ def nequip_apply(params: Dict, species: torch.Tensor, pos: torch.Tensor,
     v = pos.new_zeros((N, C, 3))
     T = pos.new_zeros((N, C, 3, 3))
 
-    pos_diff = pos[src] - pos[dst]
+    pos_all = spmd.node_gather(pos, mesh)
+    pos_diff = pos_all[src] - pos_all[dst]
     r = torch.linalg.vector_norm(pos_diff, dim=-1)
     rbf = bessel_basis(r, n_rbf, cutoff) * poly_cutoff(r, cutoff)[:, None]
     if edge_mask is not None:
@@ -154,7 +163,7 @@ def nequip_apply(params: Dict, species: torch.Tensor, pos: torch.Tensor,
 
     feats = (s, v, T)
     for p in params["layers"]:
-        feats = nequip_layer(p, feats, pos_diff, rbf, src, dst, N)
+        feats = nequip_layer(p, feats, pos_diff, rbf, src, dst, N, mesh)
     energy_per_node = mlp_apply(params["readout"], feats[0], act=F.silu)[:, 0]
     if node_mask is not None:
         energy_per_node = energy_per_node * node_mask
@@ -163,13 +172,19 @@ def nequip_apply(params: Dict, species: torch.Tensor, pos: torch.Tensor,
 
 def nequip_energy(params: Dict, species, pos, src, dst, edge_mask=None,
                   node_mask=None, graph_ids=None, num_graphs: int = 1,
-                  cutoff: float = 5.0) -> torch.Tensor:
-    """Energy per graph: (num_graphs,) over ``graph_ids``, else (1,)."""
+                  cutoff: float = 5.0, mesh=None) -> torch.Tensor:
+    """Energy per graph: (num_graphs,) over ``graph_ids``, else (1,).
+    Under ``mesh`` (``nequip_apply``'s layout; ``graph_ids`` the rank's
+    rows) the sums over every rank's nodes, the same on every rank
+    (backward: the rank's nodes' part)."""
     e = nequip_apply(params, species, pos, src, dst, edge_mask, node_mask,
-                     cutoff=cutoff)
+                     cutoff=cutoff, mesh=mesh)
     if graph_ids is not None:
-        return segment_sum(e, graph_ids.long(), num_graphs)
-    return torch.sum(e)[None]
+        out = segment_sum(e, graph_ids.long(), num_graphs)
+    else:
+        out = torch.sum(e)[None]
+    return out if mesh is None else spmd.all_reduce(out, mesh,
+                                                    mesh.axis_names)
 
 
 def nequip_energy_forces(params: Dict, species, pos, src, dst, **kw):

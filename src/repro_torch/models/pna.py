@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.aggregate import segment_max, segment_sum
 from ..device import resolve_device
+from ..dist import spmd
 from ..nn.layers import cross_entropy, linear_apply, linear_init
 
 AGGREGATORS = ("mean", "max", "min", "std")
@@ -45,14 +46,20 @@ def pna_init(generator: torch.Generator, d_in: int, d_hidden: int,
 
 def pna_aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   num_nodes: int, mean_log_deg: float,
-                  edge_mask=None) -> torch.Tensor:
+                  edge_mask=None, mesh=None) -> torch.Tensor:
     """(N, d) -> (N, 12 d) PNA aggregation, single-gather fused.
 
     The messages ``h[src]`` are gathered ONCE and every statistic rides one
     of two segment reductions: a sum over the ``[msgs, msgs², 1]`` lanes
     (sum, sum of squares and degree share one ``index_add_``) and a max over
-    ``[msgs, -msgs]`` (max and min share one ``scatter_reduce``)."""
+    ``[msgs, -msgs]`` (max and min share one ``scatter_reduce``).  Under
+    ``mesh`` ``h`` and the result are the rank's rows of nodes, the edges
+    the rank's, indexing the whole node set (``num_nodes`` is ignored):
+    the sums are summed over the ranks and the maxes taken over them
+    (``spmd.segment_max``), each cut to the rank's rows."""
     d = h.shape[1]
+    h = spmd.node_gather(h, mesh)
+    num_nodes = h.shape[0] if mesh is not None else num_nodes
     msgs = h[src]                                          # the ONE gather
     ones = (edge_mask.to(h.dtype) if edge_mask is not None
             else h.new_ones(src.shape[0]))
@@ -60,7 +67,7 @@ def pna_aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if edge_mask is not None:
         sum_lanes = torch.where(edge_mask[:, None], sum_lanes,
                                 torch.zeros_like(sum_lanes))
-    sums = segment_sum(sum_lanes, dst, num_nodes)
+    sums = spmd.node_scatter(segment_sum(sum_lanes, dst, num_nodes), mesh)
     deg = sums[:, 2 * d]
     denom = torch.clamp(deg, min=1.0)[:, None]
     mean = sums[:, :d] / denom
@@ -73,7 +80,9 @@ def pna_aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if edge_mask is not None:
         max_lanes = torch.where(edge_mask[:, None], max_lanes,
                                 torch.full_like(max_lanes, float("-inf")))
-    maxes = segment_max(max_lanes, dst, num_nodes)
+    maxes = (segment_max(max_lanes, dst, num_nodes) if mesh is None else
+             spmd.segment_max(max_lanes, dst, num_nodes, mesh,
+                              mesh.axis_names))
     maxes = torch.where(torch.isfinite(maxes), maxes,
                         torch.zeros_like(maxes))           # empty rows -> 0
     mx, mn = maxes[:, :d], -maxes[:, d:]
@@ -90,22 +99,26 @@ def pna_aggregate(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 def pna_layer(p: Dict, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               mean_log_deg: float, edge_mask=None,
-              act: Callable = torch.relu) -> torch.Tensor:
+              act: Callable = torch.relu, mesh=None) -> torch.Tensor:
     """One PNA layer: ``pre``, the 12-way aggregation, ``post`` over
-    ``[z, agg]``."""
+    ``[z, agg]``.  The mesh is an argument, never the ambient one: a
+    checkpoint's recompute on CUDA runs in autograd's device thread."""
     z = act(linear_apply(p["pre"], h))
-    agg = pna_aggregate(z, src, dst, h.shape[0], mean_log_deg, edge_mask)
+    agg = pna_aggregate(z, src, dst, h.shape[0], mean_log_deg, edge_mask,
+                        mesh)
     return act(linear_apply(p["post"], torch.cat([z, agg], dim=-1)))
 
 
 def pna_apply(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
-              act: Callable = torch.relu, remat: bool = False
-              ) -> torch.Tensor:
+              act: Callable = torch.relu, remat: bool = False,
+              mesh=None) -> torch.Tensor:
     """Logits of the layers then the head.  With ``remat`` (and autograd
     on), each layer keeps only its input for the backward and recomputes
-    the rest, as ``lm_backbone`` does."""
+    the rest, as ``lm_backbone`` does.  Under ``mesh``, the graph layout of
+    ``gcn_apply``: ``x`` and the logits the rank's rows."""
     src, dst = graph["src"].long(), graph["dst"].long()
-    args = (src, dst, graph["mean_log_deg"], graph.get("edge_mask"), act)
+    args = (src, dst, graph["mean_log_deg"], graph.get("edge_mask"), act,
+            mesh)
     remat = remat and torch.is_grad_enabled()
     h = x
     for p in params["layers"]:
@@ -116,9 +129,11 @@ def pna_apply(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
 
 def pna_loss(params: Dict, x: torch.Tensor, graph: Dict[str, Any],
              labels: torch.Tensor, mask: torch.Tensor,
-             remat: bool = False) -> torch.Tensor:
-    logits = pna_apply(params, x, graph, remat=remat)
-    return cross_entropy(logits, labels, mask.to(torch.float32))
+             remat: bool = False, mesh=None) -> torch.Tensor:
+    """Masked cross-entropy of :func:`pna_apply`; under ``mesh`` the mean
+    over every rank's nodes."""
+    logits = pna_apply(params, x, graph, remat=remat, mesh=mesh)
+    return cross_entropy(logits, labels, mask.to(torch.float32), mesh)
 
 
 def mean_log_degree(g) -> float:

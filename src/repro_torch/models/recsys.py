@@ -15,7 +15,10 @@ the Pallas kernel: the deep part as B·F single-id bags over the table
 (d = 1); the table's gradient comes from the same kernel on the transposed
 bag list.  ``lookup="dense"`` is the reference model's own take +
 segment-sum, in plain torch.  ``retrieval_score`` is a plain matrix-vector
-product, as in the reference.
+product, as in the reference.  Every entry point takes a ``mesh`` (the
+``RecsysBundle`` layout: ``table`` and ``wide`` the rank's rows over
+``model``): the lookups keep the ids in the rank's rows and sum over
+``model``, the rest runs alike on every ``model`` rank.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..device import resolve_device
-from ..kernels import ops
+from ..nn.embedding import sharded_bag, sharded_take
 from ..nn.layers import linear_apply, linear_init, mlp_apply, mlp_init
 
 LOOKUPS = ("bag", "dense")
@@ -83,17 +86,17 @@ def _flat_ids(sparse_ids: torch.Tensor, cfg: WideDeepConfig) -> torch.Tensor:
 
 
 def _deep_in(params, sparse_ids, dense, cfg: WideDeepConfig,
-             lookup: str) -> torch.Tensor:
+             lookup: str, mesh=None) -> torch.Tensor:
     """concat(field embeddings, dense): (B, F·embed_dim + n_dense)."""
     B, F = sparse_ids.shape
     flat = _flat_ids(sparse_ids, cfg)
     table = params["table"].to(cfg.dtype)
     if lookup == "bag":
         # the per-field gather == B·F bags of exactly one id
-        emb = ops.embedding_bag(flat, torch.arange(B * F, device=flat.device),
-                                table, B * F)
+        emb = sharded_bag(flat, torch.arange(B * F, device=flat.device),
+                          table, B * F, mesh)
     elif lookup == "dense":
-        emb = table[flat.long()]
+        emb = sharded_take(table, flat, mesh)
     else:
         raise ValueError(f"unknown lookup {lookup!r} (choices: {LOOKUPS})")
     return torch.cat([emb.reshape(B, F * cfg.embed_dim),
@@ -101,31 +104,38 @@ def _deep_in(params, sparse_ids, dense, cfg: WideDeepConfig,
 
 
 def widedeep_logits(params, sparse_ids: torch.Tensor, dense: torch.Tensor,
-                    cfg: WideDeepConfig, lookup: str = "bag") -> torch.Tensor:
+                    cfg: WideDeepConfig, lookup: str = "bag",
+                    mesh=None) -> torch.Tensor:
     """sparse_ids: (B, F) per-field LOCAL ids; dense: (B, n_dense).
-    Returns (B,) logits."""
+    Returns (B,) logits.  Under ``mesh``, ``table`` and ``wide`` are the
+    rank's blocks of rows over ``model`` and the rows of the batch those the
+    rank holds: the lookups are masked to the rank's block and summed over
+    ``model``, the MLP runs alike on every ``model`` rank."""
     B, F = sparse_ids.shape
     deep = mlp_apply(params["deep"],
-                     _deep_in(params, sparse_ids, dense, cfg, lookup))[:, 0]
+                     _deep_in(params, sparse_ids, dense, cfg, lookup,
+                              mesh))[:, 0]
     flat = _flat_ids(sparse_ids, cfg)
     wide_table = params["wide"].to(cfg.dtype)
     if lookup == "bag":
         # a true F-id bag sum per row over the embed_dim = 1 table
         bag = torch.arange(B, device=flat.device).repeat_interleave(F)
-        wide_sparse = ops.embedding_bag(flat, bag, wide_table[:, None],
-                                        B)[:, 0]
+        wide_sparse = sharded_bag(flat, bag, wide_table[:, None], B,
+                                  mesh)[:, 0]
     else:
-        wide_sparse = wide_table[flat.long()].reshape(B, F).sum(dim=1)
+        wide_sparse = sharded_take(wide_table, flat, mesh).reshape(
+            B, F).sum(dim=1)
     wide = wide_sparse + linear_apply(params["wide_dense"],
                                       dense.to(cfg.dtype))[:, 0]
     return deep + wide
 
 
 def widedeep_loss(params, sparse_ids, dense, labels, cfg: WideDeepConfig,
-                  lookup: str = "bag") -> torch.Tensor:
-    """Mean binary cross-entropy with logits, in its stable form."""
+                  lookup: str = "bag", mesh=None) -> torch.Tensor:
+    """Mean binary cross-entropy with logits, in its stable form (under
+    ``mesh``, over the rank's rows of the batch)."""
     z = widedeep_logits(params, sparse_ids, dense, cfg,
-                        lookup).to(torch.float32)
+                        lookup, mesh).to(torch.float32)
     labels = labels.to(torch.float32)
     return torch.mean(torch.clamp(z, min=0) - z * labels
                       + torch.log1p(torch.exp(-torch.abs(z))))
@@ -133,17 +143,20 @@ def widedeep_loss(params, sparse_ids, dense, labels, cfg: WideDeepConfig,
 
 # ------------------------------------------------------------- retrieval
 def user_tower(params, sparse_ids, dense, cfg: WideDeepConfig,
-               lookup: str = "bag") -> torch.Tensor:
+               lookup: str = "bag", mesh=None) -> torch.Tensor:
     """(B, mlp_dims[-1]) user representation: the last hidden layer."""
-    h = _deep_in(params, sparse_ids, dense, cfg, lookup)
+    h = _deep_in(params, sparse_ids, dense, cfg, lookup, mesh)
     for p in params["deep"][:-1]:
         h = torch.relu(linear_apply(p, h))
     return h
 
 
 def retrieval_score(params, sparse_ids, dense, candidate_emb: torch.Tensor,
-                    cfg: WideDeepConfig, lookup: str = "bag") -> torch.Tensor:
+                    cfg: WideDeepConfig, lookup: str = "bag",
+                    mesh=None) -> torch.Tensor:
     """Score one query against N candidates: (1, F), (1, n_dense),
-    (N, mlp_dims[-1]) -> (N,), one matrix-vector product."""
-    q = user_tower(params, sparse_ids, dense, cfg, lookup)
+    (N, mlp_dims[-1]) -> (N,), one matrix-vector product.  Under ``mesh``
+    the query is whole on every rank and ``candidate_emb`` the rank's
+    block: the scores are the block's."""
+    q = user_tower(params, sparse_ids, dense, cfg, lookup, mesh)
     return candidate_emb.to(cfg.dtype) @ q[0]

@@ -16,6 +16,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..device import resolve_device
+from ..dist import spmd
 
 
 def linear_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -113,15 +114,25 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """Mean cross-entropy with an fp32 log-sum-exp; with ``mask``, the mean
-    over the rows it selects (``sum(nll * mask) / max(sum(mask), 1)``)."""
+    over the rows it selects (``sum(nll * mask) / max(sum(mask), 1)``).
+    With ``mesh`` the rows are the rank's block of rows cut over every
+    axis (the graph layout): the mean over every rank's rows, the same on
+    every rank (backward: the rank's rows' part)."""
     lg = logits.to(torch.float32)
     m = torch.amax(lg, dim=-1, keepdim=True)
     logz = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
     gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll) if mesh is not None else None
     if mask is not None:
         mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        num, den = torch.sum(nll * mask), torch.sum(mask)
+        if mesh is not None:
+            num = spmd.all_reduce(num, mesh, mesh.axis_names)
+            den = spmd.all_reduce(den.detach(), mesh, mesh.axis_names)
+        return num / torch.clamp(den, min=1.0)
     return torch.mean(nll)

@@ -11,7 +11,12 @@ in both packages; one full-width LM cell (minitron-8b ``decode_32k`` on
 (16, 16)) traces, with the reference's result keys and argument bytes; both
 CLIs' JSON (an OK cell and a failed one) have the same keys, and the port's
 exits 1 on a failed cell as the reference's does; importing the module
-starts no process group.
+starts no process group.  Every family traces its mesh step: the (4, 4)
+cells count collectives (wide & deep ``serve_p99``'s within 5% of the
+reference's ``collective_bytes`` from the same child), and so do the 20
+single-pod GNN and wide & deep cells of ``roofline_run`` against the
+reference's own ``roofline_run`` (wide & deep within 5%, the GNNs within
+0.25-4x).
 """
 import json
 import os
@@ -38,6 +43,7 @@ from jax.sharding import AxisType, Mesh
 from repro.configs import get
 from repro.launch.dryrun import lower_cell
 from repro.launch.mesh import make_production_mesh
+from repro.roofline.hlo import collective_bytes
 
 small = Mesh(np.asarray(jax.devices()[:16]).reshape(4, 4),
              ("data", "model"), axis_types=(AxisType.Auto,) * 2)
@@ -49,13 +55,17 @@ for arch, shape, mesh, name in [("gcn-cora", "molecule", small, "4x4"),
                                 ("granite-8b", "train_4k", big, "16x16")]:
     spec = get(arch)
     try:
-        res, _, _ = lower_cell(spec.bundle(), spec, shape, mesh)
+        res, _, compiled = lower_cell(spec.bundle(), spec, shape, mesh)
         out[f"{arch}/{shape}/{name}"] = res
+        out[f"{arch}/{shape}/{name}/collective_bytes"] = collective_bytes(
+            compiled.as_text())["total"]
     except Exception as e:
         out[f"{arch}/{shape}/{name}"] = {"error": type(e).__name__}
 print(json.dumps(out))
 """
 
+MESH_ARCHS = ("gcn-cora", "gat-cora", "pna", "nequip", "wide-deep")
+LM_FAILING = {"granite-8b", "mistral-large-123b", "llama4-maverick-400b-a17b"}
 CLI_ARGS = ["--arch", "gcn-cora", "--arch", "granite-8b", "--shape",
             "molecule", "--shape", "decode_32k", "--single-pod-only"]
 
@@ -73,6 +83,11 @@ def children(tmp_path_factory):
         "ref_cli": subprocess.Popen(
             [sys.executable, "-m", "repro.launch.dryrun", *CLI_ARGS,
              "--json", str(tmp / "ref.json")], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+        "ref_roofline": subprocess.Popen(
+            [sys.executable, "-m", "repro.launch.roofline_run",
+             *(a for arch in MESH_ARCHS for a in ("--arch", arch)),
+             "--json", str(tmp / "ref_roofline.json")], env=env, text=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE),
         "port_cli": subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", *CLI_ARGS,
@@ -126,7 +141,12 @@ def test_small_cells_argument_bytes_equal_the_reference(children, arch,
             - counts["memory"]["alias_gb_per_device"], 0)
         + mem["temp_gb_per_device"], rel=1e-12)
     assert res["cost"]["flops_per_device"] > 0
-    assert counts["collectives"]["total"] == 0   # no mesh path: no wire
+    # the mesh path: the collectives GSPMD inserts in the reference's
+    assert counts["collectives"]["total"] > 0
+    if (arch, shape) == ("wide-deep", "serve_p99"):
+        want_coll = _reference(children)[f"{arch}/{shape}/4x4/collective_bytes"]
+        assert counts["collectives"]["total"] == pytest.approx(want_coll,
+                                                               rel=0.05)
 
 
 def test_production_mesh_cells(children):
@@ -197,3 +217,35 @@ def test_import_starts_no_process_group():
             with dryrun.fake_world(4):
                 pass
     assert not dist.is_initialized()
+
+
+def test_graph_and_recsys_cells_count_the_reference_collectives(children):
+    """The 20 single-pod GNN and wide & deep cells trace their mesh steps
+    (``roofline_run``'s records): each counts collectives, wide & deep's
+    within 5% of the reference's ``collective_bytes``, the GNNs' within
+    0.25-4x; the single-pod pass / fail sets stay 28 / 12 (the failing
+    cells raise at their ZeRO entry, when lowered)."""
+    from repro_torch.configs.registry import ALL_ARCHS
+    from repro_torch.launch import roofline_run
+    jobs = [(a, shape) for a in MESH_ARCHS for shape in get(a).shapes]
+    got = dict(zip(jobs, dryrun.map_cells(roofline_run._analyze, jobs,
+                                          False)))
+    read, tmp = children
+    rc, _, err = read("ref_roofline")
+    assert rc == 0, err[-3000:]
+    ref = {(r["arch"], r["shape"]): r["coll_bytes_per_chip"]
+           for r in json.loads((tmp / "ref_roofline.json").read_text())}
+    assert len(jobs) == 20 and set(ref) == set(jobs)
+    for job, (_, rec, error) in got.items():
+        assert error is None, error
+        coll, want = rec["coll_bytes_per_chip"], ref[job]
+        assert coll > 0, job
+        if job[0] == "wide-deep":
+            assert coll == pytest.approx(want, rel=0.05), job
+        else:
+            assert 0.25 * want <= coll <= 4 * want, (job, coll, want)
+    results, failures = dryrun.run(list(ALL_ARCHS), None,
+                                   multi_pod_too=False, compile_=False,
+                                   log=lambda *a: None)
+    assert (len(results), len(failures)) == (28, 12)
+    assert {f["arch"] for f in failures} == LM_FAILING
