@@ -187,8 +187,13 @@
    step again through ``dist.sharding.use_mesh`` on a (1, 1) data x model
    mesh of a one-rank NCCL group (the LM mesh path of ``models.
    transformer``), bit-identical to the no-mesh step with the same 32
-   ``decode_attention`` launches; then each rank's state bytes of the cells
-   cut to fit one card (granite-8b ``train_4k`` at 36 layers, mistral-
+   ``decode_attention`` launches; then the step at B = 1 on the first row
+   of those caches (``moe_ep_mesh_phase``), with no mesh and on a (1, 1)
+   NCCL mesh, where it runs ``_moe_ffn``'s branch that is not shard-local
+   (``moe_apply(ep_axis="model")``, every expert on the one model rank):
+   6 steps each, all bit-identical, 32 ``decode_attention`` launches a
+   step, ms a step of both beside the card's name and power limit; then
+   each rank's state bytes of the cells cut to fit one card (granite-8b ``train_4k`` at 36 layers, mistral-
    large-123b and llama4 at 48 layers) on (2, 2), (2, 4) and (1, 8)
    meshes, host arithmetic from ``LMBundle.shardings`` (not measured).
 11. GAT, PNA and NequIP (no kernel: the reference runs them on
@@ -4053,6 +4058,11 @@ def moe_config_phase(torch, dev, arch):
                 paths[f"{arch} CONFIG decode on a (1, 1) mesh"] = \
                     mesh_launches
                 rec.take()
+                (paths[f"{arch} CONFIG decode, B=1, no mesh then the "
+                       f"expert-parallel branch on a (1, 1) mesh"],
+                 report["moe_ep_mesh"]) = moe_ep_mesh_phase(
+                    torch, dev, step, params, batch, cfg)
+                rec.take()
             walked, errs = decode_walk(torch, params, cfg, tok, caches,
                                        S - 1, S, "kernel", rows, hold=True)
             rec.take()
@@ -4143,6 +4153,29 @@ def mesh_state_bytes() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group(dev):
+    """A one-rank NCCL process group (``FileStore`` in a temporary
+    directory) around the block, unless one is initialised already; the
+    (1, 1) data x model mesh over it."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    own = not dist.is_initialized()
+    with tempfile.TemporaryDirectory(prefix="lm-mesh-") as tmp:
+        if own:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1,
+                timeout=datetime.timedelta(seconds=300))
+        try:
+            yield make_debug_mesh((1, 1), device=dev)
+        finally:
+            if own:
+                dist.destroy_process_group()
+
+
 def lm_mesh_phase(torch, dev, step, params, batch, want, cfg):
     """The LM mesh path on the card: ``step`` (``LMBundle.step_fn(
     "decode_32k")``) again on the same weights and caches, through
@@ -4151,19 +4184,10 @@ def lm_mesh_phase(torch, dev, step, params, batch, want, cfg):
     ``cfg.n_layers`` ``decode_attention`` launches and no other.  Then
     :func:`mesh_state_bytes` (not measured).  Returns (launches,
     report)."""
-    import datetime
     import torch.distributed as dist
     from repro_torch.dist.sharding import use_mesh
-    from repro_torch.launch.mesh import make_debug_mesh
 
-    tmp = tempfile.mkdtemp(prefix="lm-mesh-")
-    own = not dist.is_initialized()
-    if own:
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
-    try:
-        mesh = make_debug_mesh((1, 1), device=dev)
+    with one_rank_group(dev) as mesh:
         reset_launches()
         t0 = time.perf_counter()
         with use_mesh(mesh):
@@ -4172,9 +4196,6 @@ def lm_mesh_phase(torch, dev, step, params, batch, want, cfg):
         report = {"backend": dist.get_backend(), "mesh": [1, 1],
                   "step_s_host": time.perf_counter() - t0}
         launches = read_launches(torch)
-    finally:
-        if own:
-            dist.destroy_process_group()
     report["bit_identical"] = bool(torch.equal(got, want))
     report["launches"] = launches
     report["rank_state_bytes"] = mesh_state_bytes()
@@ -4194,6 +4215,102 @@ def lm_mesh_phase(torch, dev, step, params, batch, want, cfg):
         raise AssertionError(f"the (1, 1) mesh decode step launched "
                              f"{launches}; expected {expect}")
     return launches, report
+
+
+MOE_EP_WARMUP = 1
+MOE_EP_TIMED = 5
+
+
+def moe_ep_mesh_phase(torch, dev, step, params, batch, cfg):
+    """The MoE mesh path's branch that is not shard-local on the card
+    (``models.transformer._moe_ffn``'s ``moe_apply(ep_axis="model")``, each
+    model rank running only its experts): ``step`` (``LMBundle.step_fn(
+    "decode_32k")``) on the same weights and the first row of the caches,
+    B = 1, the batch of the dry-run's ``long_500k`` cells that take the
+    branch (on a (1, 1) mesh every batch takes it: its data axis has one
+    rank), with no mesh and then through ``use_mesh`` on a (1, 1) NCCL
+    mesh, ``MOE_EP_WARMUP`` + ``MOE_EP_TIMED`` steps each (CUDA events a
+    step; ms a step the median of the timed ones).  Held: every step's
+    logits bit-identical to the first no-mesh step's, every ``moe_apply``
+    of the mesh steps on ``ep_axis`` with all E experts on the one model
+    rank, ``cfg.n_layers`` ``decode_attention`` launches a step and no
+    other.  Returns (launches, report)."""
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.models import transformer as tf
+
+    one = {"token": batch["token"][:1],
+           "caches": {k: tuple(c[..., :1, :, :, :].clone() for c in pair)
+                      for k, pair in batch["caches"].items()},
+           "cache_len": batch["cache_len"]}
+    steps = MOE_EP_WARMUP + MOE_EP_TIMED
+
+    def run():
+        outs, ms = [], []
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lg, _ = step(params, one)
+            end.record()
+            torch.cuda.synchronize()
+            outs.append(lg)
+            if i >= MOE_EP_WARMUP:
+                ms.append(start.elapsed_time(end))
+        return outs, statistics.median(ms)
+
+    reset_launches()
+    plain, plain_ms = run()
+    plain_launches = read_launches(torch)
+    calls = []
+    apply = tf.moe_apply
+
+    def recording(p, x, top_k, **kw):
+        calls.append((kw.get("ep_axis"), int(p["wg"].shape[0])))
+        return apply(p, x, top_k, **kw)
+    tf.moe_apply = recording
+    try:
+        with one_rank_group(dev) as mesh, use_mesh(mesh):
+            reset_launches()
+            got, mesh_ms = run()
+            launches = read_launches(torch)
+    finally:
+        tf.moe_apply = apply
+    want = plain[0]
+    report = {
+        "batch": 1, "steps": steps, "mesh": [1, 1],
+        "bit_identical": all(torch.equal(g, want) for g in got + plain),
+        "moe_calls": len(calls),
+        "expert_parallel": all(c == ("model", cfg.n_experts)
+                               for c in calls),
+        "mesh_ms": mesh_ms, "no_mesh_ms": plain_ms,
+        "launches": launches, "no_mesh_launches": plain_launches,
+        "card": SMI_LINE}
+    print(f"MoE expert-parallel branch ({cfg.name} decode_32k, B=1, "
+          f"{steps} steps; {SMI_LINE}): (1 x 1) NCCL mesh "
+          f"{mesh_ms:.3f} ms a step vs no mesh {plain_ms:.3f} (median of "
+          f"{MOE_EP_TIMED}, CUDA events); bit-identical "
+          f"{report['bit_identical']}; {len(calls)} moe_apply calls on "
+          f"ep_axis with {cfg.n_experts} experts: "
+          f"{report['expert_parallel']}; decode_attention launches "
+          f"{launches['decode_attention']} on the mesh, "
+          f"{plain_launches['decode_attention']} without")
+    if not report["bit_identical"]:
+        raise AssertionError("the (1, 1) mesh decode of one row through the "
+                             "expert-parallel branch is not bit-identical "
+                             "to the no-mesh step")
+    if len(calls) != steps * cfg.n_moe_layers or \
+            not report["expert_parallel"]:
+        raise AssertionError(f"the (1, 1) mesh decode's moe_apply calls "
+                             f"{calls[:4]}... are not {steps} x "
+                             f"{cfg.n_moe_layers} on ep_axis")
+    expect = {k: (steps * cfg.n_layers if k == "decode_attention" else 0)
+              for k in KERNELS}
+    for what, got_l in (("mesh", launches), ("no-mesh", plain_launches)):
+        if got_l != expect:
+            raise AssertionError(f"the B=1 {what} decode steps launched "
+                                 f"{got_l}; expected {expect}")
+    total = {k: launches[k] + plain_launches[k] for k in KERNELS}
+    return total, report
 
 
 def drill_phase(torch, dev):
@@ -5696,7 +5813,6 @@ def lm_mesh_train_phase(torch, dev, roofline_report):
     below the bound, the card's peak within ``ROOFLINE_PEAK_TOL`` of the
     count); its first loss must equal the no-mesh step's first (in
     ``roofline_report``) bit for bit.  Returns (launches, report)."""
-    import datetime
     import gc
     import torch.distributed as dist
     from repro_torch.configs.families import LMBundle
@@ -5715,14 +5831,7 @@ def lm_mesh_train_phase(torch, dev, roofline_report):
                             lm_train_abstract_args(torch, bundle),
                             donate=(0, 1))
     trace_s = time.perf_counter() - t0
-    tmp = tempfile.mkdtemp(prefix="lm-mesh-train-")
-    own = not dist.is_initialized()
-    if own:
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
-    try:
-        mesh = make_debug_mesh((1, 1), device=dev)
+    with one_rank_group(dev) as mesh:
         with use_mesh(mesh):
             step = bundle.step_fn("train_4k")
 
@@ -5736,9 +5845,6 @@ def lm_mesh_train_phase(torch, dev, roofline_report):
             counts["memory"]["peak_gb_per_device"],
             recording(meshed, losses), args)
         report["backend"] = dist.get_backend()
-    finally:
-        if own:
-            dist.destroy_process_group()
     del args
     gc.collect()
     torch.cuda.empty_cache()
@@ -5815,10 +5921,8 @@ def gnn_recsys_mesh_phase(torch, dev):
     losses of each; raises unless the losses are bit-identical and
     ``embedding_bag`` launched 4 times a wide & deep step both ways.
     Returns (the launches of every step run, report)."""
-    import datetime
     import torch.distributed as dist
     from repro_torch.configs import get
-    from repro_torch.launch.mesh import make_debug_mesh
 
     def gnn_make(arch, shape):
         bundle = get(arch).bundle()
@@ -5844,19 +5948,12 @@ def gnn_recsys_mesh_phase(torch, dev):
 
     cells = [(f"{a} {s}", gnn_make(a, s)) for a, s in MESH_GNN_CELLS]
     cells.append(("wide-deep train_batch (CONFIG, bag)", recsys_make))
-    tmp = tempfile.mkdtemp(prefix="gnn-recsys-mesh-")
-    own = not dist.is_initialized()
-    if own:
-        dist.init_process_group(
-            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
     was = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     report, launches = {}, {k: 0 for k in KERNELS}
     try:
-        mesh = make_debug_mesh((1, 1), device=dev)
-        with warnings.catch_warnings():
+        with one_rank_group(dev) as mesh, warnings.catch_warnings():
             warnings.simplefilter("ignore")
             for name, make in cells:
                 runs = {tag: mesh_steps(torch, dev, make, m)
@@ -5866,11 +5963,9 @@ def gnn_recsys_mesh_phase(torch, dev):
                         launches[k] += v
                 report[name] = dict(runs, bit_identical=(
                     runs["mesh"]["losses"] == runs["no_mesh"]["losses"]))
-        report["backend"] = dist.get_backend()
+            report["backend"] = dist.get_backend()
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
-        if own:
-            dist.destroy_process_group()
     for name, r in report.items():
         if name == "backend":
             continue

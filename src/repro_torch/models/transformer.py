@@ -45,8 +45,10 @@ and cast inside, so a layer stashes 1 / ``model`` of ``h`` and no gathered
 weight; each loss chunk likewise.  The MoE branch runs shard-local
 dispatch over the data axes with F-sliced experts
 (``moe_apply(tp_axis="model")``), as the reference's ``shard_map``;
-elsewhere the experts run whole on every rank over the gathered tokens, as
-GSPMD computes the unsharded branch.  Decode's caches follow
+elsewhere it routes the tokens of every batch rank, and each model rank
+runs only its E / model whole experts (``moe_apply(ep_axis="model")``, the
+expert parallelism GSPMD derives there), or its F-slices where E does not
+divide the axis.  Decode's caches follow
 ``LMBundle._cache_spec``.  Inputs and outputs are the rank's blocks:
 tokens and logits batch-local, logits vocabulary-cut.  At a (1, 1) mesh
 every collective is skipped and each step runs the single-device ops.
@@ -273,7 +275,11 @@ def _moe_ffn(lp, h, cfg: LMConfig):
 
     With no mesh, and on the mesh where the branch does not apply, the
     tokens of (B, S) are routed as one (B·S, d) batch: on the mesh, those
-    of every batch rank, through whole experts."""
+    of every batch rank, in the model-axis layout of the expert weights
+    (``_model_only_moe_specs``, ``_MeshLM.expert_layout``): each model
+    rank runs its E / model whole experts where E divides the axis (the
+    expert parallelism GSPMD derives from the reference's layout hints),
+    else its F-slice of every expert."""
     h2 = rmsnorm_apply(lp["ln2"], h)
     B, S, D = h2.shape
     mesh = ambient_mesh()
@@ -295,13 +301,16 @@ def _moe_ffn(lp, h, cfg: LMConfig):
                              tp_axis="model", token_chunks=chunks)
         aux = spmd.mean(aux, mesh, data_axes)
     else:
+        if lm.expert_layout is None:
+            raise ValueError(
+                f"{cfg.n_experts} experts of d_ff {cfg.d_ff} on a model "
+                f"axis of {mesh.shape['model']}: neither divides it, so "
+                "the experts have no model-axis layout to run in")
         flat = h2.reshape(B * S, D)
         spread = lm.batch_local and lm.nb > 1
         if spread:
             flat = spmd.gather_sum(flat, mesh, lm.batch, 0)
-        with use_mesh(None):
-            out, aux = moe_apply(lm.whole_experts(lp["moe"]), flat,
-                                 cfg.top_k)
+        out, aux = moe_apply(lp["moe"], flat, cfg.top_k, **lm.expert_layout)
         if spread:
             i = mesh.index(lm.batch)
             out = out[i * B * S:(i + 1) * B * S]
@@ -313,10 +322,12 @@ def _moe_ffn(lp, h, cfg: LMConfig):
 def _model_only_moe_specs(moe_p, mesh):
     """The model-axis-only layout of a MoE layer's expert weights (the ZeRO
     data sharding dropped): whole experts per model rank when E divides the
-    axis, else F-slices, as the reference constrains them to pass its
-    data-manual ``shard_map`` boundary.  On the manual path the layer
-    gathered from its ZeRO shard already has this layout, so the port
-    returns the specs (None when the mesh has no model axis to cut on)."""
+    axis, else F-slices, as the reference constrains them.  It is the
+    layout the rank holds once its layer is gathered from the ZeRO shard
+    (``lm_param_specs``) and the one ``_moe_ffn``'s non-shard-local branch
+    runs in: ``moe_apply(ep_axis="model")`` on the rank's experts, or
+    ``tp_axis="model"`` on its F-slices.  Returns the specs (None when the
+    mesh has no model axis to cut on)."""
     mdl = mesh.shape.get("model", 1)
     E = moe_p["router"].shape[-1]
     if mdl > 1 and E % mdl == 0:
@@ -629,6 +640,17 @@ class _MeshLM:
             self.expert_par = cut(moe["wg"], 1)
             self.expert_f = cut(moe["wg"], 3)
             self.shared_f = "shared" in moe and cut(moe["shared"]["wg"], 2)
+            # ``_moe_ffn``'s non-shard-local branch: the rank's whole
+            # experts (every expert on a model axis of one rank), else its
+            # F-slices; None where the weights are held whole on a model
+            # axis that divides neither E nor d_ff
+            if self.expert_par or mesh.shape.get("model", 1) == 1:
+                self.expert_layout = {"ep_axis": "model",
+                                      "shared_cut": self.shared_f}
+            elif self.expert_f:
+                self.expert_layout = {"tp_axis": "model"}
+            else:
+                self.expert_layout = None
 
     @classmethod
     def of(cls, cfg: LMConfig, mesh) -> "_MeshLM":
@@ -736,23 +758,6 @@ class _MeshLM:
             whole = spmd.gather_sum(moe_p[k], m, "model", 0)
             n = whole.shape[fdim] // m.shape["model"]
             out[k] = whole.narrow(fdim, i * n, n)
-        return out
-
-    def whole_experts(self, moe_p):
-        """Every expert weight whole on every rank (backward: the rank's
-        block of a gradient every rank computes alike)."""
-        m = self.mesh
-        out = dict(moe_p)
-        for k, fdim in (("wg", 2), ("wu", 2), ("wd", 1)):
-            if self.expert_par:
-                out[k] = spmd.gather(moe_p[k], m, "model", 0)
-            elif self.expert_f:
-                out[k] = spmd.gather(moe_p[k], m, "model", fdim)
-        if self.shared_f:
-            sh = moe_p["shared"]
-            out["shared"] = {k: spmd.gather(sh[k], m, "model",
-                                            0 if k == "wd" else 1)
-                             for k in ("wg", "wu", "wd")}
         return out
 
     def attention(self, lp, h, cos, sin, window=None):

@@ -17,15 +17,26 @@ assignments in a fixed order (``reshape(T, k, d).sum(1)``); no
 ``index_add_`` / ``scatter_add_`` meets a row from several terms.  The
 experts are batched matmuls, as the reference's einsums.
 
-``tp_axis`` (the mesh branch of ``models.transformer._moe_ffn``, under
-``dist.sharding.use_mesh``): ``wg`` / ``wu`` / ``wd`` (and the shared
-expert's) are the rank's F-slices, the routing runs whole on every rank of
-the axis, the experts give partial products, and one all-reduce over the
-axis follows the combine, as the reference's ``psum``.  The reference's
-three ``maybe_shard`` layout hints on the expert buffers stay identities
-with no mesh; under a mesh the port has no manual layout for them, so
-``moe_apply`` there takes ``tp_axis`` (the transformer runs the whole
-experts outside the mesh where its branch does not apply).
+Under a mesh (``dist.sharding.use_mesh``) ``moe_apply`` runs manual SPMD
+on rank-local tensors over one mesh axis, in one of the two layouts
+``models.transformer._model_only_moe_specs`` describes; the routing, the
+capacity and the slots run whole on every rank of the axis (every rank
+holds the same tokens and routes them alike):
+
+* ``tp_axis``: ``wg`` / ``wu`` / ``wd`` (and the shared expert's) are the
+  rank's F-slices of every expert, the experts give partial products, and
+  one all-reduce of the combined (T, d) over the axis follows, as the
+  reference's ``psum`` (the shard-local branch of ``_moe_ffn``, and its
+  other branch where E does not divide the axis);
+* ``ep_axis``: expert parallelism, the layout the reference's three
+  ``maybe_shard(..., P("model", ...))`` hints ask GSPMD for: ``wg`` / ``wu``
+  / ``wd`` are the rank's E / m whole experts, the rank fills only its
+  experts' rows of the (E·C, d) dispatch buffer and runs only them, and
+  one all-gather of the (E·C, d) expert output over the axis gives every
+  rank every row, so the combine runs whole, in the no-mesh order, on
+  every rank.  A shared expert F-cut over the axis adds the all-reduce of
+  its partial (T, d); a whole one (``shared_cut=False``) runs on every
+  rank.
 """
 from __future__ import annotations
 
@@ -38,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..dist import spmd
-from ..dist.sharding import P, ambient_mesh, maybe_shard, use_mesh
+from ..dist.sharding import ambient_mesh, use_mesh
 from .layers import swiglu
 
 
@@ -154,21 +165,28 @@ def moe_routes(p: dict, x: torch.Tensor, top_k: int,
 
 def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
                     capacity_factor: float = 1.25, sort_tokens: bool = False,
-                    tp_axis=None):
+                    tp_axis=None, ep_axis=None, shared_cut: bool = True):
     """x: (T, d) token-major.  Returns (out (T, d), aux loss)."""
     T, d = x.shape
     E = p["router"].shape[1]
     mesh = ambient_mesh()
-    if tp_axis is None and mesh is not None:
+    if tp_axis is not None and ep_axis is not None:
+        raise ValueError("moe_apply takes tp_axis or ep_axis, not both")
+    if tp_axis is not None and not shared_cut:
+        raise ValueError("with tp_axis the shared expert is F-cut too")
+    if mesh is not None and tp_axis is None and ep_axis is None:
         raise ValueError("under a mesh moe_apply takes tp_axis (F-sliced "
-                         "experts); run whole experts outside the mesh")
+                         "experts) or ep_axis (the rank's whole experts)")
+    axis = tp_axis if tp_axis is not None else ep_axis
     r = moe_routes(p, x, top_k, capacity_factor, sort_tokens)
     gates, xe = r.gates, x
+    if axis is not None:
+        # every rank of the axis routes alike; its experts see every token
+        # and give rank-different parts (backward: summed over the axis)
+        xe = spmd.copy(x, mesh, axis)
     if tp_axis is not None:
-        # every rank of the axis routes alike; the experts and the gates
-        # feed rank-different partial products (backward: summed)
+        # F-sliced: the gates weigh rank-different partial products
         gates = spmd.copy(gates, mesh, tp_axis)
-        xe = spmd.copy(x, mesh, tp_axis)
     # the Switch load-balancing loss, E * sum_e f_e * p_e
     me = r.probs.mean(dim=0)
     counts = (r.flat_expert[:, None] == torch.arange(
@@ -184,21 +202,30 @@ def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
         xk = xk[r.order]
     # dispatch: every kept slot receives exactly one token; the dropped
     # assignments land in a spare row that is cut off
-    dest = torch.where(r.keep, r.slot, E * C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device
-                      ).index_copy(0, dest, xk)[:E * C]
-    if tp_axis is None:
-        buf = maybe_shard(buf, P("model", None))
-    eb = buf.reshape(E, C, d)
-    if tp_axis is None:
-        eb = maybe_shard(eb, P("model", None, None))
+    rows = p["wg"].shape[0] * C
+    if ep_axis is None:
+        dest = torch.where(r.keep, r.slot, E * C)
+    else:
+        # the rank's experts are a block of E / m: their C-slot rows only
+        m = spmd.size(mesh, ep_axis)
+        if rows * m != E * C:
+            raise ValueError(f"{p['wg'].shape[0]} local experts of {E} over "
+                             f"{m} ranks of {ep_axis!r}")
+        lo = (mesh.coord(ep_axis) if m > 1 else 0) * rows
+        mine = r.keep & (r.slot >= lo) & (r.slot < lo + rows)
+        dest = torch.where(mine, r.slot - lo, rows)
+    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device
+                      ).index_copy(0, dest, xk)[:rows]
+    eb = buf.reshape(-1, C, d)
     # with tp_axis set, wg/wu/wd are LOCAL F-dim slices: partial products
     # here, one all-reduce below
     h = swiglu(torch.bmm(eb, p["wg"].to(x.dtype)),
                torch.bmm(eb, p["wu"].to(x.dtype)))
-    eo = torch.bmm(h, p["wd"].to(x.dtype)).reshape(E * C, d)
-    if tp_axis is None:
-        eo = maybe_shard(eo, P("model", None))
+    eo = torch.bmm(h, p["wd"].to(x.dtype)).reshape(rows, d)
+    if ep_axis is not None:
+        # every expert's rows on every rank; the combine below runs alike
+        # on each (backward: the rank's block of the whole gradient)
+        eo = spmd.gather(eo, mesh, ep_axis, 0)
 
     # combine: each assignment's expert output times its gate (0 if
     # dropped), back in token order, summed over k
@@ -209,8 +236,12 @@ def _moe_apply_impl(p: dict, x: torch.Tensor, top_k: int,
 
     if "shared" in p:
         sh = p["shared"]
-        out = out + swiglu(xe @ sh["wg"].to(x.dtype),
-                           xe @ sh["wu"].to(x.dtype)) @ sh["wd"].to(x.dtype)
+        xs = xe if shared_cut else x
+        y = swiglu(xs @ sh["wg"].to(x.dtype),
+                   xs @ sh["wu"].to(x.dtype)) @ sh["wd"].to(x.dtype)
+        if ep_axis is not None and shared_cut:
+            y = spmd.all_reduce(y, mesh, ep_axis)
+        out = out + y
     if tp_axis is not None:
         # the combine is linear in eo: one all-reduce of (T, d), far
         # smaller than the (E, C, d) expert buffers
@@ -228,13 +259,15 @@ def _moe_chunk(mesh, *args):
 
 def moe_apply(p: dict, x: torch.Tensor, top_k: int,
               capacity_factor: float = 1.25, sort_tokens: bool = False,
-              tp_axis=None, token_chunks: int = 1):
+              tp_axis=None, token_chunks: int = 1, ep_axis=None,
+              shared_cut: bool = True):
     """(T, d) -> (out (T, d), aux).  ``token_chunks > 1`` (dividing T) runs
     routing, dispatch and the experts on T / token_chunks tokens at a time,
     each chunk under ``torch.utils.checkpoint`` when autograd records
     (the capacity is then per chunk), and returns the mean of the chunks'
-    aux, as the reference's scan does.  ``tp_axis``: see the module
-    docstring."""
+    aux, as the reference's scan does.  ``tp_axis``, ``ep_axis`` and
+    ``shared_cut`` (whether a shared expert is F-cut over ``ep_axis``):
+    see the module docstring."""
     T = x.shape[0]
     if token_chunks > 1 and T % token_chunks == 0:
         outs, auxs = [], []
@@ -243,13 +276,14 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
             if torch.is_grad_enabled():
                 o, a = checkpoint(_moe_chunk, mesh, p, xc, top_k,
                                   capacity_factor, sort_tokens, tp_axis,
-                                  use_reentrant=False,
+                                  ep_axis, shared_cut, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 o, a = _moe_apply_impl(p, xc, top_k, capacity_factor,
-                                       sort_tokens, tp_axis)
+                                       sort_tokens, tp_axis, ep_axis,
+                                       shared_cut)
             outs.append(o)
             auxs.append(a)
         return torch.cat(outs), torch.mean(torch.stack(auxs))
     return _moe_apply_impl(p, x, top_k, capacity_factor, sort_tokens,
-                           tp_axis)
+                           tp_axis, ep_axis, shared_cut)

@@ -16,7 +16,12 @@ cells count collectives (wide & deep ``serve_p99``'s within 5% of the
 reference's ``collective_bytes`` from the same child), and so do the 20
 single-pod GNN and wide & deep cells of ``roofline_run`` against the
 reference's own ``roofline_run`` (wide & deep within 5%, the GNNs within
-0.25-4x).
+0.25-4x).  granite-moe ``long_500k`` (B = 1: the MoE layers' branch that
+is not shard-local) runs its experts model-parallel: on (16, 16) each
+rank's F-slices, its FLOPs below every expert whole, its collective bytes
+within 0.998-1.116x of the reference's less two all-gathers of a whole
+cache layer; on (32, 8) each rank's 5 whole experts, within 0.99-1.116x
+of the reference's collectives.
 """
 import json
 import os
@@ -28,13 +33,14 @@ import pytest
 import torch.distributed as dist
 
 from repro_torch.configs import get
+from repro_torch.dist.sharding import as_mesh
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
 REFERENCE = r"""
-import json, os, sys
+import json, os, re, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
 import jax
 jax.devices()                      # the backend, before dryrun's own flag
@@ -43,22 +49,34 @@ from jax.sharding import AxisType, Mesh
 from repro.configs import get
 from repro.launch.dryrun import lower_cell
 from repro.launch.mesh import make_production_mesh
-from repro.roofline.hlo import collective_bytes
+from repro.roofline.hlo import collective_bytes, parse_collectives
 
 small = Mesh(np.asarray(jax.devices()[:16]).reshape(4, 4),
              ("data", "model"), axis_types=(AxisType.Auto,) * 2)
 big = make_production_mesh()
+ep = Mesh(np.asarray(jax.devices()).reshape(32, 8), ("data", "model"),
+          axis_types=(AxisType.Auto,) * 2)
 out = {}
 for arch, shape, mesh, name in [("gcn-cora", "molecule", small, "4x4"),
                                 ("wide-deep", "serve_p99", small, "4x4"),
                                 ("minitron-8b", "decode_32k", big, "16x16"),
-                                ("granite-8b", "train_4k", big, "16x16")]:
+                                ("granite-8b", "train_4k", big, "16x16"),
+                                ("granite-moe-3b-a800m", "long_500k", big,
+                                 "16x16"),
+                                ("granite-moe-3b-a800m", "long_500k", ep,
+                                 "32x8")]:
     spec = get(arch)
     try:
         res, _, compiled = lower_cell(spec.bundle(), spec, shape, mesh)
         out[f"{arch}/{shape}/{name}"] = res
+        text = compiled.as_text()
         out[f"{arch}/{shape}/{name}/collective_bytes"] = collective_bytes(
-            compiled.as_text())["total"]
+            text)["total"]
+        # all-gathers of a whole cache layer (524,288 positions)
+        out[f"{arch}/{shape}/{name}/cache_gathers"] = sum(
+            op.bytes for op in parse_collectives(text)
+            if op.kind == "all-gather" and re.search(
+                r"\[[\d,]*\b524288\b", op.line.split(" all-gather")[0]))
     except Exception as e:
         out[f"{arch}/{shape}/{name}"] = {"error": type(e).__name__}
 print(json.dumps(out))
@@ -249,3 +267,64 @@ def test_graph_and_recsys_cells_count_the_reference_collectives(children):
                                    log=lambda *a: None)
     assert (len(results), len(failures)) == (28, 12)
     assert {f["arch"] for f in failures} == LM_FAILING
+
+
+def test_moe_long_500k_runs_its_experts_model_parallel(children):
+    """granite-moe ``long_500k`` (B = 1) on (16, 16) takes ``_moe_ffn``'s
+    branch that is not shard-local: each model rank runs its F-slice of
+    every expert (40 experts do not divide 16) instead of gathering all
+    40 whole.  Its per-rank FLOPs are below what every expert whole takes
+    alone and, with its peak, within PR 29's 0.25-4x of the reference's;
+    its collective bytes are the reference's, less the reference's two
+    fp32 all-gathers of a whole 524,288-position cache layer (GSPMD's
+    involuntary rematerialization, which the port's sequence-cut decode
+    attention does not need), within 0.998-1.116x."""
+    ref = _reference(children)
+    key = "granite-moe-3b-a800m/long_500k/16x16"
+    spec = get("granite-moe-3b-a800m")
+    cfg = spec.bundle().cfg
+    with dryrun.fake_world(256):
+        res, _, counts = dryrun.lower_cell(
+            spec.bundle(), spec, "long_500k",
+            make_production_mesh(device="cpu"))
+    want = ref[key]
+    flops = res["cost"]["flops_per_device"]
+    whole_experts = cfg.n_moe_layers * cfg.n_experts * 3 * 2 * \
+        cfg.d_model * cfg.d_ff      # B = 1: one capacity slot an expert
+    assert flops < whole_experts
+    assert 0.25 <= flops / want["cost"]["flops_per_device"] <= 4
+    peak = res["memory"]["peak_gb_per_device"]
+    assert 0.25 <= peak / want["memory"]["peak_gb_per_device"] <= 4
+    coll = counts["collectives"]["total"]
+    ref_coll = ref[f"{key}/collective_bytes"] - ref[f"{key}/cache_gathers"]
+    assert ref[f"{key}/cache_gathers"] > 0
+    assert 0.998 <= coll / ref_coll <= 1.116, (coll, ref_coll)
+
+
+def test_moe_long_500k_on_a_model_axis_dividing_the_experts(children):
+    """The same cell on a (32, 8) mesh, where 40 experts divide the model
+    axis: each rank runs its 5 whole experts (``moe_apply(ep_axis=
+    "model")``) and all-gathers the (E·C, d) expert output; its collective
+    bytes are within 0.99-1.116x of the reference's (whose GSPMD
+    all-reduces the (T·k, d) gathered rows instead), its per-rank FLOPs
+    and peak within 0.25-4x."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import _MeshLM
+    ref = _reference(children)
+    want = ref["granite-moe-3b-a800m/long_500k/32x8"]
+    spec = get("granite-moe-3b-a800m")
+    with dryrun.fake_world(256):
+        mesh = make_debug_mesh((32, 8), device="cpu")
+        res, trace, counts = dryrun.lower_cell(spec.bundle(), spec,
+                                               "long_500k", mesh)
+        layout = _MeshLM.of(spec.bundle().cfg, as_mesh(mesh)).expert_layout
+    assert layout["ep_axis"] == "model"
+    assert trace["args"][0]["moe_layers"]["moe"]["wg"].shape[:2] == (1, 5)
+    for got, ref_v in ((res["cost"]["flops_per_device"],
+                        want["cost"]["flops_per_device"]),
+                       (res["memory"]["peak_gb_per_device"],
+                        want["memory"]["peak_gb_per_device"])):
+        assert 0.25 <= got / ref_v <= 4
+    coll = counts["collectives"]["total"]
+    ref_coll = ref["granite-moe-3b-a800m/long_500k/32x8/collective_bytes"]
+    assert 0.99 <= coll / ref_coll <= 1.116, (coll, ref_coll)
