@@ -614,7 +614,6 @@ def autotune_forward(g: Graph, specs: Sequence[LayerSpec], *,
     configs = schedules[source]
     obs.instant("exec.forward.verdict", cat="exec", source=source, us=us,
                 from_cache=False, table={lab: t for lab, t in table})
-    obs.gauge("exec.forward.best_us").set(us)
     if not dropped:
         try:
             _cache_put(path, key, {

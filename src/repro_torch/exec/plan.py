@@ -54,6 +54,7 @@ either.  Disarmed, each is one global load and a ``None`` check.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -439,8 +440,35 @@ def _mode_scales(mode: str, g: Graph):
     raise ValueError(f"unknown plan mode {mode!r}; expected one of {MODES}")
 
 
-def _to(device: torch.device):
-    return lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(device)
+def _upload(host, device: torch.device):
+    """A direction's host arrays (numpy, in dicts and lists) copied to
+    ``device`` in the same structure."""
+    if isinstance(host, dict):
+        return {k: _upload(v, device) for k, v in host.items()}
+    if isinstance(host, list):
+        return [_upload(v, device) for v in host]
+    return torch.as_tensor(np.ascontiguousarray(host)).to(device)
+
+
+def _direction(build, device: torch.device):
+    """One direction of a block plan: ``build()`` makes its tiles and other
+    host arrays (``exec.plan.tiles``), which are then copied to ``device``,
+    ending in a synchronise (``exec.plan.upload``).  Each phase is one
+    observation of its ungated histogram, which set-up readers take
+    whatever the telemetry flag says.  Returns ``build()``'s tuple with the
+    device arrays in place of the host ones."""
+    t0 = time.perf_counter()
+    with obs.span("exec.plan.tiles", cat="exec"):
+        host, *rest = build()
+    t1 = time.perf_counter()
+    obs.histogram("exec.plan.tiles_seconds", gated=False).observe(t1 - t0)
+    with obs.span("exec.plan.upload", cat="exec"):
+        arrays = _upload(host, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    obs.histogram("exec.plan.upload_seconds", gated=False).observe(
+        time.perf_counter() - t1)
+    return (arrays, *rest)
 
 
 def _tile_dtype(ell: BlockEll, backend: str):
@@ -449,35 +477,32 @@ def _tile_dtype(ell: BlockEll, backend: str):
     return np.uint8 if ell.implicit and backend == "cuda" else np.float32
 
 
-def _side_arrays(ell: BlockEll, s_in: np.ndarray, s_out: np.ndarray,
-                 backend: str, compact: bool, device: torch.device
-                 ) -> Dict[str, torch.Tensor]:
-    t = _to(device)
-    a = {"s_in": t(s_in.astype(np.float32)),
-         "s_out": t(s_out.astype(np.float32))}
+def _side_host(g: Graph, bm: int, s_in: np.ndarray, s_out: np.ndarray,
+               backend: str, compact: bool):
+    """One direction's block-ELL and its host arrays: ``(arrays, ell)``."""
+    ell = build_blockell(g, bm=bm, bk=bm, storage="auto")
+    a = {"s_in": s_in.astype(np.float32), "s_out": s_out.astype(np.float32)}
     if compact:
         comp = ell.compact(_tile_dtype(ell, backend))
         node_active = np.repeat(comp.row_active, ell.bm)[:ell.num_nodes]
-        a.update(blocks=t(comp.blocks),
+        a.update(blocks=comp.blocks,
                  # each destination block's slots are walked by offset
-                 row_offsets=t(comp.row_offsets.astype(np.int32)),
-                 cols=t(comp.cols), node_active=t(node_active))
+                 row_offsets=comp.row_offsets.astype(np.int32),
+                 cols=comp.cols, node_active=node_active)
     else:
-        a.update(block_cols=t(ell.block_cols),
-                 blocks=t(ell.dense_blocks(_tile_dtype(ell, backend))))
-    return a
+        a.update(block_cols=ell.block_cols,
+                 blocks=ell.dense_blocks(_tile_dtype(ell, backend)))
+    return a, ell
 
 
-def _bucketed_side_arrays(g: Graph, scheme, s_in: np.ndarray,
-                          s_out: np.ndarray, backend: str,
-                          device: torch.device):
-    """Per-bucket arrays + metas for ONE direction of a bucketed plan.
+def _bucketed_side_host(g: Graph, scheme, s_in: np.ndarray,
+                        s_out: np.ndarray, backend: str):
+    """Per-bucket host arrays + metas for ONE direction of a bucketed plan.
 
     Destination nodes are partitioned by ``g``'s in-degrees (so the
     transpose direction re-buckets by its own skew) and remapped to a
     bucket-local contiguous row space; sources stay global.  Returns
     ``(arrays, metas, plan_bytes)``."""
-    t = _to(device)
     n = g.num_nodes
     valid = (g.edge_mask if g.edge_mask is not None
              else np.ones(g.num_edges, bool))
@@ -507,18 +532,18 @@ def _bucketed_side_arrays(g: Graph, scheme, s_in: np.ndarray,
             src[sel], local_of[dst[sel]], w[sel], num_nodes=n,
             num_rows=int(idx.size), bm=bm_b, bk=bm_b, storage="auto")
         plan_bytes += ell_b.storage_bytes()
-        ab = {"idx": t(idx), "s_out_sel": t(s_out[idx].astype(np.float32))}
+        ab = {"idx": idx, "s_out_sel": s_out[idx].astype(np.float32)}
         if backend == "torch":
-            ab["block_cols"] = t(ell_b.block_cols)
-            ab["blocks"] = t(ell_b.dense_blocks(np.float32))
+            ab["block_cols"] = ell_b.block_cols
+            ab["blocks"] = ell_b.dense_blocks(np.float32)
             node_active[idx] = True         # every bucket row is computed
             n_act = ell_b.n_active
         else:
             comp = ell_b.compact(_tile_dtype(ell_b, backend))
-            ab["row_offsets"] = t(comp.row_offsets.astype(np.int32))
-            ab["cols"] = t(comp.cols)
-            ab["blocks"] = t(comp.blocks)
-            ab["s_in_diag"] = t(s_in[idx].astype(np.float32))
+            ab["row_offsets"] = comp.row_offsets.astype(np.int32)
+            ab["cols"] = comp.cols
+            ab["blocks"] = comp.blocks
+            ab["s_in_diag"] = s_in[idx].astype(np.float32)
             node_active[idx] = np.repeat(comp.row_active, bm_b)[:idx.size]
             n_act = comp.n_active
         metas.append(BucketMeta(bm=bm_b, bk=bm_b, R=ell_b.n_row_blocks,
@@ -529,10 +554,10 @@ def _bucketed_side_arrays(g: Graph, scheme, s_in: np.ndarray,
     perm = np.concatenate([idx for idx in idx_list if idx.size])
     inv = np.zeros(n, np.int64)
     inv[perm] = np.arange(n)
-    a = {"s_in": t(s_in.astype(np.float32)),
-         "s_out": t(s_out.astype(np.float32)),
-         "buckets": buckets_a, "inv_perm": t(inv),
-         "node_active": t(node_active)}
+    a = {"s_in": s_in.astype(np.float32),
+         "s_out": s_out.astype(np.float32),
+         "buckets": buckets_a, "inv_perm": inv,
+         "node_active": node_active}
     return a, tuple(metas), int(plan_bytes)
 
 
@@ -547,12 +572,11 @@ def _coo_arrays(g: Graph, s_in: np.ndarray, s_out: np.ndarray,
     if weighted and g.edge_weight is not None:
         w = w * g.edge_weight[valid]
     order = np.argsort(dst, kind="stable")   # dst-major: scatter locality
-    t = _to(device)
-    out = {"src": t(src[order]), "dst": t(dst[order]),
-           "w": t(w[order].astype(np.float32))}
+    out = {"src": src[order], "dst": dst[order],
+           "w": w[order].astype(np.float32)}
     if add_diag:
-        out["dvec"] = t((s_out * s_in).astype(np.float32))
-    return out
+        out["dvec"] = (s_out * s_in).astype(np.float32)
+    return _upload(out, device)
 
 
 def build_plan(g: Graph, mode: str = "gcn", *,
@@ -573,7 +597,13 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     exact 0/1 bitmask whenever it is exact (``storage="auto"``).  Edge
     weights are dropped unless ``weighted=True``, which composes with
     ``mode="sum"`` only: the plan then computes ``A_w x`` over the weighted
-    adjacency, on float32 tiles for ``cuda``."""
+    adjacency, on float32 tiles for ``cuda``.
+
+    A block plan builds each direction in two timed phases: its tiles and
+    host arrays, then their copy to ``device`` (``exec.plan.tiles`` and
+    ``exec.plan.upload`` spans under ``exec.plan.compile``, and one
+    observation each of the ungated ``exec.plan.tiles_seconds`` and
+    ``exec.plan.upload_seconds`` histograms)."""
     dev = resolve_device(device)
     scheme = parse_bucket_sig(buckets)
     if scheme:
@@ -614,21 +644,16 @@ def build_plan(g: Graph, mode: str = "gcn", *,
         ell = ell_t = None
         if scheme:
             # each direction bucketed by ITS OWN in-degrees
-            fwd, metas_f, bytes_f = _bucketed_side_arrays(
-                g_adj, scheme, s_in, s_out, backend, dev)
-            bwd, metas_b, bytes_b = _bucketed_side_arrays(
-                g_adj_t, scheme, s_out, s_in, backend, dev)
+            fwd, metas_f, bytes_f = _direction(lambda: _bucketed_side_host(
+                g_adj, scheme, s_in, s_out, backend), dev)
+            bwd, metas_b, bytes_b = _direction(lambda: _bucketed_side_host(
+                g_adj_t, scheme, s_out, s_in, backend), dev)
             plan_bytes = bytes_f + bytes_b
             meta_f, meta_b = (
                 BucketedSideMeta(backend=backend, compact=compact,
                                  add_diag=add_diag, n=g.num_nodes,
                                  buckets=m) for m in (metas_f, metas_b))
             occupancy = bucket_occupancy(g.in_degrees(), scheme)
-            for i, occ in enumerate(occupancy):
-                obs.gauge("exec.plan.bucket_nodes", bucket=i,
-                          bm=occ["bm"]).set(occ["nodes"])
-                obs.gauge("exec.plan.bucket_edges", bucket=i,
-                          bm=occ["bm"]).set(occ["edges"])
             sp.set(n_active=sum(m.n_active for m in metas_f),
                    plan_bytes=plan_bytes)
         elif backend == "coo":
@@ -637,10 +662,10 @@ def build_plan(g: Graph, mode: str = "gcn", *,
             bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, weighted, dev)
             meta_f, meta_b = meta_for(0), meta_for(0)
         else:
-            ell = build_blockell(g_adj, bm=bm, bk=bk, storage="auto")
-            ell_t = build_blockell(g_adj_t, bm=bm, bk=bk, storage="auto")
-            fwd = _side_arrays(ell, s_in, s_out, backend, compact, dev)
-            bwd = _side_arrays(ell_t, s_out, s_in, backend, compact, dev)
+            fwd, ell = _direction(lambda: _side_host(
+                g_adj, bm, s_in, s_out, backend, compact), dev)
+            bwd, ell_t = _direction(lambda: _side_host(
+                g_adj_t, bm, s_out, s_in, backend, compact), dev)
             meta_f, meta_b = meta_for(ell.n_active), meta_for(ell_t.n_active)
             sp.set(n_active=ell.n_active,
                    plan_bytes=int(ell.storage_bytes()
@@ -701,21 +726,25 @@ class _Layer(torch.autograd.Function):
         # always streams the narrow feature side; fused layers keep no
         # aggregation residual, so they use the d_out-side form
         agg = None
-        if lp.fuse:
-            y = _fused_layer(gp.meta_fwd, gp._fwd, x, w, b, relu, ws, c)
-        else:
-            if lp.order == "aggregate_first":
-                agg = gp.raw_apply(x)
-                y = agg @ w
+        with obs.span("exec.layer", cat="exec", d_in=lp.d_in, d_out=lp.d_out,
+                      order=lp.order, fuse=lp.fuse) as sp:
+            if lp.fuse:
+                y = _fused_layer(gp.meta_fwd, gp._fwd, x, w, b, relu, ws, c)
             else:
-                y = gp.raw_apply(x @ w)
-            if ws is not None:
-                y = y + _self_term(x, ws, c)
-            if b is not None:
-                y = y + b
-            if relu:
-                y = torch.relu(y)
-        ctx.lp, ctx.relu = lp, relu
+                if lp.order == "aggregate_first":
+                    agg = gp.raw_apply(x)
+                    y = agg @ w
+                else:
+                    y = gp.raw_apply(x @ w)
+                if ws is not None:
+                    y = y + _self_term(x, ws, c)
+                if b is not None:
+                    y = y + b
+                if relu:
+                    y = torch.relu(y)
+        # the backward's span belongs to whatever is open on this thread
+        # then (on CUDA it runs on autograd's device thread)
+        ctx.lp, ctx.relu, ctx.caller = lp, relu, sp.thread
         # dW needs x unless the aggregation residual stands in for it; the
         # self half's dW_self and dc need x in any case
         keep_x = agg is None or ws is not None
@@ -725,6 +754,12 @@ class _Layer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with obs.span("exec.layer.backward", cat="exec",
+                      parent=obs.open_span(ctx.caller)):
+            return _Layer._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         agg, x, w, ws, c, y = ctx.saved_tensors
         gp = ctx.lp.gplan
         need_x, need_w, need_b, need_ws, need_c = ctx.needs_input_grad[2:]

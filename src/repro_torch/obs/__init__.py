@@ -4,7 +4,11 @@
 * :mod:`.registry` — process-local counters / gauges / streaming histograms
   gated on one module-level flag; Prometheus text exposition.
 * :mod:`.trace`    — span tracer emitting Perfetto / chrome://tracing JSON
-  on the host clock.
+  on the host clock; each span names its parent.  While a
+  ``torch.profiler`` session records, spans are also kept in memory for
+  that session (``profiled_spans()``), which puts one empty
+  ``obs.clock`` marker into the profiler so readers map the spans onto
+  the profiler's clock.
 * :mod:`.export`   — run provenance (git SHA, the device the run resolved,
   torch and CUDA versions, the card's power limit), the shared event
   schema, the ``--metrics-out FILE.jsonl`` dump and ``observed_run``.
@@ -28,7 +32,9 @@ from .registry import (Counter, Gauge, Histogram, Registry, REGISTRY,
                        reset, enable, disable, enabled, enabled_scope,
                        full_name)
 from .trace import (Tracer, Span, NOOP_SPAN, span, instant, start_trace,
-                    stop_trace, tracing, tracing_to, current_tracer)
+                    stop_trace, tracing, tracing_to, current_tracer,
+                    open_span, profiling, profiled_spans, ProfiledSpans,
+                    CLOCK_MARK)
 from .export import (provenance, event, git_sha, device_kind, torch_version,
                      cuda_version, metric_records, dump_metrics_jsonl,
                      add_cli_flags, observed_run,

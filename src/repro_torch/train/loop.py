@@ -7,11 +7,17 @@ clip and the optimizer update, all on the parameters' device.  ``fit``
 resumes from the latest checkpoint in ``ckpt_dir``, writes checkpoints
 through an :class:`AsyncCheckpointer`, and passes the ``train.step`` chaos
 fail point before every step.  The same obs spans, histogram, counters and
-gauges as the reference are kept.
+gauges as the reference are kept, and the step of :func:`make_train_step`
+has four spans of its own (``train.forward``, ``train.backward``,
+``train.clip``, ``train.update``, each with the step function's call count
+as ``step``; under ``fit`` they are children of ``train.step``).  While a
+profiler session is collected on the card, clip and update are timed by
+CUDA events as well (``obs.span(..., timed=True)``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable, Iterator, Optional
 
@@ -56,28 +62,35 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
         raise ValueError("this optimizer has no in-place form; pass "
                          "donate=False")
 
-    def grads_of(params, batch):
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, live), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(live, grads)]
+    calls = itertools.count()
 
     def step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        n = next(calls)
+        with obs.span("train.forward", cat="train", step=n):
+            live = [p.detach().requires_grad_(True)
+                    for p in tree_leaves(params)]
+            loss = loss_fn(tree_unflatten(params, live), batch)
+        with obs.span("train.backward", cat="train", step=n):
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        loss = loss.detach()
         with torch.no_grad():
-            norm = (norm_fn(grads, params) if (clip_norm and norm_fn)
-                    else None)
-            if donate:
-                if clip_norm:
+            with obs.span("train.clip", cat="train", step=n, timed=True):
+                norm = (norm_fn(grads, params) if (clip_norm and norm_fn)
+                        else None)
+                if not donate:
+                    grads = tree_unflatten(params, grads)
+                if clip_norm and donate:
                     clip_by_global_norm_(grads, clip_norm, norm)
-                opt.update_(grads, opt_state, params)
-                return params, opt_state, loss
-            grads = tree_unflatten(params, grads)
-            if clip_norm:
-                grads, _ = clip_by_global_norm(grads, clip_norm, norm)
-            updates, opt_state = opt.update(grads, opt_state, params)
-            return apply_updates(params, updates), opt_state, loss
+                elif clip_norm:
+                    grads, _ = clip_by_global_norm(grads, clip_norm, norm)
+            with obs.span("train.update", cat="train", step=n, timed=True):
+                if donate:
+                    opt.update_(grads, opt_state, params)
+                    return params, opt_state, loss
+                updates, opt_state = opt.update(grads, opt_state, params)
+                return apply_updates(params, updates), opt_state, loss
 
     return step
 
