@@ -327,6 +327,29 @@ COMPARE_STEPS = 10
 # (the training tolerances sit beside each phase)
 
 
+def plan_bytes(torch, side: dict) -> int:
+    """Bytes of one plan direction's arrays."""
+    return sum(t.numel() * t.element_size() for t in side.values()
+               if torch.is_tensor(t))
+
+
+def tile_arrays(plan, transposed: bool = False) -> dict:
+    """One direction of ``plan`` in tile form, on the plan's device: the
+    arrays it holds, or for a list direction its compacted tiles built now
+    (not kept), as a tile plan would hold them; so that the tile walk runs
+    on the same plan as the list walk."""
+    from repro_torch.exec.plan import _tile_arrays, _upload
+
+    meta, a = ((plan.meta_bwd, plan._bwd) if transposed
+               else (plan.meta_fwd, plan._fwd))
+    if not getattr(meta, "lists", False):
+        return a
+    host = _tile_arrays(plan.ell_t if transposed else plan.ell,
+                        a["s_in"].cpu().numpy(), a["s_out"].cpu().numpy(),
+                        plan.backend, plan.compact)
+    return _upload(host, plan.device)
+
+
 def gpu_ms(fn, n_inner: int = 20, reps: int = 25, warmup: int = 3) -> float:
     """Median over ``reps`` CUDA-event windows of ``n_inner`` back-to-back
     calls, per call (back-to-back launches hide the host's launch cost as
@@ -570,14 +593,15 @@ def compact_case(torch, dev, a, nnz, d, add_diag, tiles, override, gen,
 
 
 def serving_kernel_phase(torch, dev):
-    """The compact kernel on the GCN serving plan, with the library call
-    for the same aggregation as its yardstick."""
+    """The compact kernel on the GCN serving plan: its list walk (the main
+    path) with the library call for the same aggregation as its
+    yardstick, and the tile walk on the same plan's tiles."""
     from repro_torch.exec import build_plan
     from repro_torch.graph import cora_like
 
     g = cora_like(seed=0)
     plan = build_plan(g, "gcn", bm=BM, backend="cuda", device=dev)
-    a = plan._fwd
+    a = tile_arrays(plan)
     nnz = int(plan.ell.density_stats()["nnz"])
     n_active = a["cols"].numel()
     print(f"serving plan: n={g.num_nodes} R={a['row_offsets'].numel() - 1} "
@@ -592,21 +616,24 @@ def serving_kernel_phase(torch, dev):
                                          (16, False, "u8", False),
                                          (64, True, "u8", True),
                                          (64, True, "f32", False)]:
-        name = (f"serving d={d} add_diag={add_diag} tiles={tiles}"
+        name = (f"tile walk: serving d={d} add_diag={add_diag} "
+                f"tiles={tiles}"
                 + (" x_diag/s_in_diag" if override else ""))
-        # the main path's shapes are held against the library call too
-        main = add_diag and not override and tiles == "u8"
         cases.append(compact_case(
-            torch, dev, a, nnz, d, add_diag, tiles, override, gen, name,
-            weight=int(main), plan_side=plan.apply if main else None,
-            library=a_hat if main else None))
+            torch, dev, a, nnz, d, add_diag, tiles, override, gen, name))
+    # the main path: the plan's list walk, held against the library call
+    for d in (64, 16):
+        cases.append(list_case(torch, dev, plan, d, gen,
+                               f"serving d={d} (lists)", weight=1,
+                               library=a_hat))
     return cases
 
 
 def training_compact_phase(torch, dev, g):
     """The compact kernel at the training shapes: one gcn-cora step's four
     launches (forward d = 16 and 7, transposes at d = 16 and 7) and one GIN
-    step's six (forward d = 128 for conv 1, five transposes at d = 128)."""
+    step's six (forward d = 128 for conv 1, five transposes at d = 128),
+    each on the plan's lists (the main path) and on its tiles."""
     from repro_torch.exec import build_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -619,15 +646,18 @@ def training_compact_phase(torch, dev, g):
         print(f"training plan ({mode}): n={g.num_nodes} "
               f"n_active={plan.meta_fwd.n_active} (transposed "
               f"{plan.meta_bwd.n_active}) nnz={nnz}")
-        sides = (("forward", plan._fwd, w_fwd, plan.raw_apply, False),
-                 ("transposed", plan._bwd, w_bwd, plan.raw_apply_t, True))
-        for side, a, weight, apply, transposed in sides:
+        for side, weight, transposed in (("forward", w_fwd, False),
+                                         ("transposed", w_bwd, True)):
+            a = tile_arrays(plan, transposed)
             lib = library_matrix(torch, dev, g, mode, transposed)
             for d in widths:
+                cases.append(list_case(
+                    torch, dev, plan, d, gen,
+                    f"train {mode} {side} d={d} (lists)", transposed,
+                    weight, library=lib))
                 cases.append(compact_case(
                     torch, dev, a, nnz, d, plan.add_diag, "u8", False, gen,
-                    f"train {mode} {side} d={d}", weight, plan_side=apply,
-                    library=lib))
+                    f"tile walk: train {mode} {side} d={d}"))
     return cases
 
 
@@ -652,7 +682,9 @@ UPDATE_CASES = [
 
 def update_phase(torch, dev, g):
     """``spmm_blockell_update_compact`` against its plain version in the
-    four cases above; case (a) is the GIN main path (4 launches a step)."""
+    four cases above, on the plan's lists (the main path; not (d), whose
+    overrides and f32 tiles hold the tile walk) and on its tiles; case
+    (a) is the GIN main path (4 launches a step)."""
     from repro_torch.exec import build_plan
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -664,8 +696,11 @@ def update_phase(torch, dev, g):
             plans[mode] = build_plan(g, mode, bm=BM, backend="cuda",
                                      device=dev)
         main = spec[0].startswith("(a)")
+        if not spec[8]:                  # overrides: the tile walk alone
+            cases.append(update_list_case(torch, dev, g, plans[mode], spec,
+                                          gen, weight=4 if main else 0))
         cases.append(update_case(torch, dev, g, plans[mode], spec, gen,
-                                 weight=4 if main else 0, rerun=main))
+                                 rerun=main))
     return cases
 
 
@@ -681,7 +716,7 @@ def update_case(torch, dev, g, plan, spec, gen, weight=0, rerun=False):
     (name, mode, d_in, d_out, epi, has_bias, relu, add_diag, override,
      tiles, tol, why) = spec
     n = g.num_nodes
-    a = plan._fwd
+    a = tile_arrays(plan)
     nnz = int(plan.ell.density_stats()["nnz"])
     R = a["row_offsets"].numel() - 1
     n_active = a["cols"].numel()
@@ -769,11 +804,207 @@ def update_case(torch, dev, g, plan, spec, gen, weight=0, rerun=False):
            + (2 * n * d_in if ws is not None else 0)
            + 2 * n_w * rows_out * d_in * d_out
            + (rows_out * d_out if has_bias else 0))
-    case = {"kernel": "spmm_blockell_update_compact", "case": name,
-            "tolerance": tol, "tolerance_why": why, "max_abs_err": err,
+    case = {"kernel": "spmm_blockell_update_compact",
+            "case": "tile walk: " + name, "tolerance": tol,
+            "tolerance_why": why, "max_abs_err": err,
             "ref_max_abs": ref_scale, "ms": ms, "plain_ms": plain_ms,
             **bound(nbytes, ops),
             "library_ms": None, "composed_ms": composed_ms,
+            "composed": COMPOSED if composed_ms is not None else None,
+            "composed_vs_plain_err": composed_err, "weight": weight}
+    print("case " + json.dumps(case))
+    return case
+
+
+LIST_SOURCES = ("spmm_blockell_lists", "spmm_blockell_update_lists")
+
+
+def list_bytes(torch, lists, d, add_diag, n_src, n_dst) -> int:
+    """What a list walk's data needs at width d: the lists (row pointers,
+    sources, coefficients, hub rows, order), each x row it gathers (and
+    its s_in) once, s_out, the hubs' scratch written and read, and y."""
+    nnz = lists.src.numel()
+    gathered = torch.zeros(n_src, dtype=torch.bool, device=lists.src.device)
+    gathered[lists.src.long()] = True
+    if add_diag:
+        gathered[:n_dst] = True
+    n_x = int(gathered.sum())
+    n_hubs = lists.hubs.numel()
+    return (4 * (n_dst + 1) + 4 * nnz + (4 * nnz if lists.coef is not None
+                                         else 0)
+            + 4 * n_hubs + (0 if lists.order is None
+                            else 4 * lists.order.numel())
+            + n_x * (4 * d + 4) + 4 * n_dst + 2 * 4 * n_hubs * d
+            + 4 * n_dst * d)
+
+
+def list_case(torch, dev, plan, d, gen, name, transposed=False, weight=0,
+              library=None, n_inner=20, reps=25):
+    """One ``spmm_blockell_compact`` case on the per-row entry lists of a
+    list plan (its list walk, ``csrc/spmm_blockell_lists.cu``, is what the
+    plan launches): kernel vs ``spmm_blockell_lists_ref``, both timed, a
+    rerun bit-identical; the raw entry point (hub pass and walk) is timed.
+    With ``library`` (the side's CSR matrix) the plan's output is held
+    against ``torch.sparse.mm`` and the library call is timed.  ``weight``
+    as in :func:`compact_case`."""
+    from repro_torch.kernels import spmm_blockell as sk
+    from repro_torch.kernels.ref import spmm_blockell_lists_ref
+
+    a = plan._bwd if transposed else plan._fwd
+    lists = sk.Lists.of(a)
+    n_src, n_dst = a["s_in"].numel(), a["s_out"].numel()
+    add_diag = plan.add_diag
+    x = torch.randn((n_src, d), generator=gen, device=dev)
+    kw = dict(bm=BM, bk=BM, add_diag=add_diag, lists=lists)
+
+    def walk():
+        return sk.spmm_blockell_compact(None, None, None, x, a["s_in"],
+                                        a["s_out"], **kw)
+
+    def plain():
+        return spmm_blockell_lists_ref(lists.row_ptr, lists.src, lists.coef,
+                                       x, a["s_in"], a["s_out"],
+                                       add_diag=add_diag)
+
+    y, ref, again = walk(), plain(), walk()
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"list walk output not finite ({name})")
+    err = assert_close_scaled(y, ref, KERNEL_TOL,
+                              f"list walk vs plain {name}")
+    if not torch.equal(again, y):
+        raise AssertionError(f"list walk rerun is not bit-identical ({name})")
+
+    fn = sk._kernel_fn("spmm_blockell_lists")
+    ptrs, n_hubs, _acc = sk._lists_args(lists, d, order=True)
+    diag = ((x.data_ptr(), a["s_in"].data_ptr()) if add_diag
+            else (None, None))
+    raw = (*ptrs, x.data_ptr(), a["s_in"].data_ptr(), a["s_out"].data_ptr(),
+           *diag, y.data_ptr(), n_hubs, n_src, n_dst, d, int(add_diag),
+           torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError("launch failed")
+
+    ms = gpu_ms(launch, n_inner=n_inner, reps=reps)
+    plain_ms = gpu_ms(plain, n_inner=n_inner, reps=reps)
+    nnz = lists.src.numel()
+    ops = 2 * nnz * d + 2 * n_dst * d + (2 * n_dst * d if add_diag else 0)
+    case = {"kernel": "spmm_blockell_compact", "walk": "lists", "case": name,
+            "max_abs_err": err, "ref_max_abs": float(ref.abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "hubs": n_hubs,
+            **bound(list_bytes(torch, lists, d, add_diag, n_src, n_dst), ops),
+            "library_ms": None, "ms_over_library": None, "weight": weight}
+    if library is not None:
+        apply = plan.raw_apply_t if transposed else plan.raw_apply
+        case["plan_vs_library_err"] = assert_close_scaled(
+            apply(x), torch.sparse.mm(library, x), KERNEL_TOL,
+            f"plan vs torch.sparse.mm {name}")
+        case["library_ms"] = gpu_ms(lambda: torch.sparse.mm(library, x),
+                                    n_inner=n_inner, reps=reps)
+        case["ms_over_library"] = ms / case["library_ms"]
+    print("case " + json.dumps(case))
+    return case
+
+
+def update_list_case(torch, dev, g, plan, spec, gen, weight=0):
+    """One ``spmm_blockell_update_compact`` case (``spec`` as in
+    ``UPDATE_CASES``, its tiles entry unread) on the forward lists of a
+    list plan (``csrc/spmm_blockell_update_lists.cu``): kernel vs
+    ``spmm_blockell_update_lists_ref``, both timed, a rerun bit-identical,
+    beside the two-call yardstick where one matrix holds the aggregation
+    (no overrides)."""
+    from repro_torch.kernels import spmm_blockell as sk
+    from repro_torch.kernels.ref import spmm_blockell_update_lists_ref
+
+    (name, mode, d_in, d_out, epi, has_bias, relu, add_diag, override,
+     _tiles, tol, why) = spec
+    a = plan._fwd
+    lists = sk.Lists.of(a)
+    n_src, n_dst = a["s_in"].numel(), a["s_out"].numel()
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    x = r(n_src, d_in)
+    w = r(d_in, d_out) / d_in ** 0.5
+    b = r(d_out) if has_bias else None
+    ws = c = xs = xd = sd = None
+    if epi == "two_w":
+        ws = r(d_in, d_out) / d_in ** 0.5
+    elif epi == "self_coeff":
+        ws, c = w, torch.tensor(1.25, device=dev)     # 1 + eps
+    if override:
+        xs, xd = r(n_dst, d_in), r(n_dst, d_in)
+        sd = torch.rand((n_dst,), generator=gen, device=dev)
+    args = (x, a["s_in"], a["s_out"], w, b, ws, c, xs, xd, sd)
+
+    def walk():
+        return sk.spmm_blockell_update_compact(
+            None, None, None, *args, bm=BM, bk=BM, add_diag=add_diag,
+            relu=relu, lists=lists)
+
+    def plain():
+        return spmm_blockell_update_lists_ref(
+            lists.row_ptr, lists.src, lists.coef, *args, add_diag=add_diag,
+            relu=relu)
+
+    y, ref, again = walk(), plain(), walk()
+    torch.cuda.synchronize()
+    if not torch.isfinite(y).all():
+        raise AssertionError(f"update list walk output not finite {name}")
+    err = assert_close_scaled(y, ref, tol, f"update list walk vs plain {name}")
+    if not torch.equal(again, y):
+        raise AssertionError(f"update list walk rerun is not bit-identical "
+                             f"({name})")
+
+    fn = sk._kernel_fn("spmm_blockell_update_lists")
+    ptrs, n_hubs, _acc = sk._lists_args(lists, d_in, order=False)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    xs_ = xs if xs is not None else (x if ws is not None else None)
+    xd_, sd_ = (xd, sd) if override else (x, a["s_in"])
+    raw = (*ptrs, x.data_ptr(), a["s_in"].data_ptr(), a["s_out"].data_ptr(),
+           w.data_ptr(), ptr(b), ptr(ws), ptr(c), ptr(xs_),
+           xd_.data_ptr() if add_diag else None,
+           sd_.data_ptr() if add_diag else None, y.data_ptr(), n_hubs,
+           n_src, n_dst, d_in, d_out, int(add_diag), int(relu),
+           torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        if fn(*raw):
+            raise RuntimeError("launch failed")
+
+    big = d_in > 512
+    ms = gpu_ms(launch, n_inner=5 if big else 20)
+    plain_ms = gpu_ms(plain, n_inner=5 if big else 20)
+    composed_ms = composed_err = None
+    if not override:
+        mat = library_matrix(torch, dev, g, mode, False,
+                             None if epi != "self_coeff" else float(c))
+        composed = lambda: composed_update(
+            torch, mat, x, w, b, relu, ws if epi == "two_w" else None)
+        composed_err = assert_close_scaled(composed(), ref, tol,
+                                           f"yardstick vs plain {name}")
+        composed_ms = gpu_ms(composed, n_inner=5 if big else 20)
+    # the aggregation's bytes (list_bytes at d_in, less its y), W, bias,
+    # c and the self rows read once, the output written once
+    n_w = 2 if epi == "two_w" else 1
+    nbytes = (list_bytes(torch, lists, d_in, add_diag, n_src, n_dst)
+              - 4 * n_dst * d_in + 4 * n_w * d_in * d_out
+              + (4 * d_out if has_bias else 0) + (4 if c is not None else 0)
+              + (4 * n_dst * d_in if ws is not None else 0)
+              + (4 * n_dst * d_in + 4 * n_dst if xd is not None else 0)
+              + 4 * n_dst * d_out)
+    nnz = lists.src.numel()
+    ops = (2 * nnz * d_in + 2 * n_dst * d_in
+           + (2 * n_dst * d_in if add_diag else 0)
+           + (2 * n_dst * d_in if ws is not None else 0)
+           + 2 * n_w * n_dst * d_in * d_out
+           + (n_dst * d_out if has_bias else 0))
+    case = {"kernel": "spmm_blockell_update_compact", "walk": "lists",
+            "case": name, "tolerance": tol, "tolerance_why": why,
+            "max_abs_err": err, "ref_max_abs": float(ref.abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "hubs": n_hubs,
+            **bound(nbytes, ops), "library_ms": None,
+            "composed_ms": composed_ms,
             "composed": COMPOSED if composed_ms is not None else None,
             "composed_vs_plain_err": composed_err, "weight": weight}
     print("case " + json.dumps(case))
@@ -2025,9 +2256,10 @@ def sage_training_phase(torch, dev, g):
     gp = fplan[0].gplan
     print(f"SAGE {dims} schedule (cold plan_forward): {list(fplan.configs)}; "
           f"plan built in {build_s:.1f}s: n_active {gp.meta_fwd.n_active} "
-          f"(transposed {gp.meta_bwd.n_active}), tiles "
-          f"{gp._fwd['blocks'].numel() / 1e9:.2f} GB + "
-          f"{gp._bwd['blocks'].numel() / 1e9:.2f} GB uint8 on the card")
+          f"(transposed {gp.meta_bwd.n_active}), "
+          f"{plan_bytes(torch, gp._fwd) / 1e9:.4f} GB + "
+          f"{plan_bytes(torch, gp._bwd) / 1e9:.4f} GB on the card "
+          f"(entry lists: {gp.meta_fwd.lists})")
     if list(fplan.configs) != SAGE_COLD_SCHEDULE:
         raise AssertionError(f"unexpected SAGE schedule {fplan.configs}")
     t = lambda a: torch.as_tensor(a).to(dev)
@@ -2085,26 +2317,66 @@ def sage_training_phase(torch, dev, g):
 def sage_kernel_cases(torch, dev, g, fplan):
     """``spmm_blockell_compact`` at one SAGE training step's four launches
     on the reordered CITESEER-S (forward at d = 256 and 41, transposed at
-    d = 256 and 41), each against its plain version run by pieces, beside
-    ``torch.sparse.mm`` of the same scaled adjacency and the bound."""
+    d = 256 and 41): the plan's list walk (the main path) against its
+    plain version, beside ``torch.sparse.mm`` of the same scaled adjacency
+    and the bound; then the tile walk on the same plan's 8.4 GB of tiles a
+    side, against its plain version run by pieces."""
     gp = fplan[0].gplan
     if not gp.ell.implicit:
         raise AssertionError("CITESEER-S's plan should hold 0/1 tiles")
     nnz = g.num_edges                   # unique unit edges: the bitmask's
     gen = torch.Generator(device=dev).manual_seed(11)
     cases = []
-    for side, a, apply, transposed in (
-            ("forward", gp._fwd, gp.raw_apply, False),
-            ("transposed", gp._bwd, gp.raw_apply_t, True)):
+    for side, transposed in (("forward", False), ("transposed", True)):
         lib = library_matrix(torch, dev, g, "mean", transposed)
+        for d in (SAGE_HIDDEN, int(g.labels.max()) + 1):
+            cases.append(list_case(
+                torch, dev, gp, d, gen, f"SAGE CITESEER-S {side} d={d} "
+                "(lists)", transposed, weight=1, library=lib))
+        del lib
+        a = tile_arrays(gp, transposed)
         for d in (SAGE_HIDDEN, int(g.labels.max()) + 1):
             cases.append(compact_case(
                 torch, dev, a, nnz, d, False, "u8", False, gen,
-                f"SAGE CITESEER-S {side} d={d}", weight=1, plan_side=apply,
-                library=lib, plain_max_tiles=SAGE_PLAIN_TILES, n_inner=5,
-                reps=5))
-        del lib
+                f"tile walk: SAGE CITESEER-S {side} d={d}",
+                plain_max_tiles=SAGE_PLAIN_TILES, n_inner=5, reps=5))
+        del a
     return cases
+
+
+# the GCN cell's fused layer 2 on CITESEER-S (the plan's list walk)
+GCN_CITESEER_UPDATE = (
+    "(f) CITESEER-S GCN layer 2: gcn 16->41, bias", "gcn", 16, 41, "none",
+    True, False, True, False, "u8", 1e-5,
+    "fp32 sums of a row's ~3.6 edges and its self term, then 16-term "
+    "products, in another order")
+
+
+def gcn_citeseer_cases(torch, dev, g):
+    """The GCN [3703, 16, 41] step's aggregations on the reordered
+    CITESEER-S, as the benchmark's ``gcn-citeseer-s.full`` cell runs them
+    on the plan's lists: forward and transposed at d = 16, transposed at
+    d = 41 (each beside ``torch.sparse.mm``), and the fused layer 2 (16 ->
+    41) beside its two-call yardstick.  Returns (compact cases, update
+    cases)."""
+    from repro_torch.exec import build_plan
+
+    plan = build_plan(g, "gcn", bm=BM, backend="cuda", device=dev)
+    if not (plan.meta_fwd.lists and plan.meta_bwd.lists):
+        raise AssertionError("CITESEER-S's gcn plan should hold lists")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    for side, transposed, widths in (("forward", False, (16,)),
+                                     ("transposed", True, (16, 41))):
+        lib = library_matrix(torch, dev, g, "gcn", transposed)
+        for d in widths:
+            cases.append(list_case(
+                torch, dev, plan, d, gen, f"GCN CITESEER-S {side} d={d} "
+                "(lists)", transposed, weight=1, library=lib))
+        del lib
+    update = [update_list_case(torch, dev, g, plan, GCN_CITESEER_UPDATE, gen,
+                               weight=1)]
+    return cases, update
 
 
 def sage_minibatch_phase(torch, dev, g):
@@ -2178,7 +2450,9 @@ def sage_phases(torch, dev):
     """Every GraphSAGE path: (a) ``launch.serve --graph citeseer-s --scale
     1.0 --model sage_gin`` (2 compact launches build the offline forward);
     (b) paper-width full-graph training on the reordered graph and the
-    compact kernel at its four launches; (c) sampled-minibatch training;
+    compact kernel at its four launches, then the GCN cell's aggregations
+    on the same graph (:func:`gcn_citeseer_cases`); (c) sampled-minibatch
+    training;
     (e) the paper's LR&CR schedule (:func:`sage_lrcr_phase`); (d)
     ``launch.serve --graph reddit --model sage_gin`` at its default
     ``--scale 0.02`` (1 ``spmm_blockell_update_compact`` and 1 compact
@@ -2218,6 +2492,10 @@ def sage_phases(torch, dev):
     del fplan
     gc.collect()
     torch.cuda.empty_cache()
+    gcn_cases, update_cases = gcn_citeseer_cases(torch, dev, g)
+    cases += gcn_cases
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["SAGE minibatch training CITESEER-S"], report["minibatch"] = \
         sage_minibatch_phase(torch, dev, g)
     report["cases_and_minibatch_peak_memory_gb"] = \
@@ -2237,10 +2515,11 @@ def sage_phases(torch, dev):
                                           "spmm_blockell_compact": 1},
                             "SAGE serving reddit --scale 0.02 (launcher)")
     plan = build_plan(g_reddit, "mean", bm=BM, backend="cuda", device=dev)
-    update_cases = [update_case(torch, dev, g_reddit, plan,
-                                SAGE_REDDIT_UPDATE,
-                                torch.Generator(device=dev).manual_seed(12),
-                                weight=1)]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    update_cases += [update_list_case(torch, dev, g_reddit, plan,
+                                      SAGE_REDDIT_UPDATE, gen, weight=1),
+                     update_case(torch, dev, g_reddit, plan,
+                                 SAGE_REDDIT_UPDATE, gen)]
     del plan, g_reddit
     gc.collect()
     torch.cuda.empty_cache()
@@ -4579,9 +4858,9 @@ def fallback_phase(torch, dev, g):
             rp = ResilientPlan(gw, "sum", weighted=True, compact=compact,
                                device=dev, cache_dir=qdir)
             plan = rp.plan_for("cuda")
-            if plan._fwd["blocks"].dtype != torch.float32:
-                raise AssertionError("a weighted plan's tiles are "
-                                     f"{plan._fwd['blocks'].dtype}")
+            tiles = tile_arrays(plan)["blocks"].dtype
+            if tiles != torch.float32:
+                raise AssertionError(f"a weighted plan's tiles are {tiles}")
             plain = build_plan(gw, "sum", weighted=True, compact=compact,
                                backend="torch", device=dev)
             nnz = int(plan.ell.density_stats()["nnz"])
@@ -4598,10 +4877,13 @@ def fallback_phase(torch, dev, g):
                         y, plain.apply(xd), KERNEL_TOL,
                         f"ResilientPlan {name} vs torch")}
                 if compact:
-                    compact_cases.append(compact_case(
-                        torch, dev, plan._fwd, nnz, d, False, "f32", False,
-                        gen, name, weight=1, plan_side=plan.raw_apply,
+                    compact_cases.append(list_case(
+                        torch, dev, plan, d, gen,
+                        name.replace("f32 tiles", "lists, coef"), weight=1,
                         library=lib))
+                    compact_cases.append(compact_case(
+                        torch, dev, tile_arrays(plan), nnz, d, False, "f32",
+                        False, gen, "tile walk: " + name))
                 else:
                     fused_cases.append(padded_case(
                         torch, dev, "spmm_blockell_fused", plan._fwd, nnz,
@@ -4789,16 +5071,19 @@ def elastic_phase(torch, dev, g):
         return y, {k: v for k, v in launches.items() if v}
 
     gen = torch.Generator(device=dev).manual_seed(25)
-    agg = None
+    aggs = {}
     for graph, tiles in ((g, torch.uint8), (g.with_sym_norm(), torch.float32)):
         what = f"elastic {DIST_PARTS} shards ({str(tiles)[6:]} tiles)"
         a = ElasticAggregator(graph, DIST_PARTS, device=dev)
         plain = ElasticAggregator(graph, DIST_PARTS, backend="torch",
                                   device=dev)
         plans = [s.plan.plan_for(s.plan.backend) for s in a.topology.shards]
-        got = [(p.backend, p._fwd["blocks"].dtype) for p in plans]
+        got = [(p.backend, tile_arrays(p)["blocks"].dtype)
+               for p in plans]
         if got != [("cuda", tiles)] * DIST_PARTS:
             raise AssertionError(f"{what}: the shards' plans are {got}")
+        if not all(p.meta_fwd.lists for p in plans):
+            raise AssertionError(f"{what}: a shard's plan holds no lists")
         fwd, _ = shard_launches(a.topology)
         oracle = a.aggregate_fn("allgather")
         report["aggregate"][what] = holds = {}
@@ -4813,23 +5098,34 @@ def elastic_phase(torch, dev, g):
                         assert_close_scaled(y, plain.aggregate(x, step=0),
                                             KERNEL_TOL,
                                             f"{what} d={d} vs torch")]
-        agg = agg or a
-    topo = agg.topology
+        aggs[tiles] = a
+    topo = aggs[torch.uint8].topology
     plans = [s.plan.plan_for(s.plan.backend) for s in topo.shards]
     report["shards"] = [{"window": [s.lo, s.hi],
                          "halo_rows": int(s.halo_ids.shape[0]),
                          "n_active": [p.meta_fwd.n_active,
                                       p.meta_bwd.n_active]}
                         for s, p in zip(topo.shards, plans)]
-    for p, plan in enumerate(plans):
-        lg, _ = _local_graph(topo.halo, p)
-        cases.append(compact_case(
-            torch, dev, plan._fwd, int(plan.ell.density_stats()["nnz"]),
-            1433, False, "u8", False, gen,
-            f"elastic shard {p}/{DIST_PARTS} forward d=1433 (u8 tiles)",
-            weight=1, plan_side=plan.raw_apply,
-            library=library_matrix(torch, dev, lg, "sum", False,
-                                   weighted=True)))
+    # each shard's forward at d = 1433 on its lists (an elastic train step
+    # runs the u8 shards' once each; the f32 ones, coefficients, held
+    # beside) and on its tiles
+    for tiles, a in aggs.items():
+        kind = str(tiles)[6:]
+        for p, s in enumerate(a.topology.shards):
+            plan = s.plan.plan_for(s.plan.backend)
+            lg, _ = _local_graph(a.topology.halo, p)
+            what = f"elastic shard {p}/{DIST_PARTS} forward d=1433"
+            cases.append(list_case(
+                torch, dev, plan, 1433, gen,
+                f"{what} (lists, as {kind} tiles)",
+                weight=int(tiles == torch.uint8),
+                library=library_matrix(torch, dev, lg, "sum", False,
+                                       weighted=True), n_inner=5))
+            cases.append(compact_case(
+                torch, dev, tile_arrays(plan),
+                int(plan.ell.density_stats()["nnz"]), 1433, False,
+                "u8" if tiles == torch.uint8 else "f32", False, gen,
+                f"tile walk: {what} ({kind} tiles)"))
 
     def run(what, backend=None, fault=None, **kw):
         steps = []
@@ -4902,6 +5198,7 @@ def elastic_phase(torch, dev, g):
     labels = t(g.labels.astype(np.int64))
     mask = t(g.train_mask).to(torch.float32)
     dims = [g.node_feat.shape[1], DIST_DIMS_HIDDEN, int(g.labels.max()) + 1]
+    agg = aggs[torch.uint8]
     for path in ("halo", "allgather"):
         opt = adam(1e-2)
         params = dist_gnn_init(torch.Generator().manual_seed(0), dims,
@@ -6017,7 +6314,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    _build.build(*KERNELS)
+    _build.build(*KERNELS, *LIST_SOURCES)
     for name, info in _build.BUILD_LOG.items():
         print(f"build {name}: {info['seconds']:.1f}s")
         for line in ptxas_report(info["log"]):
@@ -6108,19 +6405,25 @@ def main() -> int:
                    "torch.sparse.mm of the same (weighted) adjacency"),
         kernel_row("spmm_blockell_compact", compact_cases,
                    total["spmm_blockell_compact"],
-                   "one GCN serving forward on Cora (d=64 then 16) + one "
-                   "gcn-cora compact step (forward d=16, 7; transposed "
-                   "d=16, 7) + one GIN step (forward d=128; 5 transposed "
-                   "d=128) on the reordered Cora + one paper-width SAGE "
-                   "training step on the reordered CITESEER-S (227,320 "
-                   "nodes; forward d=256, 41; transposed d=256, 41) + the "
-                   "weighted sum ResilientPlan's compact forward at d=64 "
-                   "and d=1433 on the reordered Cora (f32 tiles, seeded "
-                   "weights) + one elastic train step's forward at d=1433 "
-                   "on each of the 4 shards of the reordered Cora (u8 "
-                   "tiles: Cora's edges weigh 1), bm=128; library: "
-                   "torch.sparse.mm of the same scaled (weighted) "
-                   "adjacency"),
+                   "the list walk (csrc/spmm_blockell_lists.cu: a compact "
+                   "cuda plan's per-row entry lists, no tile read; hub pass "
+                   "included) at: one GCN serving forward on Cora (d=64 "
+                   "then 16) + one gcn-cora compact step (forward d=16, 7; "
+                   "transposed d=16, 7) + one GIN step (forward d=128; 5 "
+                   "transposed d=128) on the reordered Cora + one "
+                   "paper-width SAGE training step on the reordered "
+                   "CITESEER-S (227,320 nodes; forward d=256, 41; "
+                   "transposed d=256, 41) + the GCN cell's step there "
+                   "(forward d=16; transposed d=16, 41) + the weighted sum "
+                   "ResilientPlan's compact forward at d=64 and d=1433 on "
+                   "the reordered Cora (coefficients, seeded weights) + one "
+                   "elastic train step's forward at d=1433 on each of the 4 "
+                   "shards of the reordered Cora (Cora's edges weigh 1), "
+                   "bm=128; bound: lists, row pointers, gathered x rows and "
+                   "y; library: torch.sparse.mm of the same scaled "
+                   "(weighted) adjacency; the tile walk on the same plans' "
+                   "tiles and the bucketed plans' hub tiles held beside "
+                   "(weight 0)"),
         kernel_row("spmm_blockell_update", padded_update_cases,
                    total["spmm_blockell_update"],
                    "one padded GIN conv launch (sum 128->128, w_self is w, "
@@ -6130,11 +6433,15 @@ def main() -> int:
                    "two PyTorch calls)"),
         kernel_row("spmm_blockell_update_compact", update_cases,
                    total["spmm_blockell_update_compact"],
-                   "one GIN training step's 4 fused convs (sum 128->128, "
-                   "w_self is w, 1+eps, bias, ReLU) on the reordered Cora "
-                   "+ the sage_gin serving forward's layer 1 on reddit "
-                   "--scale 0.02 (mean 48->64, two W, bias, ReLU), "
-                   "bm=128; library_ms null: no single PyTorch call "
+                   "the list walk (csrc/spmm_blockell_update_lists.cu) "
+                   "at: one GIN training step's 4 fused convs (sum "
+                   "128->128, w_self is w, 1+eps, bias, ReLU) on the "
+                   "reordered Cora + the GCN cell's layer 2 on the "
+                   "reordered CITESEER-S (gcn 16->41, bias) + the sage_gin "
+                   "serving forward's layer 1 on reddit --scale 0.02 (mean "
+                   "48->64, two W, bias, ReLU), bm=128; the tile walk held "
+                   "beside (weight 0); library_ms null: no single PyTorch "
+                   "call "
                    "computes aggregation and W epilogue together "
                    "(composed_ms: two PyTorch calls, three for SAGE's two "
                    "W)"),

@@ -72,6 +72,10 @@ from .traffic import adversarial_trace
 # counters whose values derive from wall-clock measurements; identical
 # same-seed runs may legitimately disagree on them (warn-only)
 TIMING_COUNTERS = ("train.straggler_flagged",)
+# counters of the port that the reference has no twin of, left out of the
+# report so that it stays the reference's: how the plans store each
+# direction (entry lists or tiles)
+PORT_COUNTERS = ("exec.plan.directions",)
 
 # the seed-derived part of the gauntlet's fault schedule (exec/dist sites);
 # the train crash keeps an explicit hit so it lands after the step-8
@@ -551,7 +555,7 @@ def run_gauntlets(seed: int, workdir: str, log: Callable = print,
                                                 dev)}
     summary = {name: runners[name]() for name in which}
     counters = {k: v for k, v in obs.snapshot()["counters"].items()
-                if not k.startswith(TIMING_COUNTERS)}
+                if not k.startswith(TIMING_COUNTERS + PORT_COUNTERS)}
     return {"schedules": {k: p.describe() for k, p in plans.items()},
             "summary": summary, "counters": counters}
 

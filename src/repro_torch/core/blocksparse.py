@@ -8,6 +8,12 @@ graphs.  ``compact()`` flattens the padded (R, W) slot table into
 row-major-sorted active-slot lists with CSR-style ``row_offsets`` — the
 form the port's CUDA kernel walks, one destination block per CUDA block.
 The tests hold every array here byte-equal to the reference's.
+
+``row_lists`` builds, from the edges alone, what a walk over those tiles
+finds in each destination row: its set entries in slot-then-k order, as
+(source node, coefficient) lists behind CSR-style row pointers.  Where the
+tiles are sparse the lists are a few thousandth of their bytes, and the
+compact kernels walk them instead (``exec/plan.py`` chooses).
 """
 from __future__ import annotations
 
@@ -227,6 +233,71 @@ def build_blockell_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray, *,
     np.add.at(blocks, (rb, slot_of[inv], dst % bm, src % bk), w.astype(dtype))
     return BlockEll(block_cols=block_cols, blocks=blocks, num_nodes=n,
                     bm=bm, bk=bk)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowLists:
+    """Per-destination-row entry lists of a (bm, bk) tiling of A.
+
+    row_ptr:    (n_rows + 1,) int32; row v's entries are
+                [row_ptr[v], row_ptr[v + 1]);
+    src:        (nnz,) int32 source node of each entry, each row's in the
+                order a walk over its tiles lists them: slot (source block)
+                ascending, then k, so sources ascending;
+    coef:       (nnz,) float32 tile entry of each, or None where the tiles
+                are the exact 0/1 bitmask (every coefficient 1);
+    n_active:   active (bm, bk) slots of the tiling.
+
+    An entry is a tile entry that is not zero: duplicate edges summed in
+    edge order (the order ``build_blockell_coo`` adds them), zero sums left
+    out, as the tile walks skip them."""
+
+    row_ptr: np.ndarray
+    src: np.ndarray
+    coef: Optional[np.ndarray]
+    n_active: int
+
+    @property
+    def nnz(self) -> int:
+        return int(self.src.shape[0])
+
+    def nbytes(self) -> int:
+        """Bytes a walk over the lists reads: 4 an entry, 8 with coef."""
+        return self.nnz * (8 if self.coef is not None else 4)
+
+    def tile_bytes(self, bm: int, bk: int) -> int:
+        """Bytes a walk over the same plan's compacted tiles reads: uint8
+        tiles for the bitmask, float32 otherwise."""
+        return self.n_active * bm * bk * (4 if self.coef is not None else 1)
+
+
+def row_lists(g: Graph, bm: int = 128, bk: int = 128) -> RowLists:
+    """The entry lists of ``build_blockell(g, bm, bk, storage="auto")
+    .compact()``'s tiles, built from the edges by sorts (no tile is made):
+    the same entries, coefficients and order, byte for byte."""
+    valid = g.edge_mask if g.edge_mask is not None else np.ones(g.num_edges, bool)
+    src = g.src[valid].astype(np.int64)
+    dst = g.dst[valid].astype(np.int64)
+    n = g.num_nodes
+    C = int(np.ceil(n / bk))
+    n_active = np.unique((dst // bm) * C + src // bk).size
+    key, inv = np.unique(dst * n + src, return_inverse=True)
+    coef = None
+    w = g.edge_weight[valid] if g.edge_weight is not None else None
+    if key.size != src.size or (w is not None and not np.all(w == 1.0)):
+        # float32 tiles: each entry the sum of its edges' weights, added as
+        # build_blockell_coo adds them (in its tile dtype, edge order)
+        dtype = w.dtype if w is not None else np.float32
+        acc = np.zeros(key.size, dtype)
+        np.add.at(acc, inv, (w if w is not None
+                             else np.ones(src.size, dtype)).astype(dtype))
+        coef = acc.astype(np.float32)
+        key, coef = key[coef != 0], coef[coef != 0]
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=row_ptr[1:])
+    return RowLists(row_ptr=row_ptr.astype(np.int32),
+                    src=(key % n).astype(np.int32), coef=coef,
+                    n_active=int(n_active))
 
 
 def transpose_graph(g: Graph) -> Graph:

@@ -8,7 +8,8 @@
 // x (gather), dealt over lane groups as narrow as the feature strip allows
 // (Lanes) and added in a fixed order at the end (reduce_groups).  Why a
 // walk over the set entries alone gives the dense product's sum: see
-// blockell_spmm.cuh.
+// blockell_spmm.cuh.  The list walks (a RowLists, blockell_walk.cuh) gather
+// the same way from a list the plan built, in global memory (GlobalList).
 
 #pragma once
 
@@ -120,29 +121,53 @@ __device__ __forceinline__ void reduce_groups(const Lanes<V>& ln,
   }
 }
 
-// Accumulate this lane group's share of the n listed entries: kBatch rows
-// of x in flight per lane, their loads issued before any of their FMAs (an
-// index past n reads entry n - 1 and adds nothing), the FMAs in list order.
-template <int V, bool SCALED>
-__device__ __forceinline__ void gather(const int* list_src,
-                                       const float* list_a, int n,
+// A list of (x row, coefficient) entries: a warp's, in shared memory (the
+// scan's) ...
+struct SharedList {
+  const int* src;
+  const float* a;
+  __device__ __forceinline__ int row(int e) const { return src[e]; }
+  __device__ __forceinline__ float coef(int e) const { return a[e]; }
+};
+
+// ... or a row's, in global memory (a RowLists row), every coefficient 1
+// without COEF
+template <bool COEF>
+struct GlobalList {
+  const int32_t* __restrict__ src;
+  const float* __restrict__ a;
+  __device__ __forceinline__ int row(int e) const { return __ldg(src + e); }
+  __device__ __forceinline__ float coef(int e) const {
+    return COEF ? __ldg(a + e) : 1.0f;
+  }
+  __device__ __forceinline__ GlobalList at(long long e) const {
+    return {src + e, COEF ? a + e : a};
+  }
+};
+
+// Accumulate this lane group's share of the list's first n entries: B
+// (kBatch) rows of x in flight per lane, their loads issued before any of
+// their FMAs (an index past n reads entry n - 1 and adds nothing), the FMAs
+// in list order, whatever B is.
+template <int V, bool SCALED, int B = kBatch, typename List>
+__device__ __forceinline__ void gather(const List& list, int n,
                                        const Lanes<V>& ln,
                                        const float* __restrict__ x,
                                        const float* __restrict__ s_in, int d,
                                        float (&acc)[4]) {
   __syncwarp();
-  for (int e0 = ln.g; e0 < n; e0 += kBatch * ln.G) {
-    float xv[kBatch][4], sv[kBatch], av[kBatch];
+  for (int e0 = ln.g; e0 < n; e0 += B * ln.G) {
+    float xv[B][4], sv[B], av[B];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
+    for (int u = 0; u < B; ++u) {
       const int e = min(e0 + u * ln.G, n - 1);
-      const int src = list_src[e];
-      av[u] = list_a[e];
+      const int src = list.row(e);
+      av[u] = list.coef(e);
       sv[u] = SCALED ? __ldg(s_in + src) : 1.0f;
       ln.load(x, src, d, xv[u]);
     }
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
+    for (int u = 0; u < B; ++u) {
       if (e0 + u * ln.G < n) {
 #pragma unroll
         for (int q = 0; q < 4; ++q)

@@ -1,6 +1,7 @@
 // Block-ELL aggregation for Hopper (sm_90a), fp32: the body of
-// spmm_blockell_compact.cu (kernel 3), spmm_blockell_fused.cu (kernel 2) and
-// spmm_blockell.cu (kernel 1), per destination block r:
+// spmm_blockell_compact.cu (kernel 3), its list walk spmm_blockell_lists.cu,
+// spmm_blockell_fused.cu (kernel 2) and spmm_blockell.cu (kernel 1), per
+// destination block r:
 //
 //   y[rows of r] = s_out * ( [s_in_diag * x_diag]_r
 //                            + sum_{slots s of r} A_s (s_in * x_tile(col_s)) )
@@ -9,7 +10,9 @@
 // slots come from a walk policy of blockell_walk.cuh: the compact one over
 // the n_active slots of a BlockCompaction, the padded one over the (R, W)
 // table of a BlockEll.  A_s is a (bm, bk) tile, uint8 0/1 (the exact
-// bitmask) or fp32.
+// bitmask) or fp32.  The list walk (RowLists) reads no tile: the plan lists
+// each row's set entries from the edges, in the order the scan below lists
+// them, and the warp goes straight to its gather.
 //
 // Translation.  The Pallas grid runs its slots in order, keeps one output
 // block resident across a row's consecutive slots (first/last predicates)
@@ -45,20 +48,27 @@
 // row, it adds their partial sums in a fixed order: the same products,
 // reassociated, within the port's 1e-5 fp32 bar.  Plain fp32 FMA, no TF32.
 //
-// What bounds it on an H100.  Arithmetic is 2*nnz*d FLOP, nothing.  On Cora
-// at bm = bk = 128 (~460-480 active slots) a launch must read ~7.6-7.9 MB of
-// uint8 tiles (~2.3 us at 3.35 TB/s) and one d-wide row of x per edge.  It
-// takes ~8 us (chip_smoke.py): the launch and its first loads, then the
-// scan's six dependent steps of 16-byte loads a row, with a whole card's
-// worth of them in flight, then one or two rounds of gathers.  A transposed
-// launch adds its hub's rounds: 337 entries on Cora, ~6 rounds at d = 16 in
-// lane groups, ~11 at d = 128 in a shared block.
+// What bounds it on an H100.  Arithmetic is 2*nnz*d FLOP, nothing.  The
+// tile walk must read every active tile: on Cora at bm = bk = 128 (~460-480
+// active slots) ~7.6-7.9 MB of uint8 tiles (~2.3 us at 3.35 TB/s) and one
+// d-wide row of x per edge.  It takes ~8 us (chip_smoke.py): the launch and
+// its first loads, then the scan's six dependent steps of 16-byte loads a
+// row, then one or two rounds of gathers.  On CITESEER-S the tiles are 8.36
+// GB a direction (510 k tiles, 1.6 entries each): 2.5 ms of reading for
+// 0.81 M entries.  The list walk reads the list (4 B an entry, 8 with
+// coef), the row pointers, x's gathered rows and y once: at CITESEER-S's
+// d = 16-256 that is 23-800 MB, and the walk is bound by the latency of
+// three dependent loads a row (row pointer, list, x rows), ~3.6 entries a
+// row, at 12 CUDA blocks of 4 warps an SM (8 where columns are scalar).
+// Hubs (blockell_hubs.cuh) and longest-first order (RowLists::order) keep
+// the longest rows of a transposed plan from ending the launch alone.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blockell_hubs.cuh"
 #include "blockell_scan.cuh"
 #include "blockell_walk.cuh"
 
@@ -69,15 +79,21 @@ constexpr int kWarps = 4;              // destination rows per CUDA block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kDepth = 2;              // tile chunks in flight per lane
 constexpr int kMinBlocks = 5;          // CUDA blocks resident per SM
+constexpr int kListBlocks = 12;        // ... for the list walk, float4
+constexpr int kListBlocksScalar = 8;   // ... and scalar columns
+constexpr int kListBatch = 4;          // x rows in flight a lane, lists
 constexpr int kShare = 64;             // a longer list than this, and than
                                        // twice the block's mean, is shared
 using namespace scan;   // kCols, kCap, kBatch, kAll and the scan helpers
 
 // E: tile entries a lane loads at once; V: see Lanes.  SCALED: s_in, s_out
 // and the optional self term (kernels 2 and 3); without it, y = A x
-// (kernel 1).  The self term reads rows < n_diag of x_diag.
+// (kernel 1).  The self term reads rows < n_diag of x_diag.  With RowLists
+// the tile arguments go unread (blocks is null, E 1).
 template <typename Slots, typename TileT, int E, int V, bool SCALED>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(
+    kThreads, !Slots::kLists ? kMinBlocks
+                             : V == 4 ? kListBlocks : kListBlocksScalar)
 kernel(Slots slots, const TileT* __restrict__ blocks,
        const float* __restrict__ x, const float* __restrict__ s_in,
        const float* __restrict__ s_out, const float* __restrict__ x_diag,
@@ -86,11 +102,13 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
   __shared__ int list_src[kWarps][kCap];
   __shared__ float list_a[kWarps][kCap];
   __shared__ int list_n[kWarps];
+  __shared__ int list_at[kWarps];                 // list walk: row's first
   __shared__ float part[kWarps][kWarps][kCols];   // [warp][row][column]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int strips = (bm + kWarps - 1) / kWarps;
-  const int r = blockIdx.x / strips;
+  int r = blockIdx.x / strips;
+  if constexpr (Slots::kLists) r = slots.block(r);   // longest rows first
   const int m = (blockIdx.x % strips) * kWarps + warp;   // row inside r
   const long long row = (long long)r * bm + m;
   // a warp past the block's rows or n_dst reads nothing and writes
@@ -101,6 +119,15 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
   const Lanes<V> ln(lane, d, blockIdx.y);
 
   const float so = SCALED && live ? s_out[row] : 1.0f;  // read early
+  int first = 0, listed = 0;           // the list walk: the row's entries
+  int hub = -1;                        // ... and a hub's place in hub_acc
+  if constexpr (Slots::kLists) {
+    slots.row(row, live, first, listed);
+    if (listed > kCap) {               // summed already: no entry to list
+      hub = slots.hub(row);
+      listed = 0;
+    }
+  }
 
   // the row's slots as one run of count * bk entries, 32 * E a step; this
   // lane's next chunk starts at entry k0 of slot pos, and moves by dpos
@@ -139,16 +166,19 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
 #pragma unroll
   for (int i = 0; i < kDepth; ++i) fetch(ring[i], ring_cb[i], ring_k[i]);
 
-  // self term first (the Pallas kernel's first step), in group 0's sum
+  // self term first (the Pallas kernel's first step), in group 0's sum; a
+  // hub's is in its sum
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (SCALED && add_diag && live && row < n_diag && ln.g == 0) {
+  if (hub >= 0) {
+    if constexpr (Slots::kLists)
+      if (ln.g == 0) ln.load(slots.hub_acc, hub, d, acc);
+  } else if (SCALED && add_diag && live && row < n_diag && ln.g == 0) {
     const float sd = s_in_diag[row];
     ln.load(x_diag, row, d, acc);
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[q] *= sd;
   }
 
-  int listed = 0;
   for (int step = 0; step < n_steps; ++step) {
     const uint4 c = ring[0];
     const int cb = ring_cb[0], k = ring_k[0];
@@ -179,7 +209,8 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
     }
     const int total = __shfl_sync(kAll, incl, 31);
     if (listed + total > kCap) {
-      gather<V, SCALED>(my_src, my_a, listed, ln, x, s_in, d, acc);
+      gather<V, SCALED>(SharedList{my_src, my_a}, listed, ln, x, s_in, d,
+                        acc);
       listed = 0;
     }
     int at = listed + incl - cnt;
@@ -196,11 +227,21 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
   // one entry (G = 1) and one list (a hub row) is much longer than the
   // block's mean: then the block's entries are cut into kWarps equal
   // ranges, one a warp, and each row adds its partial sums in warp order.
-  // Either way the order is fixed by the data alone.
+  // Either way the order is fixed by the data alone.  Row rho's list from
+  // its entry a: the warp's in shared memory, or the plan's.
+  auto list_of = [&](int rho, int a) {
+    if constexpr (Slots::kLists)
+      return slots.list(list_at[rho] + a);
+    else
+      return SharedList{list_src[rho] + a, list_a[rho] + a};
+  };
   bool share = false;
   int total = 0;
   if (ln.G == 1) {                     // the same in every warp of the block
-    if (lane == 0) list_n[warp] = listed;
+    if (lane == 0) {
+      list_n[warp] = listed;
+      list_at[warp] = first;
+    }
     __syncthreads();
     int longest = 0;
 #pragma unroll
@@ -210,7 +251,14 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
     }
     share = longest > kShare && longest * kWarps > 2 * total;
   }
-  if (!share) gather<V, SCALED>(my_src, my_a, listed, ln, x, s_in, d, acc);
+  if (!share) {
+    if constexpr (Slots::kLists)
+      gather<V, SCALED, kListBatch>(slots.list(first), listed, ln, x, s_in,
+                                    d, acc);
+    else
+      gather<V, SCALED>(SharedList{my_src, my_a}, listed, ln, x, s_in, d,
+                        acc);
+  }
   reduce_groups(ln, acc);
   // warp w's range of row rho's list: [a, b)
   auto range = [&](int w, int rho, int& a, int& b) {
@@ -225,8 +273,8 @@ kernel(Slots slots, const TileT* __restrict__ blocks,
       range(warp, rho, a, b);
       if (a >= b) continue;
       float p[4] = {0.f, 0.f, 0.f, 0.f};
-      gather<V, SCALED>(list_src[rho] + a, list_a[rho] + a, b - a, ln, x,
-                        s_in, d, p);
+      gather<V, SCALED, Slots::kLists ? kListBatch : kBatch>(
+          list_of(rho, a), b - a, ln, x, s_in, d, p);
       reduce_groups(ln, p);
       if (ln.g == 0) {
 #pragma unroll
@@ -310,6 +358,28 @@ int launch(Slots slots, int n_row_blocks, const void* blocks, int tile_is_u8,
           grid, st, float4_cols, slots, b, x, s_in, s_out, x_diag, s_in_diag,
           y, n_src, n_dst, n_diag, bm, bk, d, add_diag);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The list walk: kWarps consecutive rows a CUDA block, launched as a tiling
+// of bm = kWarps rows (bk = 1) with no slots.
+template <bool COEF>
+int launch_lists(RowLists<COEF> lists, const float* x, const float* s_in,
+                 const float* s_out, const float* x_diag,
+                 const float* s_in_diag, float* y, int n_src, int n_dst,
+                 int d, int add_diag, void* stream) {
+  if (n_dst == 0) return 0;
+  const dim3 grid((n_dst + kWarps - 1) / kWarps, (d + kCols - 1) / kCols);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool float4_cols = d % 4 == 0 && aligned(x) && aligned(y)
+                           && !(add_diag && !aligned(x_diag));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  hubs::launch(lists, x, s_in, x_diag, s_in_diag, d, add_diag, st);
+  launch_typed<RowLists<COEF>, float, 1, true>(
+      grid, st, float4_cols, lists, nullptr, x, s_in, s_out, x_diag,
+      s_in_diag, y, n_src, n_dst, n_dst, kWarps, 1, d, add_diag);
   return static_cast<int>(cudaGetLastError());
 }
 

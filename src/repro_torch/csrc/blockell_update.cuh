@@ -1,6 +1,7 @@
 // One-launch GNN layer over a block-ELL, for Hopper (sm_90a), fp32: the body
-// of spmm_blockell_update_compact.cu (kernel 5) and spmm_blockell_update.cu
-// (kernel 4), per destination block r:
+// of spmm_blockell_update_compact.cu (kernel 5), its list walk
+// spmm_blockell_update_lists.cu, and spmm_blockell_update.cu (kernel 4), per
+// destination block r:
 //
 //   acc = [s_in_diag * x_diag]_r + sum_{slots s of r} A_s (s_in * x)_{col_s}
 //   out = (s_out * acc) @ W + c * (x_self_r @ W_self) + b,  then ReLU if asked
@@ -8,10 +9,12 @@
 // The slots come from a walk policy of blockell_walk.cuh: the compact one
 // over the n_active slots of a BlockCompaction (rows of blocks with no
 // active slot unwritten), the padded one over the (R, W) table of a BlockEll
-// (every row gets the epilogue, its acc the self term or zero).  A_s is a
-// (bm, bk) tile, uint8 0/1 (the exact bitmask) or fp32.  W_self, c, b, the
-// self term and ReLU are each optional; c is read from device memory (a
-// trained parameter, 1 + eps for GIN), so the host never waits for it.
+// (every row gets the epilogue, its acc the self term or zero), or the list
+// walk over a RowLists (every row written; the plan's list of each row's
+// set entries gathered with no tile read).  A_s is a (bm, bk) tile, uint8
+// 0/1 (the exact bitmask) or fp32.  W_self, c, b, the self term and ReLU
+// are each optional; c is read from device memory (a trained parameter,
+// 1 + eps for GIN), so the host never waits for it.
 //
 // Translation.  The Pallas grid walks the slots in order, multiplies every
 // dense tile on the MXU into a (bm, d_in) fp32 accumulator, and keeps the
@@ -31,7 +34,9 @@
 //   the row's chunk accumulator after the self term, in lane groups as
 //   narrow as the chunk allows; at d_in = 1433 the 12 chunks reuse one
 //   list.  A row with more entries than the list holds (a hub) is gathered
-//   whenever the list fills and scanned again for every chunk.
+//   whenever the list fills and scanned again for every chunk.  The list
+//   walk gathers each chunk straight from the plan's list; its hubs are
+//   summed beforehand (blockell_hubs.cuh).
 // - Epilogue.  The chunk, scaled by s_out (plus c * x_self when W_self is
 //   W: GIN passes one tensor, the same function with one product), and
 //   c * x_self beside it for a separate W_self, is multiplied in shared
@@ -53,13 +58,21 @@
 // latency and shared memory: a warp's scan is ~6 dependent steps of
 // 16-byte loads and ballots, its gathers a round or two of x rows from L2,
 // and its W product reads each staged W element for one FMA (the 352
-// blocks, 22 x 16, of that grid each stage all of W).
+// blocks, 22 x 16, of that grid each stage all of W).  The list walk
+// reads no tile: on CITESEER-S (GCN's layer 2, 16 -> 41, 227 k rows of
+// ~3.6 entries) it takes ~0.17 ms, against 4.7 ms for the tile walk over
+// 8.36 GB of tiles, bound by the gathers' latency: W (d_in <= 32) is
+// staged once a block, not once every 8 rows between two barriers (0.38
+// ms that way), in an instantiation of its own whose 64 registers fit 4
+// blocks an SM (0.21 ms at the 3 of the chunked walk).
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "blockell_hubs.cuh"
 #include "blockell_scan.cuh"
 #include "blockell_walk.cuh"
 
@@ -74,6 +87,11 @@ constexpr int KC = kCols;                // d_in columns per chunk (128)
 constexpr int TN_MAX = 128;              // d_out columns per CUDA block
 constexpr int WK = 32;                   // W rows per staged slice
 constexpr int kDepth = 2;                // tile chunks in flight per lane
+constexpr int kMinBlocks = 2;            // CUDA blocks resident per SM
+constexpr int kListBlocks = 3;           // ... for the list walk
+constexpr int kListBatch = 2;            // x rows in flight a lane, lists
+constexpr int kStagedBlocks = 4;         // ... for the list walk with W
+constexpr int kStagedBatch = 1;          // staged once (d_in <= WK)
 
 struct Smem {
   float g[TM][KC];      // s_out * acc (+ c * x_self when W_self is W)
@@ -81,15 +99,21 @@ struct Smem {
   float w[WK][TN_MAX];  // W slice
   float v[WK][TN_MAX];  // W_self slice (separate W_self only)
   int list_src[TM][kCap];      // each warp's listed entries: x row
-  float list_a[TM][kCap];      // ... and coefficient
-};
+  float list_a[TM][kCap];      // ... and coefficient (last: the list
+};                             // walk has no use for them)
 constexpr int SMEM_BYTES = sizeof(Smem);   // 73,728: dynamic, above 48 KB
+constexpr int SMEM_LIST_BYTES = offsetof(Smem, list_src);   // 40,960
 
 // E: tile entries a lane loads at once; V: see Lanes (float4 columns or
 // scalar ones); CPT: output columns a thread holds (4: a 128-wide strip of
-// d_out a CUDA block; 1: 32, for narrow layers).
-template <typename Slots, typename TileT, int E, int V, int CPT>
-__global__ void __launch_bounds__(NT, 2)
+// d_out a CUDA block; 1: 32, for narrow layers); STAGED: the list walk
+// where all of W's rows fit one staged slice (d_in <= WK), an
+// instantiation of its own so that its registers fit more blocks an SM.
+template <typename Slots, typename TileT, int E, int V, int CPT,
+          bool STAGED = false>
+__global__ void __launch_bounds__(NT, STAGED ? kStagedBlocks
+                                      : Slots::kLists ? kListBlocks
+                                                      : kMinBlocks)
 kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
        const float* s_in, const float* __restrict__ s_out, const float* w,
        const float* __restrict__ bias, const float* w_self,
@@ -119,6 +143,15 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
   const bool two_w = has_self && !fold;
   const float c = self_coeff != nullptr ? *self_coeff : 1.0f;
   const float so = live ? s_out[row] : 0.0f;
+  int first = 0, n_list = 0;           // the list walk: the row's entries
+  int hub = -1;                        // ... and a hub's place in hub_acc
+  if constexpr (Slots::kLists && !STAGED) {
+    slots.row(row, live, first, n_list);
+    if (n_list > kCap) {               // summed already, self term too
+      hub = slots.hub(row);
+      n_list = 0;
+    }
+  }
 
   // the row's slots as one run of count * bk entries, 32 * E a step; this
   // lane's next chunk starts at entry k0 of slot pos, and moves by dpos
@@ -195,7 +228,8 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
       }
       const int total = __shfl_sync(kAll, incl, 31);
       if (listed + total > kCap) {
-        gather<V, true>(my_src, my_a, listed, ln, x, s_in, d_in, acc);
+        gather<V, true>(SharedList{my_src, my_a}, listed, ln, x, s_in, d_in,
+                        acc);
         listed = 0;
         overflow = true;
       }
@@ -241,6 +275,124 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
     }
   };
 
+  // the self terms of row v: the aggregation's first (the Pallas kernel's
+  // first step, in group 0's sum; a hub's is in its sum) and the epilogue's
+  auto self_terms = [&](const Lanes<V>& ln, long long v, bool on, int h,
+                        float (&acc)[4], float (&hv)[4]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = hv[q] = 0.0f;
+    if (!on || ln.g != 0) return;
+    if (add_diag && h < 0) {
+      const float sd = s_in_diag[v];
+      ln.load(x_diag, v, d_in, acc);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] *= sd;
+    }
+    if (has_self) {
+      ln.load(x_self, v, d_in, hv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hv[q] *= c;
+    }
+  };
+  // s_out, then the self term, into the product's left operand (zero past
+  // d_in and on a row that is not live)
+  auto stage = [&](const Lanes<V>& ln, int c0, bool on, float so_v,
+                   const float (&acc)[4], const float (&hv)[4]) {
+    for (int col = lane; col < KC; col += 32) {
+      s.g[warp][col] = 0.0f;
+      if (two_w) s.h[warp][col] = 0.0f;
+    }
+    __syncwarp();
+    if (on && ln.g == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = ln.col(q);
+        if (col >= d_in) continue;
+        float gv = acc[q] * so_v;
+        if (fold) gv += hv[q];
+        s.g[warp][col - c0] = gv;
+        if (two_w) s.h[warp][col - c0] = hv[q];
+      }
+    }
+  };
+  // o += g[kw : kw + WK] @ the staged slice (+ h @ W_self's), 4 rows a
+  // step (g and h read as float4), up to row kc_end rounded up to 4: past
+  // it g, h and the slice are zero, which would add exactly nothing
+  auto multiply = [&](int kw, int kc_end, float (&o)[CPT]) {
+    const int kn = min(WK, (kc_end - kw + 3) / 4 * 4);
+#pragma unroll 2
+    for (int kk = 0; kk < kn; kk += 4) {
+      const float4 gv = *reinterpret_cast<const float4*>(&s.g[warp][kw + kk]);
+      const float4 hv4 = two_w
+          ? *reinterpret_cast<const float4*>(&s.h[warp][kw + kk])
+          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float gi = (&gv.x)[u];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          o[j] = fmaf(gi, s.w[kk + u][lane + 32 * j], o[j]);
+        if (two_w) {
+          const float hi = (&hv4.x)[u];
+#pragma unroll
+          for (int j = 0; j < CPT; ++j)
+            o[j] = fmaf(hi, s.v[kk + u][lane + 32 * j], o[j]);
+        }
+      }
+    }
+  };
+  // bias, ReLU, then the one store
+  auto store = [&](long long v, const float (&o)[CPT]) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int col = j0 + lane + 32 * j;
+      if (col < d_out) {
+        float val = o[j] + (bias != nullptr ? bias[col] : 0.0f);
+        if (relu) val = fmaxf(val, 0.0f);
+        y[v * d_out + col] = val;
+      }
+    }
+  };
+
+  // The list walk where all of W's rows fit one staged slice (d_in <= WK:
+  // GCN's 16 -> 41): the block stages its strip of W once, then each warp
+  // takes rows grp * TM + warp for grp = blockIdx.x, + gridDim.x, ... and
+  // multiplies each as it comes, with no barrier between rows.  The sums
+  // are the ones below, in the same order.
+  if constexpr (STAGED) {
+    load_w(0, d_in, 0);
+    store_w(0, d_in, 0);
+    __syncthreads();
+    const Lanes<V> ln(lane, d_in, 0);
+    for (long long grp = blockIdx.x; grp * TM < n_dst; grp += gridDim.x) {
+      const long long v = grp * TM + warp;
+      const bool on = v < n_dst;
+      int f, k, h = -1;
+      slots.row(v, on, f, k);
+      if (k > kCap) {
+        h = slots.hub(v);
+        k = 0;
+      }
+      float acc[4], hv[4];
+      self_terms(ln, v, on, h, acc, hv);
+      if (h < 0)
+        gather<V, true, kStagedBatch>(slots.list(f), k, ln, x, s_in,
+                                      d_in, acc);
+      else if (ln.g == 0)
+        ln.load(slots.hub_acc, h, d_in, acc);
+      reduce_groups(ln, acc);
+      stage(ln, 0, on, on ? s_out[v] : 0.0f, acc, hv);
+      __syncwarp();
+      float o[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) o[j] = 0.0f;
+      multiply(0, d_in, o);
+      if (on) store(v, o);
+      __syncwarp();                  // s.g is the next row's
+    }
+    return;
+  }
+
   float out[CPT];
 #pragma unroll
   for (int j = 0; j < CPT; ++j) out[j] = 0.0f;
@@ -249,92 +401,40 @@ kernel(Slots slots, const TileT* __restrict__ blocks, const float* x,
     const Lanes<V> ln(lane, d_in, ci);
     const int kc_end = d_in - c0 < KC ? d_in - c0 : KC;
     load_w(c0, kc_end, 0);       // in flight during the aggregation
-    // this chunk of the aggregation: the self term first, in group 0's
-    // sum (the Pallas kernel's first step); the self term of the epilogue
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (live && ln.g == 0) {
-      if (add_diag) {
-        const float sd = s_in_diag[row];
-        ln.load(x_diag, row, d_in, acc);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] *= sd;
-      }
-      if (has_self) {
-        ln.load(x_self, row, d_in, hv);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) hv[q] *= c;
-      }
-    }
+    float acc[4], hv[4];
+    self_terms(ln, row, live, hub, acc, hv);
     // scan once (again for every chunk where the row's entries overflowed
-    // the list), gather every chunk
-    if (ci == 0 || overflow) scan_row(ln, acc);
-    gather<V, true>(my_src, my_a, listed, ln, x, s_in, d_in, acc);
+    // the list), gather every chunk; the list walk gathers the plan's list
+    if constexpr (Slots::kLists) {
+      if (hub < 0)
+        gather<V, true, kListBatch>(slots.list(first), n_list, ln, x, s_in,
+                                    d_in, acc);
+      else if (ln.g == 0)
+        ln.load(slots.hub_acc, hub, d_in, acc);
+    } else {
+      if (ci == 0 || overflow) scan_row(ln, acc);
+      gather<V, true>(SharedList{my_src, my_a}, listed, ln, x, s_in, d_in,
+                      acc);
+    }
     reduce_groups(ln, acc);
-
-    // s_out, then the self term, into the product's left operand (zero
-    // past d_in and on a row that is not live)
-    for (int col = lane; col < KC; col += 32) {
-      s.g[warp][col] = 0.0f;
-      if (two_w) s.h[warp][col] = 0.0f;
-    }
-    __syncwarp();
-    if (live && ln.g == 0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = ln.col(q);
-        if (col >= d_in) continue;
-        float gv = acc[q] * so;
-        if (fold) gv += hv[q];
-        s.g[warp][col - c0] = gv;
-        if (two_w) s.h[warp][col - c0] = hv[q];
-      }
-    }
+    stage(ln, c0, live, so, acc, hv);
 
     // out += g @ W[c0 : c0 + KC] (+ h @ W_self[...]), WK rows of W at a
-    // time (the next slice's loads in flight), 4 of them a step (g and h
-    // read as float4; past kc_end g, h and the staged W are zero)
+    // time (the next slice's loads in flight)
     for (int kw = 0; kw < kc_end; kw += WK) {
       store_w(c0, kc_end, kw);
       __syncthreads();
       if (kw + WK < kc_end) load_w(c0, kc_end, kw + WK);
-#pragma unroll 2
-      for (int kk = 0; kk < WK; kk += 4) {
-        const float4 gv = *reinterpret_cast<const float4*>(&s.g[warp][kw + kk]);
-        const float4 hv4 = two_w
-            ? *reinterpret_cast<const float4*>(&s.h[warp][kw + kk])
-            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float gi = (&gv.x)[u];
-#pragma unroll
-          for (int j = 0; j < CPT; ++j)
-            out[j] = fmaf(gi, s.w[kk + u][lane + 32 * j], out[j]);
-          if (two_w) {
-            const float hi = (&hv4.x)[u];
-#pragma unroll
-            for (int j = 0; j < CPT; ++j)
-              out[j] = fmaf(hi, s.v[kk + u][lane + 32 * j], out[j]);
-          }
-        }
-      }
+      multiply(kw, kc_end, out);
       __syncthreads();
     }
   }
 
-  // bias, ReLU, then the one store
-  if (!live) return;
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int col = j0 + lane + 32 * j;
-    if (col < d_out) {
-      float v = out[j] + (bias != nullptr ? bias[col] : 0.0f);
-      if (relu) v = fmaxf(v, 0.0f);
-      y[row * d_out + col] = v;
-    }
-  }
+  if (live) store(row, out);
 }
 
-template <typename Slots, typename TileT, int E, int V, int CPT>
+template <typename Slots, typename TileT, int E, int V, int CPT,
+          bool STAGED>
 int launch_kernel(cudaStream_t st, int n_row_blocks, Slots slots,
                   const TileT* blocks, const float* x, const float* s_in,
                   const float* s_out, const float* w, const float* bias,
@@ -343,21 +443,23 @@ int launch_kernel(cudaStream_t st, int n_row_blocks, Slots slots,
                   const float* s_in_diag, float* y, int n_src, int n_dst,
                   int bm, int bk, int d_in, int d_out, int add_diag,
                   int relu) {
-  auto kern = kernel<Slots, TileT, E, V, CPT>;
+  auto kern = kernel<Slots, TileT, E, V, CPT, STAGED>;
+  const int smem = Slots::kLists ? SMEM_LIST_BYTES : SMEM_BYTES;
   // above 48 KB of shared memory only on request; set for the current device
   const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(n_row_blocks, (bm + TM - 1) / TM,
                   (d_out + 32 * CPT - 1) / (32 * CPT));
-  kern<<<grid, NT, SMEM_BYTES, st>>>(
+  kern<<<grid, NT, smem, st>>>(
       slots, blocks, x, s_in, s_out, w, bias, w_self, self_coeff, x_self,
       x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in, d_out, add_diag,
       relu);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Slots, typename TileT, int E, int V>
+template <typename Slots, typename TileT, int E, int V,
+          bool STAGED = false>
 int launch_width(cudaStream_t st, int n_row_blocks, Slots slots,
                 const TileT* blocks, const float* x, const float* s_in,
                 const float* s_out, const float* w, const float* bias,
@@ -367,17 +469,17 @@ int launch_width(cudaStream_t st, int n_row_blocks, Slots slots,
                 int bm, int bk, int d_in, int d_out, int add_diag, int relu) {
   // a narrow layer (d_out <= 32) takes 32 output columns a CUDA block
   if (d_out <= 32)
-    return launch_kernel<Slots, TileT, E, V, 1>(
+    return launch_kernel<Slots, TileT, E, V, 1, STAGED>(
         st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
         self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
         d_out, add_diag, relu);
-  return launch_kernel<Slots, TileT, E, V, 4>(
+  return launch_kernel<Slots, TileT, E, V, 4, STAGED>(
       st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
       self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
       d_out, add_diag, relu);
 }
 
-template <typename Slots, typename TileT, int E>
+template <typename Slots, typename TileT, int E, bool STAGED = false>
 int launch_cols(bool float4_cols, cudaStream_t st, int n_row_blocks,
                 Slots slots, const TileT* blocks, const float* x,
                 const float* s_in, const float* s_out, const float* w,
@@ -387,11 +489,11 @@ int launch_cols(bool float4_cols, cudaStream_t st, int n_row_blocks,
                 int n_src, int n_dst, int bm, int bk, int d_in, int d_out,
                 int add_diag, int relu) {
   if (float4_cols)
-    return launch_width<Slots, TileT, E, 4>(
+    return launch_width<Slots, TileT, E, 4, STAGED>(
         st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
         self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
         d_out, add_diag, relu);
-  return launch_width<Slots, TileT, E, 1>(
+  return launch_width<Slots, TileT, E, 1, STAGED>(
       st, n_row_blocks, slots, blocks, x, s_in, s_out, w, bias, w_self,
       self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
       d_out, add_diag, relu);
@@ -436,6 +538,44 @@ int launch(Slots slots, int n_row_blocks, const void* blocks, int tile_is_u8,
       float4_cols, st, n_row_blocks, slots, b, x, s_in, s_out, w, bias, w_self,
       self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, bm, bk, d_in,
       d_out, add_diag, relu);
+}
+
+// The list walk: TM consecutive rows a CUDA block, launched as a tiling of
+// bm = TM rows (bk = 1) with no slots.
+template <bool COEF>
+int launch_lists(RowLists<COEF> lists, const float* x, const float* s_in,
+                 const float* s_out, const float* w, const float* bias,
+                 const float* w_self, const float* self_coeff,
+                 const float* x_self, const float* x_diag,
+                 const float* s_in_diag, float* y, int n_src, int n_dst,
+                 int d_in, int d_out, int add_diag, int relu, void* stream) {
+  if (n_dst == 0) return 0;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool float4_cols = d_in % 4 == 0 && aligned(x)
+                           && !(add_diag && !aligned(x_diag))
+                           && !(w_self != nullptr && !aligned(x_self));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  hubs::launch(lists, x, s_in, x_diag, s_in_diag, d_in, add_diag, st);
+  // where W stays staged (d_in <= WK), one resident wave of blocks takes
+  // every row group in turn; else a block a group
+  int groups = (n_dst + TM - 1) / TM;
+  if (d_in <= WK) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+        == cudaSuccess && sms > 0)
+      groups = groups < sms * kStagedBlocks ? groups : sms * kStagedBlocks;
+    return launch_cols<RowLists<COEF>, float, 1, true>(
+        float4_cols, st, groups, lists, nullptr, x, s_in, s_out, w, bias,
+        w_self, self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, TM,
+        1, d_in, d_out, add_diag, relu);
+  }
+  return launch_cols<RowLists<COEF>, float, 1>(
+      float4_cols, st, groups, lists, nullptr, x, s_in, s_out, w, bias,
+      w_self, self_coeff, x_self, x_diag, s_in_diag, y, n_src, n_dst, TM, 1,
+      d_in, d_out, add_diag, relu);
 }
 
 }  // namespace update

@@ -13,10 +13,16 @@
 // tile entries (slot-major, then k) and let the lanes of a warp read it 16
 // bytes at a time, all of a row's chunks independent of one another:
 // range() and slot_cols().
+//
+// RowLists is the one policy with no tiles (kLists): each destination row's
+// entries, listed by the plan in the order that walk lists them, which the
+// bodies gather directly.
 
 #pragma once
 
 #include <cstdint>
+
+#include "blockell_scan.cuh"
 
 namespace blockell {
 
@@ -31,6 +37,7 @@ struct SlotRange {
 // with no active slot are left unwritten, as on the TPU; the execution plan
 // patches them.
 struct CompactSlots {
+  static constexpr bool kLists = false;
   static constexpr bool kEveryRow = false;
   static constexpr bool kPadding = false;
   const int32_t* row_offsets;   // (R + 1,)
@@ -50,6 +57,7 @@ struct CompactSlots {
 // order.  Every row is written, as the Pallas grid does, so padded
 // plans need no patch.
 struct PaddedSlots {
+  static constexpr bool kLists = false;
   static constexpr bool kEveryRow = true;
   static constexpr bool kPadding = true;
   const int32_t* block_cols;    // (R, W)
@@ -60,6 +68,60 @@ struct PaddedSlots {
   }
   __device__ __forceinline__ const int32_t* slot_cols() const {
     return block_cols;
+  }
+};
+
+// Per-row entry lists (core/blocksparse.py RowLists): row v's entries are
+// [row_ptr[v], row_ptr[v + 1]), each an x row and, with COEF, a
+// coefficient (without it every coefficient is 1: the 0/1 bitmask), in
+// slot-then-k order, so sources ascending: the list a scan of the row's
+// tiles makes, without the tiles.  Every row is written, a row with no
+// entry its self term or zero.
+// The bodies launch it as a tiling of kWarps (spmm) or TM (update) rows a
+// destination block with no slots: range() is empty, so no tile is read,
+// and each warp gathers its row's list instead.  A hub, a row of more than
+// scan::kCap entries, is summed beforehand by a CUDA block of its own
+// (blockell_hubs.cuh) into hub_acc, which its warp then reads in place of
+// a gather.  order, where given, lists the spmm walk's row blocks longest
+// row first, so that the rows that take longest start first.
+template <bool COEF>
+struct RowLists {
+  static constexpr bool kLists = true;
+  static constexpr bool kEveryRow = true;
+  static constexpr bool kPadding = false;
+  const int32_t* row_ptr;   // (n_dst + 1,)
+  const int32_t* src;       // (nnz,)
+  const float* coef;        // (nnz,), read only with COEF
+  const int32_t* hubs;      // (n_hubs,) the hub rows, ascending
+  int n_hubs;
+  float* hub_acc;           // (n_hubs, d): each hub's self term and sum
+  const int32_t* order;     // (ceil(n_dst / kWarps),) or null: in order
+
+  __device__ __forceinline__ SlotRange range(int) const { return {0, 0}; }
+  __device__ __forceinline__ const int32_t* slot_cols() const {
+    return nullptr;
+  }
+  // the entries of row v: where they start, and how many (0 past n_dst)
+  __device__ __forceinline__ void row(long long v, bool live, int& first,
+                                      int& n) const {
+    first = live ? __ldg(row_ptr + v) : 0;
+    n = live ? __ldg(row_ptr + v + 1) - first : 0;
+  }
+  __device__ __forceinline__ scan::GlobalList<COEF> list(int first) const {
+    return scan::GlobalList<COEF>{src, coef}.at(first);
+  }
+  // the row block the b-th CUDA block of the walk takes
+  __device__ __forceinline__ int block(int b) const {
+    return order != nullptr ? __ldg(order + b) : b;
+  }
+  // hub v's place in hubs (v must be one)
+  __device__ __forceinline__ int hub(long long v) const {
+    int lo = 0, hi = n_hubs - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (__ldg(hubs + mid) < v) lo = mid + 1; else hi = mid;
+    }
+    return lo;
   }
 };
 

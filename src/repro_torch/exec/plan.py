@@ -27,9 +27,18 @@ Backends (the reference's ``pallas`` is ``cuda`` here, its ``jnp`` is
     "coo"   : one ``index_add_`` over dst-sorted edges whose weights fold
               in the normalization (the twin of the reference's coo path).
 
+A compact ``cuda`` direction whose tiles would be sparse takes the list
+form instead (``_side_host``): per destination row, the entries a walk
+over its tiles would find (``core.blocksparse.row_lists``), built from the
+edges and read by the compact kernels' list walk; no tile is built.  It
+does so when the lists are fewer bytes than the tiles: below a mean tile
+fill of 1/4 on uint8 tiles (4 B an entry against 1 B a tile entry), 1/2 on
+float32 ones (8 B with the coefficient against 4).  Each direction built
+counts once on the ungated ``exec.plan.directions{form=list|tiles}``.
+
 Rows whose destination block has no active slot are not written by the
-compact kernels; the plan patches them with the analytic diagonal (and
-self) term.  The padded kernels write every row.
+compact tile walk; the plan patches them with the analytic diagonal (and
+self) term.  The list walk and the padded kernels write every row.
 
 Degree-bucketed plans (``buckets="128@7+256"``, see ``bucketing.py``)
 partition destination nodes by in-degree, build one rectangular block-ELL
@@ -63,12 +72,13 @@ import torch
 from .. import obs
 from ..chaos import inject as chaos
 from ..core.blocksparse import (BlockEll, build_blockell, build_blockell_coo,
-                                transpose_graph, traffic_model)
+                                row_lists, transpose_graph, traffic_model)
 from ..device import resolve_device
 from ..graph.structure import Graph
 from ..kernels.ref import (spmm_blockell_compact_ref, spmm_blockell_fused_ref,
                            spmm_blockell_ref)
-from ..kernels.spmm_blockell import (spmm_blockell_compact,
+from ..kernels.spmm_blockell import (Lists, list_arrays,
+                                     spmm_blockell_compact,
                                      spmm_blockell_fused,
                                      spmm_blockell_update,
                                      spmm_blockell_update_compact)
@@ -90,6 +100,7 @@ class SideMeta(NamedTuple):
     C: int
     n_active: int
     n: int            # num_nodes
+    lists: bool = False   # per-row entry lists in place of tiles
 
 
 class BucketMeta(NamedTuple):
@@ -152,10 +163,16 @@ def _diag_fallback(add_diag: bool, a: Dict[str, torch.Tensor],
 
 def _compact_blocks(meta: SideMeta, a: Dict[str, torch.Tensor],
                     x: torch.Tensor) -> torch.Tensor:
+    if meta.n_active == 0:
+        return _diag_fallback(meta.add_diag, a, x)
+    if meta.lists:
+        # the list walk writes every row: nothing to patch
+        return spmm_blockell_compact(
+            None, None, None, x.contiguous(), a["s_in"], a["s_out"],
+            bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag,
+            lists=Lists.of(a))
     # destination blocks with no active slot are never written: patch them
     fb = _diag_fallback(meta.add_diag, a, x)
-    if meta.n_active == 0:
-        return fb
     spmm = (spmm_blockell_compact if meta.backend == "cuda"
             else spmm_blockell_compact_ref)
     y = spmm(a["row_offsets"], a["cols"], a["blocks"], x.contiguous(),
@@ -250,10 +267,17 @@ def _fused_layer(meta, a: Dict[str, torch.Tensor], x: torch.Tensor,
             a["block_cols"], a["blocks"], x, a["s_in"], a["s_out"], w, b,
             w_self, self_coeff, bm=meta.bm, bk=meta.bk,
             add_diag=meta.add_diag, relu=relu))
+    if not meta.n_active:
+        return chaos.mangle("exec.kernel_result", _layer_fallback(
+            meta.add_diag, a, x, w, b, relu, w_self, self_coeff))
+    if meta.lists:
+        # the list walk writes every row: nothing to patch
+        return chaos.mangle("exec.kernel_result", spmm_blockell_update_compact(
+            None, None, None, x, a["s_in"], a["s_out"], w, b, w_self,
+            self_coeff, bm=meta.bm, bk=meta.bk, add_diag=meta.add_diag,
+            relu=relu, lists=Lists.of(a)))
     fb = _layer_fallback(meta.add_diag, a, x, w, b, relu, w_self,
                          self_coeff)
-    if not meta.n_active:
-        return chaos.mangle("exec.kernel_result", fb)
     y = spmm_blockell_update_compact(
         a["row_offsets"], a["cols"], a["blocks"], x, a["s_in"], a["s_out"],
         w, b, w_self, self_coeff, bm=meta.bm, bk=meta.bk,
@@ -318,9 +342,10 @@ class _Aggregate(torch.autograd.Function):
 class GraphExecutionPlan:
     """Everything the hot path needs, compiled from a Graph once.
 
-    The block-ELL structures are built eagerly for the block backends and
-    lazily for ``coo`` (which only needs the sorted edge arrays) and for
-    bucketed plans (which keep one block-ELL per bucket instead)."""
+    The block-ELL structures are built eagerly for the tile directions of
+    the block backends and lazily for ``coo`` (which only needs the sorted
+    edge arrays), for list directions (which hold entry lists instead) and
+    for bucketed plans (which keep one block-ELL per bucket instead)."""
 
     mode: str
     backend: str
@@ -387,7 +412,9 @@ class GraphExecutionPlan:
     def n_active(self) -> int:
         if self.buckets:
             return sum(m.n_active for m in self.meta_fwd.buckets)
-        return self.ell.n_active
+        if self.backend == "coo":
+            return self.ell.n_active
+        return self.meta_fwd.n_active
 
     @property
     def grid_size(self) -> int:
@@ -403,7 +430,7 @@ class GraphExecutionPlan:
         if self.backend == "coo":
             return int(self._fwd["src"].shape[0])
         if self.compact:
-            return self.ell.n_active
+            return self.meta_fwd.n_active
         return self.ell.n_row_blocks * self.ell.width
 
     def describe(self, d: int = 128) -> dict:
@@ -477,10 +504,9 @@ def _tile_dtype(ell: BlockEll, backend: str):
     return np.uint8 if ell.implicit and backend == "cuda" else np.float32
 
 
-def _side_host(g: Graph, bm: int, s_in: np.ndarray, s_out: np.ndarray,
-               backend: str, compact: bool):
-    """One direction's block-ELL and its host arrays: ``(arrays, ell)``."""
-    ell = build_blockell(g, bm=bm, bk=bm, storage="auto")
+def _tile_arrays(ell: BlockEll, s_in: np.ndarray, s_out: np.ndarray,
+                 backend: str, compact: bool) -> Dict[str, np.ndarray]:
+    """A tile direction's host arrays."""
     a = {"s_in": s_in.astype(np.float32), "s_out": s_out.astype(np.float32)}
     if compact:
         comp = ell.compact(_tile_dtype(ell, backend))
@@ -492,7 +518,25 @@ def _side_host(g: Graph, bm: int, s_in: np.ndarray, s_out: np.ndarray,
     else:
         a.update(block_cols=ell.block_cols,
                  blocks=ell.dense_blocks(_tile_dtype(ell, backend)))
-    return a, ell
+    return a
+
+
+def _side_host(g: Graph, bm: int, s_in: np.ndarray, s_out: np.ndarray,
+               backend: str, compact: bool):
+    """One direction's host arrays: ``(arrays, n_active, nbytes, ell)``,
+    ``ell`` None for a list direction (see the module's docstring)."""
+    if backend == "cuda" and compact:
+        lists = row_lists(g, bm=bm, bk=bm)
+        if lists.nbytes() < lists.tile_bytes(bm, bm):
+            obs.counter("exec.plan.directions", gated=False, form="list").inc()
+            a = {"s_in": s_in.astype(np.float32),
+                 "s_out": s_out.astype(np.float32),
+                 **list_arrays(lists.row_ptr, lists.src, lists.coef)}
+            return a, lists.n_active, lists.nbytes(), None
+    obs.counter("exec.plan.directions", gated=False, form="tiles").inc()
+    ell = build_blockell(g, bm=bm, bk=bm, storage="auto")
+    return (_tile_arrays(ell, s_in, s_out, backend, compact), ell.n_active,
+            ell.storage_bytes(), ell)
 
 
 def _bucketed_side_host(g: Graph, scheme, s_in: np.ndarray,
@@ -518,6 +562,7 @@ def _bucketed_side_host(g: Graph, scheme, s_in: np.ndarray,
         local_of[idx] = np.arange(idx.size)
     dst_bucket = bucket_of[dst]
 
+    obs.counter("exec.plan.directions", gated=False, form="tiles").inc()
     metas, buckets_a = [], []
     node_active = np.zeros(n, bool)
     plan_bytes = 0
@@ -597,13 +642,16 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     exact 0/1 bitmask whenever it is exact (``storage="auto"``).  Edge
     weights are dropped unless ``weighted=True``, which composes with
     ``mode="sum"`` only: the plan then computes ``A_w x`` over the weighted
-    adjacency, on float32 tiles for ``cuda``.
+    adjacency, on float32 tiles (or a list's coefficients) for ``cuda``.
 
-    A block plan builds each direction in two timed phases: its tiles and
-    host arrays, then their copy to ``device`` (``exec.plan.tiles`` and
-    ``exec.plan.upload`` spans under ``exec.plan.compile``, and one
-    observation each of the ungated ``exec.plan.tiles_seconds`` and
-    ``exec.plan.upload_seconds`` histograms)."""
+    A compact ``cuda`` plan holds each direction as per-row entry lists
+    where they are fewer bytes than its tiles (the module's docstring).  A
+    block plan builds each direction in two timed phases: its tiles or
+    lists and other host arrays, then their copy to ``device``
+    (``exec.plan.tiles`` and ``exec.plan.upload`` spans under
+    ``exec.plan.compile``, and one observation each of the ungated
+    ``exec.plan.tiles_seconds`` and ``exec.plan.upload_seconds``
+    histograms)."""
     dev = resolve_device(device)
     scheme = parse_bucket_sig(buckets)
     if scheme:
@@ -631,10 +679,10 @@ def build_plan(g: Graph, mode: str = "gcn", *,
     R = int(np.ceil(g.num_nodes / bm))
     C = int(np.ceil(g.num_nodes / bk))
 
-    def meta_for(n_active: int) -> SideMeta:
+    def meta_for(n_active: int, lists: bool = False) -> SideMeta:
         return SideMeta(backend=backend, compact=compact, add_diag=add_diag,
                         bm=bm, bk=bk, R=R, C=C, n_active=n_active,
-                        n=g.num_nodes)
+                        n=g.num_nodes, lists=lists)
 
     plan_bytes = 0
     occupancy: list = []
@@ -662,14 +710,13 @@ def build_plan(g: Graph, mode: str = "gcn", *,
             bwd = _coo_arrays(g_adj_t, s_out, s_in, add_diag, weighted, dev)
             meta_f, meta_b = meta_for(0), meta_for(0)
         else:
-            fwd, ell = _direction(lambda: _side_host(
+            fwd, n_f, bytes_f, ell = _direction(lambda: _side_host(
                 g_adj, bm, s_in, s_out, backend, compact), dev)
-            bwd, ell_t = _direction(lambda: _side_host(
+            bwd, n_b, bytes_b, ell_t = _direction(lambda: _side_host(
                 g_adj_t, bm, s_out, s_in, backend, compact), dev)
-            meta_f, meta_b = meta_for(ell.n_active), meta_for(ell_t.n_active)
-            sp.set(n_active=ell.n_active,
-                   plan_bytes=int(ell.storage_bytes()
-                                  + ell_t.storage_bytes()))
+            meta_f = meta_for(n_f, lists=ell is None)
+            meta_b = meta_for(n_b, lists=ell_t is None)
+            sp.set(n_active=n_f, plan_bytes=int(bytes_f + bytes_b))
     obs.counter("exec.plan.compiles", backend=backend).inc()
     return GraphExecutionPlan(
         mode=mode, backend=backend, compact=compact, bm=bm, bk=bk,

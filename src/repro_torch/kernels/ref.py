@@ -86,6 +86,59 @@ def spmm_blockell_update_compact_ref(
     return torch.where(written[:, None], y, torch.zeros_like(y))
 
 
+def spmm_blockell_lists_ref(row_ptr: torch.Tensor, src: torch.Tensor,
+                            coef: Optional[torch.Tensor], x: torch.Tensor,
+                            s_in: torch.Tensor, s_out: torch.Tensor,
+                            x_diag: Optional[torch.Tensor] = None,
+                            s_in_diag: Optional[torch.Tensor] = None, *,
+                            add_diag: bool) -> torch.Tensor:
+    """:func:`spmm_blockell_compact_ref` over per-row entry lists: row v
+    sums ``coef_e · s_in ⊙ x[src_e]`` over its entries ``[row_ptr[v],
+    row_ptr[v + 1])`` (coef None: every one 1), the self term and s_out as
+    the tile version applies them.  Returns (n_dst, d), every row written
+    (a row with no entry holds its self term or zero)."""
+    n_dst = s_out.shape[0]
+    xs = x * s_in[:, None]
+    msgs = xs[src.long()]
+    if coef is not None:
+        msgs = msgs * coef[:, None]
+    rows = torch.repeat_interleave(torch.arange(n_dst, device=x.device),
+                                   torch.diff(row_ptr.long()))
+    acc = x.new_zeros((n_dst, x.shape[1])).index_add_(0, rows, msgs)
+    if add_diag:
+        xd = x if x_diag is None else x_diag
+        sd = s_in if s_in_diag is None else s_in_diag
+        acc = acc + xd[:n_dst] * sd[:n_dst, None]
+    return acc * s_out[:, None]
+
+
+def spmm_blockell_update_lists_ref(
+        row_ptr: torch.Tensor, src: torch.Tensor,
+        coef: Optional[torch.Tensor], x: torch.Tensor, s_in: torch.Tensor,
+        s_out: torch.Tensor, w: torch.Tensor,
+        bias: Optional[torch.Tensor] = None,
+        w_self: Optional[torch.Tensor] = None,
+        self_coeff: Optional[torch.Tensor] = None,
+        x_self: Optional[torch.Tensor] = None,
+        x_diag: Optional[torch.Tensor] = None,
+        s_in_diag: Optional[torch.Tensor] = None, *, add_diag: bool,
+        relu: bool = False) -> torch.Tensor:
+    """:func:`spmm_blockell_update_compact_ref` over per-row entry lists
+    (the aggregation of :func:`spmm_blockell_lists_ref`); every row
+    written."""
+    n_dst = s_out.shape[0]
+    y = spmm_blockell_lists_ref(row_ptr, src, coef, x, s_in, s_out, x_diag,
+                                s_in_diag, add_diag=add_diag) @ w
+    if w_self is not None:
+        xs = (x if x_self is None else x_self)[:n_dst] @ w_self
+        y = y + (xs if self_coeff is None else self_coeff * xs)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # the padded (R, W) slot grid
 # ---------------------------------------------------------------------------

@@ -40,6 +40,9 @@ against its plain version: fp32 1e-4 and bf16 3e-2, the reference's bars
 row.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -56,6 +59,9 @@ from repro_torch.kernels.ref import (spmm_blockell_compact_ref,
                                      spmm_blockell_update_ref)
 from repro_torch.serve import (EmbeddingCache, MicroBatcher, ServeEngine,
                                make_session, zipfian_trace)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the script at the repository's root)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -718,7 +724,7 @@ def test_update_kernels_on_a_transposed_hub(walk):
     assert int(np.bincount(g.src).max()) == 337      # the hub's list
     plan = build_plan(g, "sum", bm=128, backend="cuda",
                       compact=walk == "compact", device="cuda")
-    a = plan._bwd
+    a = chip_smoke.tile_arrays(plan, transposed=True)
     n = g.num_nodes
     gen = torch.Generator("cuda").manual_seed(11)
     x = torch.randn(n, 128, device="cuda", generator=gen)
@@ -1465,7 +1471,9 @@ def test_weighted_sum_plan_gradient_on_the_card(form):
         plan = build_plan(g, "sum", backend=backend, weighted=True,
                           device="cuda", **form)
         if backend == "cuda" and not form.get("buckets"):
-            assert plan._fwd["blocks"].dtype == torch.float32
+            # the float32 tiles' entries: coefficients of a list plan
+            key = "coef" if form.get("compact") else "blocks"
+            assert plan._fwd[key].dtype == torch.float32
         xg = x.clone().requires_grad_()
         y = plan.apply(xg)
         y.backward(cot)

@@ -15,6 +15,8 @@ Tolerance 1e-5 of the largest |entry| (fp32 sums in another order).
 """
 import datetime
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +26,9 @@ import torch.distributed as dist
 from repro_torch.core import minhash_reorder
 from repro_torch.core.aggregate import segment_sum
 from repro_torch.graph import DatasetSpec, synthesize
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the script at the repository's root)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -67,7 +72,12 @@ def test_elastic_shards_on_the_card(tmp_path, monkeypatch, d, normed):
     plans = [s.plan.plan_for(s.plan.backend) for s in agg.topology.shards]
     tiles = torch.float32 if normed else torch.uint8
     assert all(p.backend == "cuda" for p in plans)
-    assert all(p._fwd["blocks"].dtype == tiles for p in plans)
+    # the shards' plans hold entry lists; their tiles, as the tile walk
+    # would read them, are the bitmask or the weights
+    assert all(p.meta_fwd.lists and p.meta_bwd.lists for p in plans)
+    assert all(("coef" in p._fwd) == normed for p in plans)
+    assert all(chip_smoke.tile_arrays(p)["blocks"].dtype == tiles
+               for p in plans)
     gen = torch.Generator(device="cuda").manual_seed(d)
     x = torch.randn((g.num_nodes, d), generator=gen, device="cuda")
     r = torch.randn((g.num_nodes, d), generator=gen, device="cuda")

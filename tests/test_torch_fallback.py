@@ -415,7 +415,7 @@ WEIGHTED = [("coo", dict()), ("torch", dict(compact=True)),
 def test_weighted_sum_plans_match_reference(backend, kw, masked):
     """``weighted=True`` sum plans, forward and backward (the transpose
     plan), against the reference's weighted jnp plan; the cuda plans carry
-    float32 tiles, as on the card."""
+    float32 coefficients (the entries of float32 tiles), as on the card."""
     g = _weighted_graph(masked)
     rng = np.random.default_rng(6)
     x = rng.standard_normal((g.num_nodes, 24)).astype(np.float32)
@@ -426,7 +426,8 @@ def test_weighted_sum_plans_match_reference(backend, kw, masked):
     plan = build_plan(to_port(g), "sum", backend=backend, weighted=True,
                       device="cpu", **kw)
     if backend == "cuda" and not kw.get("buckets"):
-        assert plan._fwd["blocks"].dtype == torch.float32
+        key = "coef" if kw["compact"] else "blocks"   # lists or tiles
+        assert plan._fwd[key].dtype == torch.float32
     xt = torch.as_tensor(x).requires_grad_()
     y = plan.apply(xt)
     y.backward(torch.as_tensor(gy))
@@ -462,8 +463,9 @@ def test_weights_dropped_unless_weighted():
         a = build_plan(pg, "sum", backend=backend, device="cpu")
         b = build_plan(plain, "sum", backend=backend, device="cpu")
         torch.testing.assert_close(a.apply(x), b.apply(x), rtol=0, atol=0)
-    assert build_plan(pg, "sum", backend="cuda",
-                      device="cpu")._fwd["blocks"].dtype == torch.uint8
+    # unit entries: no coefficient (the uint8 bitmask's)
+    assert "coef" not in build_plan(pg, "sum", backend="cuda",
+                                    device="cpu")._fwd
 
 
 def test_weighted_tiles_match_the_reference():

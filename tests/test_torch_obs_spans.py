@@ -9,7 +9,9 @@ Tolerances: a span mapped onto the profiler's clock lies inside the
 and the ``perf_counter`` read after it are a few µs apart); everything
 else is exact.
 """
+import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro_torch import obs
 from repro_torch.exec import build_layer_plan, build_plan
 from repro_torch.graph import DatasetSpec, synthesize
 from repro_torch.train import adam, fit, make_train_step
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the script at the repository's root)
 
 STEP_SPANS = ("train.forward", "train.backward", "train.clip",
               "train.update")
@@ -246,11 +251,19 @@ def test_plan_phase_histograms_record_with_obs_disabled(kw, observed):
 
 def test_plan_arrays_are_what_the_host_built():
     """The upload copies the host arrays as they are: dtypes and values of
-    both directions match a block-ELL built directly."""
-    from repro_torch.core.blocksparse import build_blockell, transpose_graph
+    both directions match entry lists and a block-ELL built directly (the
+    plan's tiles, as ``tile_arrays`` builds them for a list plan)."""
+    from repro_torch.core.blocksparse import (build_blockell, row_lists,
+                                              transpose_graph)
     g = _graph()
     p = build_plan(g, "gcn", bm=32, backend="cuda", device="cpu")
-    for side, gg in ((p._fwd, g), (p._bwd, transpose_graph(g))):
+    for side, gg, t in ((p._fwd, g, False),
+                        (p._bwd, transpose_graph(g), True)):
+        lists = row_lists(gg, bm=32, bk=32)
+        assert side["row_ptr"].dtype == side["src"].dtype == torch.int32
+        assert np.array_equal(side["row_ptr"].numpy(), lists.row_ptr)
+        assert np.array_equal(side["src"].numpy(), lists.src)
+        side = chip_smoke.tile_arrays(p, transposed=t)
         comp = build_blockell(gg, bm=32, bk=32,
                               storage="auto").compact(np.uint8)
         assert side["blocks"].dtype == torch.uint8

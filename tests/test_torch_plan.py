@@ -15,6 +15,8 @@ products of magnitude ~1 into entries up to ~60, so an entry near zero
 carries ~1e-5 of rounding whatever order the sum takes.
 """
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +31,9 @@ from repro_torch.exec import build_layer_plan, build_plan, choose_order
 from repro_torch.kernels import spmm_blockell as sk
 
 from _torch_parity import GRAPHS, to_port
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the script at the repository's root)
 
 TOL = 1e-5
 BM = 32
@@ -81,9 +86,13 @@ def test_cuda_backend_geometry_matches_reference():
     assert p.n_active == p.grid_size == ref.n_active == ref.grid_size
     assert p.meta_fwd.R == ref.meta_fwd.R and p.meta_fwd.C == ref.meta_fwd.C
     assert p.describe(16)["nnz"] == ref.describe(16)["nnz"]
-    # the offsets handed to the kernel cover every active slot
-    offs = p._fwd["row_offsets"]
+    # the offsets of the plan's tiles cover every active slot; the lists
+    # the kernel is handed cover every set entry
+    offs = chip_smoke.tile_arrays(p)["row_offsets"]
     assert offs.dtype == torch.int32 and int(offs[-1]) == p.n_active
+    assert p.meta_fwd.lists and "blocks" not in p._fwd
+    ptr = p._fwd["row_ptr"]
+    assert ptr.dtype == torch.int32 and int(ptr[-1]) == p.describe(16)["nnz"]
 
 
 def test_cpu_plan_never_launches_the_kernel():

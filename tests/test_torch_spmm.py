@@ -15,6 +15,8 @@ The kernels themselves against their plain versions are in
 ``test_torch_cuda.py`` (they need the card).
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +34,9 @@ from repro_torch.kernels.ref import (spmm_blockell_compact_ref,
                                      spmm_blockell_update_compact_ref)
 
 from _torch_parity import GRAPHS, to_port
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the script at the repository's root)
 
 TOL = 1e-5
 BM = 32
@@ -177,7 +182,8 @@ def test_update_plain_version_matches_pallas_kernel(gname, mode, epilogue):
                               compact=True, interpret=True)
     port_plan = build_plan(to_port(g), mode, bm=LAYER_BM, backend="cuda",
                            device="cpu")
-    a = port_plan._fwd
+    # the tile walk's plain version
+    a = chip_smoke.tile_arrays(port_plan)
     written = a["node_active"].numpy()
     assert 0 < written.sum() <= g.num_nodes
     t = lambda v: None if v is None else torch.as_tensor(v)
