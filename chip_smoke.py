@@ -8,9 +8,22 @@
 2. Builds every kernel from ``src/repro_torch/csrc`` with nvcc into
    ``build/`` (one nvcc per source, all started together) and prints the
    build time and ptxas's register and spill report.
-3. Kernel phases (``sddmm``, ``embedding_bag`` and ``decode_attention`` in
-   5, 7 and 8; the block-ELL kernels at GraphSAGE's shapes in 6), each
-   kernel
+3. GAT at the benchmark cell ``gat-reddit.full``'s shapes first
+   (``gat_phases``): the cell's graph (``h100bench/configs/gat-reddit.json``
+   through the benchmark's generator, MinHash's order, 58,241 nodes, about
+   27.9 M edges plus a self loop a node) and its attention plan (hubs both
+   ways); ``gat_attention`` and ``gat_attention_bwd`` at (4 heads, 256)
+   and (6, 6) against ``gat_attention_ref`` / ``gat_attention_bwd_ref`` in
+   float64, run by blocks of rows (out, lse, dz, ds_src and ds_dst within
+   ``KERNEL_TOL`` of each output's largest entry), reruns bit-identical,
+   each entry point timed beside a bound from its lists and rows; then one
+   training step of the cell's model through ``gat_loss(executor="fused")``
+   and ``make_train_step`` with every launch count zeroed just before it
+   (exactly 3 of each GAT kernel and no other), and the step's ms, busy
+   share and ``gat::`` device time.
+   Then kernel phases (``sddmm``, ``embedding_bag`` and
+   ``decode_attention`` in 5, 7 and 8; the block-ELL kernels at
+   GraphSAGE's shapes in 6), each kernel
    against its plain PyTorch version on the card
    (tolerances below), timed with CUDA events beside its bound:
    ``spmm_blockell_compact`` on the GCN serving plan of ``cora_like(seed=0)``
@@ -309,6 +322,11 @@ KERNELS = {
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:59", "decode_attention"),
+    # no TPU kernel: the reference's GAT runs jax.ops.segment_*
+    "gat_attention": (
+        "src/repro_torch/csrc/gat_attention.cu", None, "gat_attention"),
+    "gat_attention_bwd": (
+        "src/repro_torch/csrc/gat_attention_bwd.cu", None, "gat_attention"),
 }
 # NVIDIA H100 SXM data sheet (roofline.hw): bf16 on the tensor cores (the
 # peak for the decode-attention cases whose inputs are bf16)
@@ -5449,6 +5467,276 @@ def dist_phases(torch, dev, g):
 
 
 # ---------------------------------------------------------------------------
+# GAT at the shapes of the benchmark's cell gat-reddit.full
+# ---------------------------------------------------------------------------
+GAT_CONFIG = ROOT / "h100bench" / "configs" / "gat-reddit.json"
+# the largest (entries, H, F) temporary the blocked plain versions hold at
+# once, in values (2 GiB in float64)
+GAT_BLOCK_VALUES = 2 ** 28
+GAT_SLOPE = 0.2
+# per entry and head, as h100bench/metrics/_gat_work.py counts them: the
+# score, LeakyReLU, running max, shift, exponential and sum (forward); the
+# recomputed weight, the row term and the two sums (backward)
+GAT_SCORE_FLOPS = {"fwd": 7, "bwd": 10}
+
+
+def gat_graph(torch):
+    """The configuration of the cell and its graph as the cell's driver
+    builds it: the benchmark's generator at the configuration's sizes, then
+    MinHash's order; and the host seconds both took."""
+    from h100bench.harness import graphgen
+    from repro_torch.core import minhash_reorder
+    from repro_torch.graph.structure import Graph
+
+    cfg = json.loads(GAT_CONFIG.read_text())
+    t0 = time.perf_counter()
+    topo = graphgen.synthesize(cfg["graph"])
+    g = Graph(src=topo["src"], dst=topo["dst"], num_nodes=topo["num_nodes"],
+              labels=topo["labels"], train_mask=topo["train_mask"])
+    g = g.permute(minhash_reorder(g))
+    return cfg, g, time.perf_counter() - t0
+
+
+def gat_row_blocks(torch, row_ptr, per_entry: int) -> list:
+    """``(a, b)`` cuts of the rows of ``row_ptr`` whose entries times
+    ``per_entry`` stay within ``GAT_BLOCK_VALUES`` (a longer row alone)."""
+    ptr = row_ptr.long().cpu()
+    n, cap = ptr.numel() - 1, max(1, GAT_BLOCK_VALUES // per_entry)
+    cuts, a = [], 0
+    while a < n:
+        b = int(torch.searchsorted(ptr, ptr[a] + cap, right=True)) - 1
+        b = min(n, max(b, a + 1))
+        cuts.append((a, b))
+        a = b
+    return cuts
+
+
+def gat_plain_fwd(torch, lists, z, s_src, s_dst, slope=GAT_SLOPE):
+    """``gat_attention_ref`` by blocks of destination rows, so that no
+    (E', H, F) tensor exists: ``(out, lse)``."""
+    from repro_torch.kernels.ref import gat_attention_ref
+
+    n_dst, H = s_dst.shape
+    out = z.new_empty((n_dst, H, z.shape[2]))
+    lse = z.new_empty((n_dst, H))
+    ptr = lists.row_ptr.long().cpu()
+    for a, b in gat_row_blocks(torch, lists.row_ptr, H * z.shape[2]):
+        out[a:b], lse[a:b] = gat_attention_ref(
+            lists.row_ptr[a:b + 1] - lists.row_ptr[a],
+            lists.src[int(ptr[a]):int(ptr[b])], z, s_src, s_dst[a:b],
+            negative_slope=slope)
+    return out, lse
+
+
+def gat_plain_bwd(torch, lists_t, z, s_src, s_dst, lse, row_dot, dout,
+                  slope=GAT_SLOPE):
+    """``gat_attention_bwd_ref`` by blocks of transposed rows (sources),
+    so that no (E', H, F) tensor exists: ``(dz, ds_src, ds_dst)``.  A
+    block's dz and ds_src are its own rows; its entries reach ds_dst
+    through the plain version's forward places, here the block's entries
+    sorted by their destination row, and the blocks' parts are added."""
+    from repro_torch.kernels.ref import gat_attention_bwd_ref
+
+    H, F = z.shape[1:]
+    n_dst = s_dst.shape[0]
+    dz, ds_src = torch.empty_like(z), torch.empty_like(s_src)
+    ds_dst = torch.zeros_like(s_dst)
+    ptr = lists_t.row_ptr.long().cpu()
+    for a, b in gat_row_blocks(torch, lists_t.row_ptr, H * F):
+        i = lists_t.src[int(ptr[a]):int(ptr[b])].long()
+        order = torch.argsort(i, stable=True)
+        place = torch.empty_like(order)
+        place[order] = torch.arange(order.numel(), device=order.device)
+        row_ptr = torch.zeros(n_dst + 1, dtype=torch.long, device=i.device)
+        row_ptr[1:] = torch.cumsum(torch.bincount(i, minlength=n_dst), 0)
+        dz[a:b], ds_src[a:b], part = gat_attention_bwd_ref(
+            row_ptr, lists_t.row_ptr[a:b + 1] - lists_t.row_ptr[a], i, place,
+            z[a:b], s_src[a:b], s_dst, lse, row_dot, dout,
+            negative_slope=slope)
+        ds_dst += part
+    return dz, ds_src, ds_dst
+
+
+def gat_list_bytes(lists) -> int:
+    """A direction's lists: row pointers, entries, hub rows, walk order."""
+    return 4 * sum(t.numel() for t in (lists.row_ptr, lists.src, lists.hubs)
+                   ) + (0 if lists.order is None else 4 * lists.order.numel())
+
+
+def gat_case(torch, dev, plan, H, F, weight, gen, what):
+    """Both GAT kernels at (H heads, F columns) on ``plan``: each output
+    against its plain version in float64 within ``KERNEL_TOL`` of the
+    output's largest entry, a rerun bit-identical; each entry point timed
+    (the forward: walk and hub pass; the backward: walk, hub pass and
+    dst_sum; the wrapper's row term ``Σ_F dout ⊙ out`` outside) beside its
+    bound and the plain versions in float32.  The bound reads z, the
+    scores and dout once, writes each output once, reads the lists, and
+    the backward's (E', H) scratch is written and read once."""
+    from repro_torch.kernels import gat_attention as ga
+    from repro_torch.kernels.spmm_blockell import Lists
+
+    fwd, bwd = Lists.of(plan.fwd), Lists.of(plan.bwd)
+    pos = plan.bwd["fwd_pos"]
+    n, nnz = plan.num_nodes, plan.nnz
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    z, s_src, s_dst, dout = r(n, H, F), r(n, H), r(n, H), r(n, H, F)
+    out, lse = ga.gat_attention(fwd, z, s_src, s_dst,
+                                negative_slope=GAT_SLOPE)
+    grads = ga.gat_attention_bwd(fwd, bwd, pos, z, s_src, s_dst, lse, out,
+                                 dout, negative_slope=GAT_SLOPE)
+    again = ga.gat_attention(fwd, z, s_src, s_dst, negative_slope=GAT_SLOPE)
+    again += ga.gat_attention_bwd(fwd, bwd, pos, z, s_src, s_dst, lse, out,
+                                  dout, negative_slope=GAT_SLOPE)
+    torch.cuda.synchronize()
+    got = (out, lse) + tuple(grads)
+    names = ("out", "lse", "dz", "ds_src", "ds_dst")
+    for name, a, b in zip(names, got, again):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {name} not finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} rerun not bit-identical")
+    d = lambda t: t.double()
+    row_dot64 = torch.sum(d(dout) * d(out), dim=-1)
+    want = gat_plain_fwd(torch, fwd, d(z), d(s_src), d(s_dst))
+    want += gat_plain_bwd(torch, bwd, d(z), d(s_src), d(s_dst), d(lse),
+                          row_dot64, d(dout))
+    errors = {name: assert_close_scaled(a.double(), b, KERNEL_TOL,
+                                        f"{what} {name}", floor=0.0)
+              for name, a, b in zip(names, got, want)}
+    del want, row_dot64, again
+
+    row_dot = torch.sum(dout * out, dim=-1)
+    dz, ds_src, ds_dst = (torch.empty_like(t) for t in grads)
+    scratch = torch.empty((nnz, H), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
+    raw = {
+        "gat_attention": (
+            fwd.row_ptr.data_ptr(), fwd.src.data_ptr(), fwd.hubs.data_ptr(),
+            ptr(fwd.order), z.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), fwd.hubs.numel(), n, H, F,
+            GAT_SLOPE, stream),
+        "gat_attention_bwd": (
+            fwd.row_ptr.data_ptr(), bwd.row_ptr.data_ptr(),
+            bwd.src.data_ptr(), bwd.hubs.data_ptr(), ptr(bwd.order),
+            pos.data_ptr(), z.data_ptr(), s_src.data_ptr(), s_dst.data_ptr(),
+            lse.data_ptr(), row_dot.data_ptr(), dout.data_ptr(),
+            dz.data_ptr(), ds_src.data_ptr(), ds_dst.data_ptr(),
+            scratch.data_ptr(), bwd.hubs.numel(), n, n, H, F, GAT_SLOPE,
+            stream)}
+    rows, node = 4 * n * H * F, 4 * n * H
+    work = {
+        "gat_attention": (
+            gat_list_bytes(fwd) + 2 * rows + 4 * node,
+            2 * nnz * H * F + GAT_SCORE_FLOPS["fwd"] * nnz * H),
+        "gat_attention_bwd": (
+            gat_list_bytes(bwd) + 4 * (n + 1) + 4 * nnz + 3 * rows
+            + 6 * node + 2 * 4 * nnz * H,
+            4 * nnz * H * F + GAT_SCORE_FLOPS["bwd"] * nnz * H)}
+    plain32 = {
+        "gat_attention": lambda: gat_plain_fwd(torch, fwd, z, s_src, s_dst),
+        "gat_attention_bwd": lambda: gat_plain_bwd(
+            torch, bwd, z, s_src, s_dst, lse, row_dot, dout)}
+    outputs = {"gat_attention": ("out", "lse"),
+               "gat_attention_bwd": ("dz", "ds_src", "ds_dst")}
+    cases = []
+    for name in ("gat_attention", "gat_attention_bwd"):
+        fn, args = ga._kernel_fn(name), raw[name]
+
+        def launch():
+            if fn(*args):
+                raise RuntimeError(f"{name} launch failed")
+
+        nbytes, ops = work[name]
+        case = {"kernel": name, "case": what, "weight": weight,
+                "nodes": n, "entries": nnz,
+                "hubs": [fwd.hubs.numel(), bwd.hubs.numel()],
+                "errors": {k: errors[k] for k in outputs[name]},
+                "max_abs_err": max(errors[k] for k in outputs[name]),
+                "ms": gpu_ms(launch, n_inner=2, reps=5, warmup=1),
+                "plain_ms": gpu_ms(plain32[name], n_inner=1, reps=1,
+                                   warmup=0),
+                "library_ms": None, **bound(nbytes, ops)}
+        print("case " + json.dumps(case))
+        cases.append(case)
+    return cases
+
+
+def gat_step(torch, dev, cfg, g, plan):
+    """One training step of the cell's model through the main path
+    (``gat_loss(executor="fused")`` under ``make_train_step``: Adam and the
+    clip of the configuration), every launch count zeroed just before it;
+    then ``step_breakdown`` over more steps with the ``gat::`` kernels'
+    device time."""
+    from h100bench.harness import graphgen
+    from repro_torch.models.gat import gat_init, gat_loss
+    from repro_torch.train import adam, make_train_step
+
+    dims, heads, tr = cfg["dims"], cfg["heads"], cfg["train"]
+    gen = torch.Generator(device=dev).manual_seed(36)
+    params = gat_init(gen, dims[0], dims[1], heads[0], dims[-1],
+                      len(heads), device=dev, out_heads=heads[-1])
+    labels = torch.as_tensor(g.labels, device=dev).long()
+    batch = {"x": graphgen.make_features(cfg["graph"], labels, 36, dev),
+             "labels": labels,
+             "mask": torch.as_tensor(g.train_mask, device=dev)}
+    opt = adam(tr["lr"], tr["b1"], tr["b2"], tr["eps"])
+    step = make_train_step(
+        lambda p, b: gat_loss(p, b["x"], None, b["labels"], b["mask"],
+                              executor="fused", plan=plan, skip=cfg["skip"],
+                              self_loops=cfg["self_loops"]),
+        opt, clip_norm=tr["clip_norm"])
+    state = opt.init(params)
+    reset_launches()
+    params, state, loss = step(params, state, batch)
+    launches = read_launches(torch)
+    want = {**dict.fromkeys(KERNELS, 0),
+            "gat_attention": len(heads), "gat_attention_bwd": len(heads)}
+    if launches != want:
+        raise AssertionError(f"GAT step launched {launches}, want {want}")
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"GAT step loss {float(loss)}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    br = step_breakdown(torch, "gat-reddit step", step, params, state, batch,
+                        watch={"gat": "gat::"})
+    report = {"launches": launches, "loss": float(loss),
+              "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "breakdown": br}
+    return launches, report
+
+
+def gat_phases(torch, dev):
+    """GAT at the cell's shapes (the module's docstring, 3): the kernels'
+    cases and the step's launches and report."""
+    import collections
+    import gc
+    from repro_torch.exec.gat import build_attention_plan
+
+    t0 = time.perf_counter()
+    cfg, g, graph_s = gat_graph(torch)
+    t1 = time.perf_counter()
+    plan = build_attention_plan(g, self_loops=cfg["self_loops"], device=dev)
+    torch.cuda.synchronize()
+    report = {"graph_s": graph_s, "plan_s": time.perf_counter() - t1,
+              "edges": g.num_edges, **plan.describe()}
+    print("GAT plan: " + json.dumps(report))
+    gen = torch.Generator(device=dev).manual_seed(3600)
+    cases = []
+    for (H, F), weight in collections.Counter(
+            zip(cfg["heads"], cfg["dims"][1:])).items():
+        cases += gat_case(torch, dev, plan, H, F, weight, gen,
+                          f"gat-reddit {H}x{F} ({plan.nnz} entries, "
+                          f"{report['hubs']} / {report['hubs_t']} hubs)")
+    launches, report["step"] = gat_step(torch, dev, cfg, g, plan)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"GAT phases: {report['wall_s']:.1f}s")
+    del plan, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases, launches, report
+
+
+# ---------------------------------------------------------------------------
 # the rest of the GNN zoo: GAT, PNA, NequIP
 # ---------------------------------------------------------------------------
 ZOO_ARCHS = ("gat-cora", "pna", "nequip")
@@ -6320,6 +6608,9 @@ def main() -> int:
         for line in ptxas_report(info["log"]):
             print("  " + line)
 
+    paths = {}
+    gat_cases, paths["gat-reddit training step (fused)"], gat_report = \
+        gat_phases(torch, dev)
     g_train = training_graph()
     compact_cases = serving_kernel_phase(torch, dev)
     compact_cases += training_compact_phase(torch, dev, g_train)
@@ -6330,7 +6621,7 @@ def main() -> int:
     spmm_cases, fused_cases, padded_update_cases = padded_phase(torch, dev,
                                                                 g_train)
 
-    paths = {"serving": serving_phase(torch)}
+    paths["serving"] = serving_phase(torch)
     gcn_launches, fused_launches, gcn_losses, gcn_report = \
         gcn_autotune_phase(torch, dev, g_train)
     paths["gcn-cora training (autotuned)"] = gcn_launches
@@ -6471,13 +6762,31 @@ def main() -> int:
     ]
     kernels[-1]["peaks"] = ("H100 SXM data sheet: 989 TFLOP/s bf16 (the "
                             "main case's inputs), 3.35 TB/s")
+    gat_work = ("one gat-reddit.full training step's launches on the cell's "
+                "MinHash-ordered graph (58,241 nodes, 27.9 M edges plus a "
+                "self loop a node, hubs both ways): 4 heads x 256 twice "
+                "(layers 1 and 2), 6 x 6 once (layer 3)")
+    of = lambda name: [c for c in gat_cases if c["kernel"] == name]
+    kernels += [
+        kernel_row("gat_attention", of("gat_attention"),
+                   total["gat_attention"],
+                   "the forward (gat::fwd::walk, gat::fwd::hubs) at "
+                   + gat_work + "; plain: gat_attention_ref by blocks of "
+                   "rows; library: none"),
+        kernel_row("gat_attention_bwd", of("gat_attention_bwd"),
+                   total["gat_attention_bwd"],
+                   "the backward (gat::bwd::walk, gat::bwd::hubs, "
+                   "gat::bwd::dst_sum; the wrapper's row term outside) at "
+                   + gat_work + "; plain: gat_attention_bwd_ref by blocks "
+                   "of sources; library: none"),
+    ]
     # the full report, too long for the end of the output, beside the
     # kernels' builds in the checkout's ignored build/ directory
     (_build.build_dir() / "chip_smoke.json").write_text(json.dumps({
         "card": smi.stdout.strip(), "kernels": kernels, "paths": paths,
         "cases": (spmm_cases + fused_cases + compact_cases
                   + padded_update_cases + update_cases + sddmm_cases
-                  + bag_cases + decode_cases),
+                  + bag_cases + decode_cases + gat_cases),
         "gcn_autotune": gcn_report, "gin": gin_report, "sage": sage_report,
         "quickstart": quickstart_report, "gcn_blockell": gcn_ell_report,
         "gin_shared": gin_shared_report,
@@ -6485,7 +6794,8 @@ def main() -> int:
         "lm_training": lm_train_report, "moe": moe_report,
         "fallback": fallback_report, "observability": obs_report,
         "dist": dist_report,
-        "gnn_zoo": zoo_report, "drill": drill_report,
+        "gnn_zoo": zoo_report, "gat_reddit": gat_report,
+        "drill": drill_report,
         "roofline": roofline_report, "gnn_recsys_mesh": mesh_report,
         "builds": {k: v["seconds"] for k, v in _build.BUILD_LOG.items()}},
         indent=1, default=str))

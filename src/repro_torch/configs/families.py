@@ -25,6 +25,7 @@ from ..dist import spmd
 from ..dist.sharding import (P, NamedSharding, ambient_mesh, as_mesh,
                              batch_axes, broadcast_specs, lm_param_specs,
                              map_specs)
+from ..exec.gat import AttentionPlan
 from ..models.gat import gat_init, gat_loss
 from ..models.gcn import gcn_init, gcn_loss
 from ..models.nequip import nequip_energy, nequip_init
@@ -324,7 +325,8 @@ class GNNBundle:
                                         self.n_classes], device=device)
         if self.arch == "gat":
             return gat_init(generator, d_feat, kw["d_hidden"], kw["n_heads"],
-                            self.n_classes, kw["n_layers"], device=device)
+                            self.n_classes, kw["n_layers"], device=device,
+                            out_heads=kw.get("out_heads", 1))
         if self.arch == "pna":
             return pna_init(generator, d_feat, kw["d_hidden"],
                             kw["n_layers"], self.n_classes, device=device)
@@ -341,12 +343,16 @@ class GNNBundle:
         ``GraphExecutionPlan`` routes the aggregation through the block-ELL
         plan; ``executor="fused"`` + one ``LayerExecutionPlan`` per layer
         folds the update in too (the plans are closed over; their
-        hand-written backwards keep the loss differentiable).  GAT and PNA
-        run the reference's segment ops, with its ``mean_log_deg = 2.0``;
-        NequIP's loss is the squared error of the summed energy (over the
-        ``train_mask`` nodes) against ``energy_target``.  Those three have
-        no kernel executor: another ``executor`` than ``"segment"`` raises
-        (the reference ignores it).  ``remat`` runs PNA's layers under
+        hand-written backwards keep the loss differentiable).  GAT runs the
+        reference's segment ops, or with ``executor="fused"`` and an
+        ``exec.gat.AttentionPlan`` (built with the model's ``self_loops``)
+        the ``gat::`` kernels; its ``model_kw`` may add ``out_heads``,
+        ``skip`` and ``self_loops`` (``models.gat``).  PNA runs the
+        reference's segment ops, with its ``mean_log_deg = 2.0``; NequIP's
+        loss is the squared error of the summed energy (over the
+        ``train_mask`` nodes) against ``energy_target``.  Those two have no
+        kernel executor, and GAT no other: another ``executor`` raises (the
+        reference ignores it).  ``remat`` runs PNA's layers under
         ``torch.utils.checkpoint`` (other archs raise).
 
         Under ``dist.sharding.use_mesh`` (read when the loss runs) it is
@@ -358,7 +364,11 @@ class GNNBundle:
         segment path only."""
         if self.arch not in ("gcn", "gat", "pna", "nequip"):
             raise ValueError(f"unknown GNN arch {self.arch!r}")
-        if self.arch != "gcn" and executor != "segment":
+        if self.arch == "gat" and executor not in ("segment", "fused"):
+            raise ValueError(f"arch 'gat' has no kernel executor "
+                             f"{executor!r}: its attention runs segment ops "
+                             "or, with executor='fused', an attention plan")
+        if self.arch in ("pna", "nequip") and executor != "segment":
             raise ValueError(f"arch {self.arch!r} has no kernel executor "
                              f"(got executor={executor!r}); its "
                              "aggregations are segment ops")
@@ -369,7 +379,16 @@ class GNNBundle:
                              "(repro_torch.exec.build_plan)")
         if executor == "fused" and not exec_plan:
             raise ValueError("executor='fused' needs per-layer plans "
-                             "(repro_torch.exec.build_layer_plan)")
+                             "(repro_torch.exec.build_layer_plan), or for "
+                             "GAT an attention plan "
+                             "(repro_torch.exec.gat.build_attention_plan)")
+        if (self.arch == "gat" and executor == "fused"
+                and not isinstance(exec_plan, AttentionPlan)):
+            raise ValueError("GAT's executor='fused' needs an attention plan "
+                             "(repro_torch.exec.gat.build_attention_plan), "
+                             f"got {type(exec_plan).__name__}")
+        gat_kw = {k: self.model_kw[k] for k in ("skip", "self_loops")
+                  if k in self.model_kw}
 
         def loss(params, batch):
             mesh = ambient_mesh()
@@ -391,7 +410,8 @@ class GNNBundle:
             args = (params, batch["x"], graph, batch["labels"],
                     batch["train_mask"])
             if self.arch == "gat":
-                return gat_loss(*args, mesh=mesh)
+                return gat_loss(*args, mesh=mesh, executor=executor,
+                                plan=exec_plan, **gat_kw)
             if self.arch == "pna":
                 return pna_loss(*args, remat=remat, mesh=mesh)
             return gcn_loss(*args, executor=executor, plans=exec_plan,

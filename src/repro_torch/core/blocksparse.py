@@ -14,6 +14,10 @@ finds in each destination row: its set entries in slot-then-k order, as
 (source node, coefficient) lists behind CSR-style row pointers.  Where the
 tiles are sparse the lists are a few thousandth of their bytes, and the
 compact kernels walk them instead (``exec/plan.py`` chooses).
+
+``attention_lists`` builds the lists GAT's attention walks
+(``exec/gat.py``): every edge an entry, with no coefficient and one self
+loop a node, and the transposed lists, each entry with its forward place.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..graph.structure import Graph
 
@@ -298,6 +303,58 @@ def row_lists(g: Graph, bm: int = 128, bk: int = 128) -> RowLists:
     return RowLists(row_ptr=row_ptr.astype(np.int32),
                     src=(key % n).astype(np.int32), coef=coef,
                     n_active=int(n_active))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionLists:
+    """Both directions of an edge-softmax attention over a graph, as
+    per-row entry lists with no coefficients: each edge is an entry (a
+    duplicate edge is two), with one self loop a node where asked.
+
+    row_ptr, src:      row v lists its sources j, ascending;
+    row_ptr_t, dst_t:  the transposed lists, row j lists the rows v that
+                       list j, ascending;
+    fwd_pos:           (nnz,) int32, the place among ``src``'s entries of
+                       each entry of ``dst_t``: the same edge."""
+
+    row_ptr: np.ndarray
+    src: np.ndarray
+    row_ptr_t: np.ndarray
+    dst_t: np.ndarray
+    fwd_pos: np.ndarray
+
+    @property
+    def nnz(self) -> int:
+        return int(self.src.shape[0])
+
+
+def attention_lists(g: Graph, self_loops: bool = True) -> AttentionLists:
+    """The :class:`AttentionLists` of ``g``'s valid edges (edges flow src
+    -> dst; its weights are not read), with ``(v, v)`` added for every node
+    where ``self_loops``."""
+    n = g.num_nodes
+    valid = g.edge_mask if g.edge_mask is not None else np.ones(g.num_edges, bool)
+    src = g.src[valid].astype(np.int64)
+    dst = g.dst[valid].astype(np.int64)
+    if self_loops:
+        loops = np.arange(n, dtype=np.int64)
+        src, dst = np.concatenate([src, loops]), np.concatenate([dst, loops])
+    # stable sorts (torch's, threaded: a third of numpy's time at REDDIT's
+    # 28 M entries): the forward order is (dst, src), and sorted again by
+    # src, stably, it becomes the transposed order (src, dst)
+    fwd = torch.sort(torch.from_numpy(dst * n + src), stable=True)[1].numpy()
+    bwd = fwd[torch.sort(torch.from_numpy(src[fwd]), stable=True)[1].numpy()]
+    place = np.empty(fwd.size, np.int64)
+    place[fwd] = np.arange(fwd.size)
+
+    def ptr(rows):
+        out = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=n), out=out[1:])
+        return out.astype(np.int32)
+
+    return AttentionLists(row_ptr=ptr(dst), src=src[fwd].astype(np.int32),
+                          row_ptr_t=ptr(src), dst_t=dst[bwd].astype(np.int32),
+                          fwd_pos=place[bwd].astype(np.int32))
 
 
 def transpose_graph(g: Graph) -> Graph:

@@ -261,3 +261,72 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.where(valid.any(dim=1)[:, None, None], probs,
                         torch.zeros_like(probs))
     return torch.einsum("bhs,bshd->bhd", probs, vx).to(q.dtype)
+
+
+def _list_rows(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The row of each entry of per-row lists."""
+    n = row_ptr.shape[0] - 1
+    return torch.repeat_interleave(torch.arange(n, device=row_ptr.device),
+                                   torch.diff(row_ptr.long()))
+
+
+def gat_attention_ref(row_ptr: torch.Tensor, src: torch.Tensor,
+                      z: torch.Tensor, s_src: torch.Tensor,
+                      s_dst: torch.Tensor, *, negative_slope: float):
+    """Edge-softmax attention over per-row entry lists.  For destination
+    row v, head h and v's entries j (``src[row_ptr[v]:row_ptr[v + 1]]``):
+    ``e_vj = LeakyReLU(s_dst[v, h] + s_src[j, h])``, ``α = softmax_j(e)``,
+    ``out[v, h] = Σ_j α_vj z[j, h]`` and ``lse[v, h] = log Σ_j exp e_vj``.
+
+    z: (n_src, H, F); s_src: (n_src, H); s_dst: (n_dst, H).  Returns
+    ``(out (n_dst, H, F), lse (n_dst, H))``; a row with no entry gets 0 in
+    both."""
+    rows, j = _list_rows(row_ptr), src.long()
+    n_dst, H = s_dst.shape
+    e = F.leaky_relu(s_dst[rows] + s_src[j], negative_slope)
+    m = s_dst.new_full((n_dst, H), float("-inf")).scatter_reduce_(
+        0, rows[:, None].expand_as(e), e, "amax")
+    p = torch.exp(e - m[rows])
+    den = s_dst.new_zeros((n_dst, H)).index_add_(0, rows, p)
+    out = z.new_zeros((n_dst, H, z.shape[2])).index_add_(
+        0, rows, z[j] * p[:, :, None])
+    has = den > 0
+    out = out / torch.where(has, den, torch.ones_like(den))[:, :, None]
+    lse = torch.where(has, m + torch.log(den), torch.zeros_like(den))
+    return out, lse
+
+
+def gat_attention_bwd_ref(row_ptr: torch.Tensor, row_ptr_t: torch.Tensor,
+                          dst_t: torch.Tensor, fwd_pos: torch.Tensor,
+                          z: torch.Tensor, s_src: torch.Tensor,
+                          s_dst: torch.Tensor, lse: torch.Tensor,
+                          row_dot: torch.Tensor, dout: torch.Tensor, *,
+                          negative_slope: float):
+    """The backward of :func:`gat_attention_ref`, walked as the kernels walk
+    it.  Over the transposed lists (source j's entries ``dst_t[row_ptr_t[j]
+    :row_ptr_t[j + 1]]`` are the rows i that list j), with α recomputed
+    from the scores and ``lse``:
+
+    * ``dz[j] = Σ_i α_ij dout[i]``;
+    * ``de_ij = α_ij (dout[i]·z[j] − row_dot[i])``, ``row_dot = Σ_F dout ⊙
+      out`` (each row's term, computed once a row);
+    * ``dpre_ij = de_ij`` where ``s_dst[i] + s_src[j] > 0``, else
+      ``negative_slope · de_ij``; ``ds_src[j] = Σ_i dpre_ij``;
+
+    and ``ds_dst[i] = Σ_j dpre_ij`` over row i's forward entries, each
+    ``dpre`` put at its forward place ``fwd_pos`` (the transposed entry's
+    place among the forward lists' entries).  Returns ``(dz, ds_src,
+    ds_dst)``."""
+    cols, i = _list_rows(row_ptr_t), dst_t.long()
+    pre = s_src[cols] + s_dst[i]
+    alpha = torch.exp(F.leaky_relu(pre, negative_slope) - lse[i])
+    g = dout[i]
+    de = alpha * (torch.sum(g * z[cols], dim=-1) - row_dot[i])
+    dpre = torch.where(pre > 0, de, de * negative_slope)
+    dz = torch.zeros_like(z).index_add_(0, cols, g * alpha[:, :, None])
+    ds_src = torch.zeros_like(s_src).index_add_(0, cols, dpre)
+    at_fwd = torch.empty_like(dpre)
+    at_fwd[fwd_pos.long()] = dpre
+    ds_dst = torch.zeros_like(s_dst).index_add_(0, _list_rows(row_ptr),
+                                                at_fwd)
+    return dz, ds_src, ds_dst

@@ -6,7 +6,8 @@ ranks with ``--dist``), wide & deep and the LMs (dense and MoE) on the port
       --steps 50 [--executor auto|forward|fused|blockell|segment] \\
       [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
-      --steps 50 [--device cpu]          (also pna, nequip)
+      --steps 50 [--executor segment|fused] [--device cpu]
+                                         (also gat-reddit; pna, nequip)
   PYTHONPATH=src python -m repro_torch.launch.train --arch wide-deep \\
       --steps 50 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
@@ -29,8 +30,13 @@ the DP over the cache or, cold, the FLOP/byte model, without measuring
 (``exec.plan_forward``).  ``blockell`` (one aggregation plan plus a separate
 matmul) and ``segment`` (the edge list) work as in the reference.
 ``gat-cora``, ``pna`` and ``nequip`` train on the same graph through their
-segment ops (no kernel, as in the reference); an explicit kernel executor
-(``forward``, ``fused``, ``blockell``) raises for them.
+segment ops (no kernel, as in the reference) under ``auto`` and
+``segment``.  GAT's ``fused`` builds an attention plan
+(``exec.gat.build_attention_plan``) and runs the ``gat::`` kernels (their
+plain versions on the CPU); ``gat-reddit``, GAT's inductive model at its
+published widths (4 x 256, 4 x 256 with a skip, 6 heads averaged, self
+loops), trains the same way on the same Cora.  Every other kernel
+executor raises for GAT, and every one for PNA and NequIP.
 
 ``--arch wide-deep`` trains the ``REDUCED`` config as the reference does:
 batches of 256 from ``recsys_batches``, ``adam(1e-3)``, both sparse lookups
@@ -72,6 +78,7 @@ from ..configs.wide_deep import REDUCED
 from ..core import minhash_reorder
 from ..device import resolve_device
 from ..exec import autotune_forward, build_plan, gcn_chain, plan_forward
+from ..exec.gat import build_attention_plan
 from ..graph import cora_like
 from ..models.recsys import widedeep_init, widedeep_loss
 from ..models.transformer import lm_init, lm_loss
@@ -129,9 +136,9 @@ def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "auto",
     """The reference's ``gnn_driver``: seed-0 weights, ``adam(1e-2)``, clip
     1.0, the full-graph batch of the reordered Cora.  GCN runs
     ``executor``'s plans; GAT, PNA and NequIP run their segment ops under
-    ``auto`` and ``segment``, and their ``GNNBundle.loss_fn`` raises for a
-    kernel executor (the reference prints a warning and runs the segment
-    path).  NequIP takes
+    ``auto`` and ``segment``; GAT runs an attention plan under ``fused``;
+    otherwise their ``GNNBundle.loss_fn`` raises for a kernel executor (the
+    reference prints a warning and runs the segment path).  NequIP takes
     ``species = labels % 10``, ``pos = node_feat[:, :3]`` and an energy
     target of 0."""
     dev = resolve_device(device)
@@ -141,7 +148,11 @@ def gnn_driver(arch: str, steps: int, ckpt=None, executor: str = "auto",
     g = training_graph()
     exec_plan = None
     loss_executor = executor
-    if bundle.arch != "gcn":
+    if bundle.arch == "gat" and executor == "fused":
+        exec_plan = build_attention_plan(
+            g, self_loops=bundle.model_kw.get("self_loops", False),
+            device=dev)
+    elif bundle.arch != "gcn":
         loss_executor = "segment" if executor == "auto" else executor
     elif executor in ("auto", "forward", "fused"):
         specs = gcn_chain([g.node_feat.shape[1], *bundle.model_kw["hidden"],

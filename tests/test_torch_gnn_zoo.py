@@ -571,10 +571,19 @@ def test_one_step_fn_step_matches_reference(arch, small, mols):
 
 @pytest.mark.parametrize("arch", ["gat-cora", "pna", "nequip"])
 def test_bundle_refuses_kernel_executors(arch):
+    """GAT takes ``fused`` with an attention plan alone
+    (``tests/test_torch_gat_fused.py``); every other kernel executor is
+    refused, and every one for PNA and NequIP."""
     bundle = get(arch).bundle()
-    for executor in ("blockell", "fused", "shared"):
+    refused = (("blockell", "shared") if arch == "gat-cora"
+               else ("blockell", "fused", "shared"))
+    for executor in refused:
         with pytest.raises(ValueError, match="no kernel executor"):
             bundle.loss_fn("full_graph_sm", executor=executor,
+                           exec_plan=object())
+    if arch == "gat-cora":
+        with pytest.raises(ValueError, match="needs an attention plan"):
+            bundle.loss_fn("full_graph_sm", executor="fused",
                            exec_plan=object())
     with pytest.raises(ValueError, match="unknown GNN arch"):
         GNNBundle("moe", {}).init_params(torch.Generator(), 4, device="cpu")

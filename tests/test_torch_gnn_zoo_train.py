@@ -210,9 +210,19 @@ def test_full_width_pna_fp64_training_matches_reference(
 
 @pytest.mark.parametrize("executor", ["fused", "forward", "blockell"])
 def test_launcher_kernel_executor_raises_for_gat(executor):
+    """GAT's one kernel executor is ``fused`` (an attention plan over the
+    ``gat::`` kernels, their plain versions on the CPU): the launcher's
+    losses equal the segment path's at 1e-5.  The others raise."""
+    argv = ["--arch", "gat-cora", "--steps", "3", "--device", "cpu"]
+    if executor == "fused":
+        fused = train_launcher.main(argv + ["--executor", "fused"])
+        seg = train_launcher.main(argv + ["--executor", "segment"])
+        assert len(fused.losses) == 3
+        np.testing.assert_allclose(fused.losses, seg.losses, rtol=1e-5,
+                                   atol=0)
+        return
     with pytest.raises(ValueError, match="no kernel executor"):
-        train_launcher.main(["--arch", "gat-cora", "--steps", "1",
-                             "--device", "cpu", "--executor", executor])
+        train_launcher.main(argv + ["--executor", executor])
 
 
 def test_launcher_segment_executor_is_the_default_path():
